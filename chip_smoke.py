@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Drive the repro_torch serving path on one NVIDIA card and check it.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+and then, in order:
+
+1. **Engine** -- the main path: a ``TimeSurfaceEngine`` of 64 slots of
+   240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
+   with 64 attached sensors fed from seeded synthetic DND21-like scenes,
+   served for 10 deadlines of 10 ms.  Each deadline runs ``serve_step``
+   twice, on the two half-window bursts, with the FRAME spec (surface,
+   mask, STCF support, 4-bit count, EBBI): a dense fill, then an
+   incremental re-read of the dirty tiles.  The kernels' launch counters
+   are zeroed just before and read just after.  Checks: incremental ==
+   dense read bitwise; the engine's surface == ``ops.ts_decay`` of SAEs
+   built independently with ``time_surface.sae_update``, bitwise; the
+   SAE, counts, ``t_last`` and ``n_events`` == a CPU engine's on the same
+   events, bitwise; every kernel launched.
+2. **Kernels** -- each kernel at the engine's full width on the engine's
+   own state and a 10 ms push of ~2 M events, held against its plain
+   PyTorch version on the card (decay within 2 ULP, counts exact away
+   from the comparator threshold, scatter bitwise), and timed with CUDA
+   events (median over launches, L2 flushed before each) beside its plain
+   version, a one-call PyTorch yardstick where one exists (TF32 off), and
+   the least time the card could take (bytes over 3.35 TB/s, operations
+   over 67 TFLOP/s float32, the larger).
+
+Output: progress lines, one JSON line of the kernels, the card's
+``nvidia-smi`` name and power limit, and last the line
+``{"ok": true, "device": {...}}``.  Any failed check, build error or
+launch error exits nonzero without that line.  Without a CUDA device, or
+without the repository's sources beside it, it exits 2.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+S, P, H, W = 64, 2, 240, 320
+CAP = 2048
+N_SCENES = 8
+DEADLINES = 10
+DEADLINE_S = 0.010
+RADIUS = 3
+REPLACES = {
+    "ts_decay": "src/repro/kernels/ts_decay.py:107",
+    "stcf_support": "src/repro/kernels/stcf.py:86",
+    "chunk_scatter": "src/repro/kernels/ts_fused.py:81",
+}
+SOURCES = {
+    "ts_decay": "src/repro_torch/kernels/csrc/ts_decay.cu",
+    "stcf_support": "src/repro_torch/kernels/csrc/stcf.cu",
+    "chunk_scatter": "src/repro_torch/kernels/csrc/ts_fused.cu",
+}
+
+FAILURES: list = []
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    log(f"  [{'ok' if ok else 'FAIL'}] {what}")
+    if not ok:
+        FAILURES.append(what)
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(bits(a).cpu(), bits(b).cpu())
+
+
+class Timer:
+    """Median kernel time in ms from CUDA events around single launches,
+    with the 50 MB L2 flushed (and any per-launch state reset) outside the
+    timed region before each one."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, reps: int, setup=None) -> float:
+        for _ in range(2):
+            fn(setup() if setup else None)
+        times = []
+        for _ in range(reps):
+            arg = setup() if setup else None
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(arg)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: float, nops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def make_scenes(datasets, aer):
+    """Packed AER words per scene and half-deadline burst."""
+    kinds = ("driving", "hotel_bar")
+    duration = DEADLINES * DEADLINE_S
+    half = DEADLINE_S / 2
+    words = []
+    for k in range(N_SCENES):
+        s = datasets.dnd21_like(kinds[k % 2], H, W, duration, seed=k)
+        words.append([aer.pack(s.window(b * half, (b + 1) * half))
+                      for b in range(2 * DEADLINES)])
+    return words
+
+
+def run_engine(dev, mods, words, card):
+    """Phase 1: the serving loop.  Returns what the kernel phase needs."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    base = dict(h=H, w=W, polarities=P, n_slots=S, chunk_capacity=CAP,
+                mode="edram", specs=(frame,))
+    cfg = eng.TSEngineConfig(**base)
+    # a gather cap of the whole pool keeps every second burst on the
+    # incremental path, whatever share of tiles the burst dirties
+    cfg = dataclasses.replace(cfg, max_dirty_tiles=S * cfg.tile_counts()[2])
+    engine = eng.TimeSurfaceEngine(cfg)
+    sessions = [engine.attach() for _ in range(S)]
+    scene_of = [k % N_SCENES for k in range(S)]
+    bursts = [[(sessions[k], words[scene_of[k]][b]) for k in range(S)]
+              for b in range(2 * DEADLINES)]
+    tiles_total = engine.state.cache.dirty.numel()
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    step_ms, dirty_share, mismatched = [], [], []
+    t_wall = 0.0
+    for d in range(DEADLINES):
+        t_now = (d + 1) * DEADLINE_S
+        for half in range(2):
+            items = bursts[2 * d + half]
+            t0 = time.perf_counter()
+            out = engine.serve_step(items, frame, t_now)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t_wall += dt
+            step_ms.append(dt * 1e3)
+        path_counts = dict(_lib.LAUNCHES)   # the check read is not counted
+        dense = engine.read(rs.SURFACE_SPEC, t_now)["surface"]
+        _lib.LAUNCHES.update(path_counts)
+        if not same(out["surface"], dense):
+            mismatched.append(d)
+    launches = dict(_lib.LAUNCHES)
+    n_events = int(engine.state.surfaces.n_events.sum())
+
+    log(f"engine on {card}: {S} sensors x {P}x{H}x{W}, {DEADLINES} deadlines "
+        f"x 2 bursts, {n_events} events ingested in {t_wall:.4f} s of "
+        f"serve_step -> {n_events / t_wall:.1f} events/s")
+    steady = step_ms[2:]   # the first deadline pays first-touch costs
+    log(f"engine on {card}: serve_step (push + read) latency over deadlines "
+        f"2..{DEADLINES}: "
+        f"p50 {np.percentile(steady, 50):.3f} ms, "
+        f"p99 {np.percentile(steady, 99):.3f} ms "
+        f"(dense fill p50 {np.percentile(steady[0::2], 50):.3f} ms, "
+        f"incremental p50 {np.percentile(steady[1::2], 50):.3f} ms); "
+        f"first deadline {step_ms[0]:.3f} + {step_ms[1]:.3f} ms")
+    log(f"engine: every serve_step, ms: {[round(x, 3) for x in step_ms]}")
+    log(f"engine: kernel launches on the path: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched on the engine path ({n})")
+
+    check(not mismatched, f"incremental serve_step == dense read, bitwise, "
+          f"at every deadline (mismatched: {mismatched})")
+    t_end = DEADLINES * DEADLINE_S
+
+    # independent offline build: unpack every word a scene sent, sae_update
+    params = cfg.decay_params()
+    offline = []
+    for k in range(N_SCENES):
+        stream = aer.unpack(np.concatenate(words[k]), H, W)
+        batch = pipeline.to_event_batch(stream, device=dev)
+        offline.append(ts.sae_update(ts.empty_sae(H, W, P, dev), batch))
+    offline = torch.stack([offline[scene_of[k]] for k in range(S)])
+    check(same(offline, engine.state.surfaces.sae),
+          "engine SAE == offline sae_update SAE, bitwise")
+    check(same(ops.ts_decay(offline, t_end, params), out["surface"]),
+          "engine surface == ops.ts_decay(offline SAE), bitwise")
+
+    # the CPU port on the same events
+    cpu = eng.TimeSurfaceEngine(cfg, device="cpu")
+    cpu_sessions = [cpu.attach() for _ in range(S)]
+    for items in bursts:
+        cpu.push([(cpu_sessions[k], w) for k, (_, w) in enumerate(items)])
+        dirty_share.append(float(cpu.state.cache.dirty.float().mean()))
+        cpu.state.cache.dirty.zero_()
+    g, c = engine.state, cpu.state
+    for name, a, b in (("sae", g.surfaces.sae, c.surfaces.sae),
+                       ("t_last", g.surfaces.t_last, c.surfaces.t_last),
+                       ("n_events", g.surfaces.n_events, c.surfaces.n_events),
+                       ("counts", g.counts, c.counts)):
+        check(same(a, b), f"card {name} == CPU port {name}, bitwise")
+    log(f"engine: share of the pool's {tiles_total} dirty tiles written by "
+        f"one 5 ms burst: mean {np.mean(dirty_share):.4f}")
+    split_pass(eng, cfg, frame, words, scene_of)
+    return dict(engine=engine, cfg=cfg, t_end=t_end, launches=launches,
+                n_events=n_events, events_per_s=n_events / t_wall,
+                step_ms=step_ms)
+
+
+def split_pass(eng, cfg, frame, words, scene_of):
+    """Where a serve_step's time goes: the same bursts into a fresh engine,
+    each step run as its two halves -- ``push``, then the cached read
+    ``serve_step`` does after its push -- with the host-only part of the
+    push (cutting payloads into chunks, ``_collect``) timed on its own
+    first.  Runs after the path's launch counts were read."""
+    engine = eng.TimeSurfaceEngine(cfg)
+    for _ in range(S):
+        engine.attach()
+    rows = []
+    for b in range(2 * DEADLINES):
+        items = [(k, words[scene_of[k]][b]) for k in range(S)]
+        t_now = (b // 2 + 1) * DEADLINE_S
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._collect(items)
+        t1 = time.perf_counter()
+        engine.push(items)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        engine.serve_step([], frame, t_now)
+        torch.cuda.synchronize()
+        rows.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    r = np.array(rows[2:]) * 1e3
+    med = np.median(r, axis=0)
+    log(f"engine breakdown, every step (chunking, push, read) ms: "
+        f"{[tuple(round(x * 1e3, 3) for x in row) for row in rows]}")
+    log(f"engine breakdown, median ms over steps 3..{2 * DEADLINES}: host "
+        f"chunking alone {med[0]:.3f}; push (chunking + copy + scatter) "
+        f"{med[1]:.3f}; cached read {med[2]:.3f} (dense "
+        f"{np.median(r[0::2, 2]):.3f}, incremental {np.median(r[1::2, 2]):.3f})")
+
+
+def kernel_phase(dev, mods, words, run):
+    """Phase 2: each kernel vs its plain version, and its times."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stcf import stcf_support_cuda
+    from repro_torch.kernels.ts_decay import ts_decay_cuda
+    from repro_torch.kernels.ts_fused import chunk_scatter_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timer = Timer(dev)
+    engine, cfg, t_now = run["engine"], run["cfg"], run["t_end"]
+    sae = engine.state.surfaces.sae
+    params, v_tw = cfg.decay_params(), cfg.v_tw()
+    cells = sae.numel()
+    rows = []
+
+    # -- ts_decay: the Surface product's read of the whole pool
+    v = ts_decay_cuda(sae, t_now, params)
+    vr, mr = ref.ts_decay_ref(sae, t_now, params, v_tw)
+    _, m = ts_decay_cuda(sae, t_now, params, v_tw)
+    ulp = int(ref.ulp_distance(v, vr).max())
+    near = ref.ulp_distance(vr, torch.full_like(vr, v_tw)) <= 4
+    check(ulp <= 2, f"ts_decay within 2 ULP of its plain version ({ulp})")
+    check(torch.equal(m[~near], mr[~near]),
+          f"ts_decay mask exact away from v_tw ({int(near.sum())} cells "
+          "within 4 ULP)")
+    ms = timer(lambda _: ts_decay_cuda(sae, t_now, params), 30)
+    ms_mask = timer(lambda _: ts_decay_cuda(sae, t_now, params, v_tw), 30)
+    plain = timer(lambda _: ref.ts_decay_ref(sae, t_now, params), 10)
+    b_ms, b_by = bound_ms(8 * cells, 12 * cells)
+    log(f"ts_decay: {ms:.4f} ms (with mask {ms_mask:.4f} ms, bound "
+        f"{bound_ms(9 * cells, 13 * cells)[0]:.4f} ms), plain {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms")
+    rows.append(dict(name="ts_decay", max_abs_err=float((v - vr).abs().max()),
+                     max_ulp=ulp, near_threshold_cells=int(near.sum()),
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, ms_with_mask=ms_mask))
+
+    # -- stcf_support: the Stcf product (fused decay + compare + count)
+    s = stcf_support_cuda(sae, RADIUS, False, fused=(params, v_tw, t_now))
+    sr = ref.stcf_support_fused_ref(sae, RADIUS, params, v_tw, t_now)
+    near_p = ref.stcf_support_ref(near, RADIUS, include_self=True) > 0
+    check(torch.equal(s[~near_p], sr[~near_p]),
+          f"stcf_support fused exact away from v_tw ({int(near_p.sum())} "
+          "pixels see a near-threshold cell)")
+    check(torch.equal(s, stcf_support_cuda(m, RADIUS, False)),
+          "stcf_support fused == ts_decay mask -> stcf_support, bitwise")
+    sm = stcf_support_cuda(m, RADIUS, False)
+    check(torch.equal(sm, ref.stcf_support_ref(m, RADIUS)),
+          "stcf_support on the mask == its plain version")
+    ms = timer(lambda _: stcf_support_cuda(sae, RADIUS, False,
+                                           fused=(params, v_tw, t_now)), 30)
+    plain = timer(lambda _: ref.stcf_support_fused_ref(
+        sae, RADIUS, params, v_tw, t_now), 5)
+    ms_m = timer(lambda _: stcf_support_cuda(m, RADIUS, False), 30)
+    plain_m = timer(lambda _: ref.stcf_support_ref(m, RADIUS), 5)
+    k = 2 * RADIUS + 1
+    ones = torch.ones((1, 1, k, k), device=dev)
+    ones[..., RADIUS, RADIUS] = 0.0
+    mf = m.reshape(-1, 1, H, W).float()
+    conv = torch.nn.functional.conv2d(mf, ones, padding=RADIUS)
+    check(torch.equal(conv.round().int().reshape(sm.shape), sm),
+          "conv2d yardstick computes the same support counts")
+    lib_m = timer(lambda _: torch.nn.functional.conv2d(mf, ones,
+                                                       padding=RADIUS), 30)
+    b_ms, b_by = bound_ms(8 * cells, (12 + 2 * k) * cells)
+    log(f"stcf_support fused: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms; mask form: {ms_m:.4f} ms, plain {plain_m:.4f} ms, "
+        f"conv2d {lib_m:.4f} ms, bound "
+        f"{bound_ms(5 * cells, 2 * k * cells)[0]:.4f} ms")
+    rows.append(dict(name="stcf_support",
+                     max_abs_err=float((s - sr).abs().max()),
+                     near_threshold_pixels=int(near_p.sum()), ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, mask_form_ms=ms_m,
+                     mask_form_plain_ms=plain_m,
+                     mask_form_library_ms=lib_m))
+
+    # -- chunk_scatter: one 10 ms push of every sensor (~2 M events)
+    sids, fields = engine._collect(
+        [(k, np.concatenate(words[k % N_SCENES][2:4])) for k in range(S)])
+    ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
+    sids = torch.from_numpy(sids).to(dev)
+    n_ev = int(ev.valid.sum())
+    base = engine.state
+
+    def fresh(_=None):
+        return (base.surfaces.sae.clone(), base.cache.dirty.clone(),
+                base.counts.clone(), base.surfaces.t_last.clone(),
+                base.surfaces.n_events.clone())
+
+    outs = []
+    for fn in (chunk_scatter_cuda, ref.chunk_scatter_ref):
+        st = fresh()
+        fn(st[0], sids, ev, st[1], cfg.block, st[2], st[3], st[4])
+        outs.append(st)
+    exact = all(same(a, b) for a, b in zip(*outs))
+    check(exact, f"chunk_scatter == its plain version on {n_ev} events: SAE, "
+          "dirty, counts, t_last, n_events bitwise")
+    err = torch.nan_to_num(outs[0][0] - outs[1][0], nan=0.0).abs().max()
+    scat = lambda st: chunk_scatter_cuda(st[0], sids, ev, st[1], cfg.block,
+                                         st[2], st[3], st[4])
+    ms = timer(scat, 30, setup=fresh)
+    plain = timer(lambda st: ref.chunk_scatter_ref(
+        st[0], sids, ev, st[1], cfg.block, st[2], st[3], st[4]), 5,
+        setup=fresh)
+    ok = ev.valid & (ev.x >= 0) & (ev.x < W) & (ev.y >= 0) & (ev.y < H)
+    sid = sids.long()[:, None].expand_as(ev.x)
+    lin = (((sid * P + ev.p.long()) * H + ev.y.long()) * W + ev.x.long())
+    lin = torch.where(ok, lin, torch.zeros_like(lin)).flatten()
+    tval = torch.where(ok, ev.t, torch.full_like(ev.t, float("-inf"))).flatten()
+    lib = timer(lambda st: st[0].view(-1).scatter_reduce_(
+        0, lin, tval, "amax"), 30, setup=fresh)
+    ys, xs = ev.y.long()[ok], ev.x.long()[ok]
+    cells_hit = torch.unique(lin[ok.flatten()]).numel()
+    counts_hit = torch.unique((sid[ok] * H + ys) * W + xs).numel()
+    th, tw, tpl = ops.tile_geometry(H, W, cfg.block)
+    tiles_hit = torch.unique(sid[ok] * (P * tpl) + (ev.p.long()[ok] * th
+                             + ys // cfg.block[0]) * tw
+                             + xs // cfg.block[1]).numel()
+    nbytes = (17 * ev.x.numel() + 4 * sids.numel() + 8 * cells_hit
+              + 8 * counts_hit + tiles_hit + 16 * S)
+    b_ms, b_by = bound_ms(nbytes, 2 * n_ev)
+    log(f"chunk_scatter: {ev.x.shape[0]} chunks x {CAP}, {n_ev} valid events, "
+        f"{cells_hit} cells hit: {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"scatter_reduce_ amax (SAE only) {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"({nbytes} B)")
+    rows.append(dict(name="chunk_scatter", max_abs_err=float(err),
+                     bitwise=exact, events=n_ev, chunks=int(ev.x.shape[0]),
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the repro_torch sources are not beside "
+              f"{Path(__file__).name}; run it from a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import time_surface as ts
+    from repro_torch.events import aer, datasets, pipeline
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.serve import spec as rs
+    from repro_torch.serve import ts_engine as eng
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card}; torch.cuda.get_device_name: "
+        f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    _, info = _lib.library()
+    log(f"build: {info.seconds:.2f} s compile+link, "
+        f"{time.perf_counter() - t0:.2f} s to load -> {info.path}")
+    for line in info.ptxas.splitlines():
+        if "Used" in line or "Compiling entry" in line or line.startswith("=="):
+            log(f"  {line.strip()}")
+
+    t0 = time.perf_counter()
+    words = make_scenes(datasets, aer)
+    log(f"data: {N_SCENES} scenes x {2 * DEADLINES} bursts, "
+        f"{sum(len(w) for s in words for w in s)} events, "
+        f"{time.perf_counter() - t0:.2f} s")
+    mods = (_lib, ops, ts, aer, pipeline, rs, eng)
+    run = run_engine(dev, mods, words, card)
+    rows = kernel_phase(dev, mods, words, run)
+    torch.cuda.synchronize()
+
+    kernels = []
+    for row in rows:
+        name = row.pop("name")
+        kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
+                            replaces=REPLACES[name],
+                            launches=run["launches"][name],
+                            kernel_ms=row["ms"], **row))
+    log(json.dumps({"kernels": kernels}))
+    if FAILURES:
+        log(f"chip_smoke: {len(FAILURES)} check(s) failed:")
+        for f in FAILURES:
+            log(f"  {f}")
+        return 1
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Time-surface construction (paper Sec. II-B / III), as far as serving needs.
+
+The port of ``repro.core.time_surface``.  The SAE (surface of active
+events) stores the last write time per cell; "never written" is -inf, so
+``t_now - sae`` is +inf and every decay read maps it to 0.  Readout is
+lazy: nothing is computed between events.
+
+Event batches are fixed-capacity tensors (padded, ``valid`` masked), the
+layout the engine's scatter kernel takes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+NEVER = float("-inf")
+
+
+def rebase_times(t, epoch) -> np.ndarray:
+    """Rebase absolute timestamps against ``epoch`` (host-side, exact
+    float64 subtraction) and cast the *small* result to float32.
+
+    float32 carries ~24 mantissa bits: at t = 3600 s one ulp is ~0.4 ms,
+    coarser than event-camera microsecond stamps.  Every surface quantity
+    depends only on time differences, so a stream rebased to its first
+    event reads out bit-identically to the same stream offered at t = 0.
+    """
+    t64 = np.asarray(t, np.float64)
+    return (t64 - np.float64(epoch)).astype(np.float32)
+
+
+class EventBatch(NamedTuple):
+    """A fixed-capacity batch of AER events (padded with valid=False)."""
+
+    x: torch.Tensor      # (..., N) int32 column
+    y: torch.Tensor      # (..., N) int32 row
+    t: torch.Tensor      # (..., N) float32 seconds
+    p: torch.Tensor      # (..., N) int32 polarity in {0, 1}
+    valid: torch.Tensor  # (..., N) bool
+
+    def to(self, device) -> "EventBatch":
+        return EventBatch(*(f.to(device) for f in self))
+
+
+def empty_sae(h: int, w: int, polarities: int = 1, device=None) -> torch.Tensor:
+    """(P, H, W) float32 SAE initialized to 'never written'."""
+    return torch.full((polarities, h, w), NEVER, dtype=torch.float32,
+                      device=device)
+
+
+class SurfaceState(NamedTuple):
+    """One sensor's surface, or a pool of them along a leading slot axis."""
+
+    sae: torch.Tensor       # (..., P, H, W) float32 last-write times
+    t_last: torch.Tensor    # (...,) float32 latest valid event time
+    n_events: torch.Tensor  # (...,) int32 running count of valid events
+
+
+def surface_init(h: int, w: int, polarities: int = 1,
+                 device=None) -> SurfaceState:
+    """Fresh per-sensor surface state ('never written' everywhere)."""
+    return SurfaceState(
+        sae=empty_sae(h, w, polarities, device),
+        t_last=torch.zeros((), dtype=torch.float32, device=device),
+        n_events=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def scatter_max_(flat: torch.Tensor, idx: torch.Tensor,
+                 val: torch.Tensor) -> torch.Tensor:
+    """``flat[idx] = max(flat[idx], val)`` in place, duplicates combined by
+    max, in plain tensor ops (no scatter-reduce primitive).
+
+    Sorting by value and then stably by index puts each index's largest
+    value last in its run; those run ends are unique indices, so one
+    indexed assignment writes them.  max never rounds, so the result is
+    bitwise the reference's ``.at[].max``.
+    """
+    if idx.numel() == 0:
+        return flat
+    val, order = torch.sort(val, stable=True)
+    idx, order2 = torch.sort(idx[order], stable=True)
+    val = val[order2]
+    last = torch.ones_like(idx, dtype=torch.bool)
+    last[:-1] = idx[1:] != idx[:-1]
+    idx, val = idx[last], val[last]
+    flat[idx] = torch.maximum(flat[idx], val)
+    return flat
+
+
+def sae_update(sae: torch.Tensor, ev: EventBatch,
+               merge_polarity: bool = False) -> torch.Tensor:
+    """Scatter one (N,) event batch into a (P, H, W) SAE (max-combine),
+    returning a new SAE.
+
+    max-combine makes the update order-independent within a batch, which
+    is exactly the eDRAM semantics: a later write leaves the higher
+    voltage.  Invalid and out-of-range events write nothing.  This is the
+    offline builder; the serving engine writes through the scatter kernel
+    (``kernels.ops.chunk_scatter``).
+    """
+    pp, h, w = sae.shape
+    p = torch.zeros_like(ev.p) if merge_polarity or pp == 1 else ev.p
+    ok = (ev.valid & (ev.x >= 0) & (ev.x < w) & (ev.y >= 0) & (ev.y < h)
+          & (p >= 0) & (p < pp))
+    idx = (p.long() * h + ev.y.long()) * w + ev.x.long()
+    out = sae.clone()
+    scatter_max_(out.view(-1), idx[ok], ev.t[ok])
+    return out
+
+
+def surface_read_kernel(state: SurfaceState, t_now, params) -> torch.Tensor:
+    """Kernel-backed readout of a SurfaceState (any leading batch dims).
+
+    The serving engine reads its whole slot pool through this same entry
+    (``kernels.ops.ts_decay``), so an offline reader and the engine are
+    bit-identical given equal SAE state.
+    """
+    from repro_torch.kernels import ops  # deferred: kernels sit above core
+
+    return ops.ts_decay(state.sae, t_now, params)

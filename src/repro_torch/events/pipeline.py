@@ -1,0 +1,70 @@
+"""Host event streams -> fixed-capacity ``EventBatch`` tensors.
+
+The port of ``to_event_batch`` and ``window_chunks`` from
+``repro.events.pipeline``.  Padding is ``valid=False`` zeros; the scatter
+writes nothing for invalid events, so pad values never reach a surface.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import time_surface as ts
+from repro_torch.events import synthetic as syn
+
+
+def _batch(fields, device) -> ts.EventBatch:
+    return ts.EventBatch(*(torch.from_numpy(f).to(device) for f in fields))
+
+
+def to_event_batch(s: syn.EventStream, capacity: Optional[int] = None,
+                   device=None) -> ts.EventBatch:
+    """Pad/truncate a host stream to a fixed-capacity EventBatch."""
+    n = s.n if capacity is None else capacity
+    pad = max(0, n - s.n)
+    cut = min(s.n, n)
+    return _batch((
+        np.pad(s.x[:cut], (0, pad)).astype(np.int32),
+        np.pad(s.y[:cut], (0, pad)).astype(np.int32),
+        np.pad(s.t[:cut], (0, pad)).astype(np.float32),
+        np.pad(s.p[:cut], (0, pad)).astype(np.int32),
+        np.pad(np.ones(cut, bool), (0, pad), constant_values=False),
+    ), device)
+
+
+def window_chunks(s: syn.EventStream, window_s: float,
+                  capacity_per_window: int, device=None) -> ts.EventBatch:
+    """Bin a stream into fixed windows: (K, capacity) EventBatch fields.
+
+    Each event lands in exactly one window.  Overflowing windows keep
+    their first ``capacity`` events in time order; short windows are
+    padded with ``valid=False`` zeros.
+    """
+    cap = capacity_per_window
+    if not s.n:
+        return _batch((np.zeros((1, cap), np.int32),
+                       np.zeros((1, cap), np.int32),
+                       np.zeros((1, cap), np.float32),
+                       np.zeros((1, cap), np.int32),
+                       np.zeros((1, cap), bool)), device)
+    k = int(np.ceil(s.t[-1] / window_s))
+    idx = np.minimum((s.t / window_s).astype(np.int64), k - 1)
+    # events of one window are contiguous in the time-sorted stream: each
+    # event's position is its running index minus its window's start
+    starts = np.zeros(k, np.int64)
+    np.add.at(starts, idx, 1)
+    starts = np.concatenate(([0], np.cumsum(starts)[:-1]))
+    pos = np.arange(s.n, dtype=np.int64) - starts[idx]
+    keep = pos < cap
+
+    def fill(src, dtype):
+        out = np.zeros((k, cap), dtype)
+        out[idx[keep], pos[keep]] = src[keep].astype(dtype)
+        return out
+
+    valid = np.zeros((k, cap), bool)
+    valid[idx[keep], pos[keep]] = True
+    return _batch((fill(s.x, np.int32), fill(s.y, np.int32),
+                   fill(s.t, np.float32), fill(s.p, np.int32), valid), device)

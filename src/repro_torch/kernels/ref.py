@@ -1,0 +1,115 @@
+"""Plain PyTorch versions of every kernel (the correctness contracts).
+
+The CPU path of ``kernels.ops`` runs these, and ``chip_smoke.py`` holds
+each CUDA kernel against them on the card.  Each is written one
+elementwise op per step, in the order of the kernel's arithmetic, so the
+CUDA kernel (IEEE, no FMA contraction) can match it bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import time_surface as ts
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-element distance between two float32 tensors in ULP steps
+    (the bits mapped onto one monotone integer line, on which +0 and -0
+    coincide), as int64."""
+    def key(x):
+        i = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -0x80000000 - i, i)
+
+    return (key(a) - key(b)).abs()
+
+
+def _f32(x, device) -> torch.Tensor:
+    # a 0-dim tensor on the data's device, never a host scalar: PyTorch's
+    # elementwise kernels may take a host-scalar operand down another path
+    # (a divisor through its reciprocal), which would cost the last bit
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def ts_decay_ref(sae: torch.Tensor, t_now, params,
+                 v_tw: Optional[float] = None):
+    """Double-exp readout of an SAE (+ the comparator mask ``v > v_tw``).
+
+    ``params`` holds float32 scalars, or (H, W) planes broadcast over the
+    leading dims (time constants clamped at 1e-9 s, as the TPU kernel's
+    driver clamps them).
+    """
+    dev = sae.device
+    a1, tau1, a2, tau2, b = (_f32(x, dev) for x in params)
+    if params.varied:
+        tau1, tau2 = tau1.clamp_min(1e-9), tau2.clamp_min(1e-9)
+    dt = _f32(t_now, dev) - sae
+    v = a1 * torch.exp(-dt / tau1) + a2 * torch.exp(-dt / tau2) + b
+    v = torch.where(torch.isfinite(sae), v, torch.zeros_like(v))
+    if v_tw is None:
+        return v
+    return v, v > _f32(v_tw, dev)
+
+
+def stcf_support_ref(mask: torch.Tensor, radius: int,
+                     include_self: bool = False) -> torch.Tensor:
+    """(2r+1)^2 patch count of a (..., H, W) bool mask, zero outside."""
+    r = radius
+    h, w = mask.shape[-2:]
+    x = torch.nn.functional.pad(mask.to(torch.int32), (r, r, r, r))
+    acc = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            if include_self or (dy, dx) != (r, r):
+                acc += x[..., dy:dy + h, dx:dx + w]
+    return acc
+
+
+def stcf_support_fused_ref(sae, radius, params, v_tw, t_now,
+                           include_self=False) -> torch.Tensor:
+    """SAE -> decay -> comparator -> support, composed from the above."""
+    _, m = ts_decay_ref(sae, t_now, params, v_tw=v_tw)
+    return stcf_support_ref(m, radius, include_self)
+
+
+def chunk_scatter_ref(
+    sae: torch.Tensor,                       # (S, P, H, W), updated in place
+    slot_ids: torch.Tensor,                  # (B,) int32
+    ev: ts.EventBatch,                       # (B, N) fields
+    dirty: Optional[torch.Tensor] = None,    # (S, TP) bool
+    block: Tuple[int, int] = (8, 128),       # dirty-tile (bh, bw)
+    counts: Optional[torch.Tensor] = None,   # (S, H, W) int32
+    t_last: Optional[torch.Tensor] = None,   # (S,) float32
+    n_events: Optional[torch.Tensor] = None, # (S,) int32
+) -> None:
+    """Max-combine B event chunks into their slots, in place, and update
+    the dirty-tile marks, the polarity-merged counter plane and each
+    slot's ``t_last``/``n_events`` (the reference engine's
+    ``_scatter_chunks``).
+
+    One plane (P == 1) merges polarity.  Invalid events, events outside
+    the plane or the polarity range, and rows aimed outside [0, S) touch
+    nothing.
+    """
+    s, p, h, w = sae.shape
+    sid = slot_ids.long()[:, None].expand(ev.x.shape)
+    pol = torch.zeros_like(ev.p) if p == 1 else ev.p
+    ok = (ev.valid & (ev.x >= 0) & (ev.x < w) & (ev.y >= 0) & (ev.y < h)
+          & (pol >= 0) & (pol < p) & (sid >= 0) & (sid < s))
+    sid, pol = sid[ok], pol[ok].long()
+    x, y, t = ev.x[ok].long(), ev.y[ok].long(), ev.t[ok]
+    ts.scatter_max_(sae.view(-1), ((sid * p + pol) * h + y) * w + x, t)
+    if dirty is not None:
+        bh, bw = block
+        th, tw = -(-h // bh), -(-w // bw)
+        tid = (pol * th + y // bh) * tw + x // bw
+        dirty.view(-1)[sid * dirty.shape[1] + tid] = True
+    if counts is not None:
+        cells, n = torch.unique(sid * (h * w) + y * w + x, return_counts=True)
+        counts.view(-1)[cells] += n.to(torch.int32)
+    if t_last is not None:
+        ts.scatter_max_(t_last, sid, t)
+    if n_events is not None:
+        slots, n = torch.unique(sid, return_counts=True)
+        n_events[slots] += n.to(torch.int32)

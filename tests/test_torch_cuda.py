@@ -1,0 +1,151 @@
+"""repro_torch's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA card (Hopper, ``sm_90a``) and ``nvcc``;
+they are marked ``gpu`` and skip inside the ``cuda`` fixture where there
+is no card.  Run them on the card with::
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
+
+Bands: decay reads <= 2 ULP from the plain version on the same device (0
+expected: both are IEEE float32 with the same ``expf``), comparator masks
+and support counts exact away from the threshold, scatter results bitwise.
+"""
+import pytest
+import torch
+
+from repro_torch.core import edram
+from repro_torch.core import time_surface as ts
+from repro_torch.events import aer, datasets
+from repro_torch.kernels import _lib, ops, ref
+from repro_torch.serve import spec as rs
+from repro_torch.serve import ts_engine as eng
+
+pytestmark = pytest.mark.gpu
+
+SHAPE = (4, 2, 60, 100)
+T_NOW = 0.1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m gpu)")
+    return torch.device("cuda")
+
+
+def _sae(device, seed=0, shape=SHAPE):
+    g = torch.Generator().manual_seed(seed)
+    sae = torch.rand(shape, generator=g) * T_NOW
+    sae[torch.rand(shape, generator=g) < 0.3] = float("-inf")
+    return sae.to(device)
+
+
+def _near(v, v_tw, radius):
+    near = ref.ulp_distance(v, torch.full_like(v, v_tw)) <= 4
+    return ref.stcf_support_ref(near, radius, include_self=True) > 0
+
+
+@pytest.mark.parametrize("offset", [0, 1])   # float4 path, then unaligned
+def test_ts_decay_matches_plain(cuda, offset):
+    p = edram.decay_params_for_cmem()
+    v_tw = edram.v_tw_for_window(0.024, p)
+    sae = _sae(cuda).flatten()[offset:offset + 40001]
+    before = _lib.LAUNCHES["ts_decay"]
+    v, m = ops.ts_decay_with_mask(sae, T_NOW, p, v_tw)
+    vr, mr = ref.ts_decay_ref(sae, T_NOW, p, v_tw)
+    assert _lib.LAUNCHES["ts_decay"] == before + 1
+    assert int(ref.ulp_distance(v, vr).max()) <= 2
+    far = ref.ulp_distance(vr, torch.full_like(vr, v_tw)) > 4
+    assert torch.equal(m[far], mr[far])
+    assert torch.equal(ops.ts_decay(sae, T_NOW, p), v)
+
+
+def test_ts_decay_planes_matches_plain(cuda):
+    base = edram.decay_params_for_cmem()
+    g = torch.Generator().manual_seed(1)
+    hw = SHAPE[-2:]
+    eps = 1.0 + 0.05 * torch.randn((2,) + hw, generator=g)
+    planes = edram.DecayParams(
+        torch.full(hw, float(base.a1)), float(base.tau1) / eps[0],
+        torch.full(hw, float(base.a2)), float(base.tau2) / eps[1],
+        torch.full(hw, float(base.b)))
+    planes = edram.DecayParams(*(x.float().to(cuda) for x in planes))
+    sae = _sae(cuda, 2)
+    v = ops.ts_decay(sae, T_NOW, planes)
+    assert int(ref.ulp_distance(v, ref.ts_decay_ref(sae, T_NOW, planes))
+               .max()) <= 2
+
+
+@pytest.mark.parametrize("radius", [0, 1, 3, 7, 16])
+@pytest.mark.parametrize("include_self", [False, True])
+def test_stcf_support_matches_plain(cuda, radius, include_self):
+    p = edram.decay_params_for_cmem()
+    v_tw = edram.v_tw_for_window(0.024, p)
+    sae = _sae(cuda, 3)
+    fused = ops.stcf_support_fused(sae, p, v_tw, T_NOW, radius, include_self)
+    _, m = ops.ts_decay_with_mask(sae, T_NOW, p, v_tw)
+    assert torch.equal(fused, ops.stcf_support(m, radius, include_self))
+    plain = ref.stcf_support_fused_ref(sae, radius, p, v_tw, T_NOW,
+                                       include_self)
+    far = ~_near(ref.ts_decay_ref(sae, T_NOW, p), v_tw, radius)
+    assert torch.equal(fused[far], plain[far])
+    assert torch.equal(ops.stcf_support(m, radius, include_self),
+                       ref.stcf_support_ref(m, radius, include_self))
+
+
+def test_chunk_scatter_matches_plain(cuda):
+    s, p, h, w, block = SHAPE + ((8, 128),)
+    g = torch.Generator().manual_seed(4)
+    b, n = 37, 500
+    ev = ts.EventBatch(
+        x=torch.randint(-3, w + 3, (b, n), generator=g, dtype=torch.int32),
+        y=torch.randint(-3, h + 3, (b, n), generator=g, dtype=torch.int32),
+        t=torch.rand((b, n), generator=g) * 0.2 - 0.05,
+        p=torch.randint(-1, p + 1, (b, n), generator=g, dtype=torch.int32),
+        valid=torch.rand((b, n), generator=g) < 0.9).to(cuda)
+    sids = torch.randint(-1, s + 1, (b,), generator=g,
+                         dtype=torch.int32).to(cuda)
+    _, _, tpl = ops.tile_geometry(h, w, block)
+    outs = []
+    for fn in (ops.chunk_scatter_, ref.chunk_scatter_ref):
+        st = (_sae(cuda, 5), torch.zeros((s, p * tpl), dtype=torch.bool,
+                                         device=cuda),
+              torch.zeros((s, h, w), dtype=torch.int32, device=cuda),
+              torch.zeros(s, device=cuda),
+              torch.zeros(s, dtype=torch.int32, device=cuda))
+        fn(st[0], sids, ev, st[1], block, st[2], st[3], st[4])
+        outs.append(st)
+    for a, b_ in zip(*outs):
+        if a.dtype == torch.float32:
+            a, b_ = a.view(torch.int32), b_.view(torch.int32)
+        assert torch.equal(a, b_)
+
+
+def test_engine_on_card_matches_cpu_port(cuda):
+    cfg = eng.TSEngineConfig(h=60, w=100, polarities=2, n_slots=4,
+                             chunk_capacity=256, specs=(
+                                 rs.ReadoutSpec(count=rs.Count(4)),))
+    gpu, cpu = eng.TimeSurfaceEngine(cfg), eng.TimeSurfaceEngine(cfg, "cpu")
+    for e in (gpu, cpu):
+        for _ in range(cfg.n_slots):
+            e.attach()
+    items = [(k, aer.pack(datasets.dnd21_like(
+        ("driving", "hotel_bar")[k % 2], 60, 100, 0.05, seed=k)))
+        for k in range(cfg.n_slots)]
+    _lib.reset_launches()
+    gpu.push(items)
+    cpu.push(items)
+    for a, b in ((gpu.state.surfaces.sae, cpu.state.surfaces.sae),
+                 (gpu.state.surfaces.t_last, cpu.state.surfaces.t_last)):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    for a, b in ((gpu.state.surfaces.n_events, cpu.state.surfaces.n_events),
+                 (gpu.state.counts, cpu.state.counts),
+                 (gpu.state.cache.dirty, cpu.state.cache.dirty)):
+        assert torch.equal(a.cpu(), b)
+    spec = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                          stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    out = gpu.serve_step([], spec, 0.05)
+    assert all(_lib.LAUNCHES[k] > 0 for k in _lib.LAUNCHES), _lib.LAUNCHES
+    dense = gpu.read(rs.SURFACE_SPEC, 0.05)["surface"]
+    assert torch.equal(out["surface"].view(torch.int32),
+                       dense.view(torch.int32))

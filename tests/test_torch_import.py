@@ -1,0 +1,65 @@
+"""repro_torch stands alone: it imports neither JAX nor the JAX package.
+
+The port has to run on a machine without JAX, so ``import repro_torch``
+and every submodule must succeed with ``jax`` and the top-level ``repro``
+package blocked, and no source line of the port or of ``chip_smoke.py``
+may import either.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = """
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, %r)
+import chip_smoke
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_import_with_jax_and_repro_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT % str(ROOT)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20   # every port module imported
+
+
+_IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b")
+
+
+def test_no_source_line_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [
+        f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if _IMPORT_LINE.match(line)
+    ]
+    assert not offenders, offenders
+    assert _IMPORT_LINE.match("from repro.kernels import ops")
+    assert _IMPORT_LINE.match("import jax.numpy as jnp")
+    assert not _IMPORT_LINE.match("from repro_torch.kernels import ops")
