@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch serving path on one NVIDIA card and check it.
+"""Drive the repro_torch serving paths on one NVIDIA card and check them.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-and then, in order:
+and then, in order (phases 1-2 the time-surface path, 3-4 the LM path):
 
-1. **Engine** -- the main path: a ``TimeSurfaceEngine`` of 64 slots of
+1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
    with 64 attached sensors fed from seeded synthetic DND21-like scenes,
    served for 10 deadlines of 10 ms.  Each deadline runs ``serve_step``
@@ -19,7 +19,7 @@ and then, in order:
    dense read bitwise; the engine's surface == ``ops.ts_decay`` of SAEs
    built independently with ``time_surface.sae_update``, bitwise; the
    SAE, counts, ``t_last`` and ``n_events`` == a CPU engine's on the same
-   events, bitwise; every kernel launched.
+   events, bitwise; every kernel of the path launched.
 2. **Kernels** -- each kernel at the engine's full width on the engine's
    own state and a 10 ms push of ~2 M events, held against its plain
    PyTorch version on the card (decay within 2 ULP, counts exact away
@@ -28,6 +28,26 @@ and then, in order:
    version, a one-call PyTorch yardstick where one exists (TF32 off), and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32, the larger).
+3. **LM** -- the Mamba-2 token-serving path: ``ServeEngine`` on
+   mamba2-2.7b at full width and depth (d_model 2560, 80 SSD heads x 64,
+   state 128, vocab 50280 padded to 50432, 64 layers, float32 master
+   weights drawn on the card from a seeded generator, bf16 activations)
+   serves 8 requests with seeded prompt lengths in 1024-2048 (left-padded,
+   so at most 16 SSD chunks) and 32 greedy tokens each, after one warm-up
+   serve.  The counters are zeroed just before and read just after.
+   Prints prefill tokens/s, decode ms per step, and from one more prefill
+   and decode step under ``torch.profiler`` their device time by op, the
+   device's idle share and the share of a prefill spent in ``decay_scan``.  Checks: ``decay_scan`` launched n_layers times by the
+   prefill and never by a decode step; every logit finite; every token
+   below ``vocab``; then, on the same model at 2 layers in float32, the
+   card against the CPU port (last logits and states within rtol = 1e-4,
+   atol = 1e-4 x max(1, max|CPU|)) and the chunked prefill against
+   prefill of all but the last token plus one recurrent ``decode_step``
+   (the same band).
+4. **decay_scan** -- the kernel at the prefill's shapes (8, chunks,
+   655,360) against its plain version on the card, bitwise, with and
+   without ``s0``, and timed like the others (no one PyTorch call
+   computes this recurrence, so it has no yardstick).
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -60,15 +80,27 @@ N_SCENES = 8
 DEADLINES = 10
 DEADLINE_S = 0.010
 RADIUS = 3
+ENGINE_KERNELS = ("ts_decay", "stcf_support", "chunk_scatter")
+
+LM_ARCH = "mamba2-2.7b"
+LM_REQUESTS = 8
+LM_PROMPT = (1024, 2048)      # prompt lengths drawn in [lo, hi]
+LM_NEW_TOKENS = 32
+CHECK_LAYERS = 2              # depth of the float32 card-vs-CPU model
+CHECK_BATCH, CHECK_PROMPT = 2, 300
+LM_TOL = 1e-4    # rtol; atol x max(1, max|ref|): float32 card vs CPU, recurrent
+
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
     "stcf_support": "src/repro/kernels/stcf.py:86",
     "chunk_scatter": "src/repro/kernels/ts_fused.py:81",
+    "decay_scan": "src/repro/kernels/decay_scan.py:83",
 }
 SOURCES = {
     "ts_decay": "src/repro_torch/kernels/csrc/ts_decay.cu",
     "stcf_support": "src/repro_torch/kernels/csrc/stcf.cu",
     "chunk_scatter": "src/repro_torch/kernels/csrc/ts_fused.cu",
+    "decay_scan": "src/repro_torch/kernels/csrc/decay_scan.cu",
 }
 
 FAILURES: list = []
@@ -173,7 +205,7 @@ def run_engine(dev, mods, words, card):
         _lib.LAUNCHES.update(path_counts)
         if not same(out["surface"], dense):
             mismatched.append(d)
-    launches = dict(_lib.LAUNCHES)
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
     n_events = int(engine.state.surfaces.n_events.sum())
 
     log(f"engine on {card}: {S} sensors x {P}x{H}x{W}, {DEADLINES} deadlines "
@@ -398,6 +430,257 @@ def kernel_phase(dev, mods, words, run):
     return rows
 
 
+def profiled(fn):
+    """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA).  Returns its
+    host time (ms, profiler overhead included), the summed device time of
+    its kernels, their count, and the device time by PyTorch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in avgs
+               if e.device_type == cuda}
+    return dict(wall_ms=wall, device_ms=sum(kernels.values()),
+                kernels=kernels,
+                launches=sum(e.count for e in avgs if e.device_type == cuda),
+                ops={e.key: e.self_device_time_total / 1e3 for e in avgs
+                     if e.device_type != cuda and e.key.startswith("aten::")
+                     and e.self_device_time_total > 0})
+
+
+def lm_requests(cfg, request_cls):
+    """The LM phase's traffic: seeded prompt lengths and tokens."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [request_cls(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                        max_new_tokens=LM_NEW_TOKENS) for n in lens]
+
+
+def run_lm(dev, card):
+    """Phase 3: Mamba-2 token serving at full width and depth, bf16.
+    Returns what the decay_scan kernel phase needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import module as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(LM_ARCH)
+    di, h, p, n = SSM.ssm_dims(cfg)
+    check((cfg.d_model, di, h, p, n, cfg.vocab, T.padded_vocab(cfg))
+          == (2560, 5120, 80, 64, 128, 50280, 50432)
+          and cfg.activation_dtype == torch.bfloat16,
+          f"{LM_ARCH} at full width: d_model {cfg.d_model}, d_inner {di}, "
+          f"{h} heads x {p}, state {n}, vocab {cfg.vocab} padded to "
+          f"{T.padded_vocab(cfg)}, {cfg.n_layers} layers, "
+          f"{cfg.activation_dtype}")
+    t0 = time.perf_counter()
+    params = M.init_params(T.param_defs(cfg),
+                           torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in M.flatten(params).values())
+    log(f"lm: {n_params} float32 parameters ({n_params * 4 / 1e9:.2f} GB) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    engine = ServeEngine(cfg, params, max_len=LM_PROMPT[1] + LM_NEW_TOKENS)
+    reqs = lm_requests(cfg, Request)
+
+    calls = []   # (kind, seconds, decay_scan launches, logits finite)
+    plain_prefill, plain_decode = engine._prefill, engine._decode
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            n0 = _lib.LAUNCHES["decay_scan"]
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            calls.append((kind, dt, _lib.LAUNCHES["decay_scan"] - n0,
+                          bool(torch.isfinite(out[0]).all())))
+            return out
+        return run
+
+    engine._prefill = timed("prefill", plain_prefill)
+    engine._decode = timed("decode", plain_decode)
+    t0 = time.perf_counter()
+    engine.serve([Request(r.prompt, max_new_tokens=2) for r in reqs])
+    log(f"lm: warm-up serve (same prompts, 2 tokens) "
+        f"{time.perf_counter() - t0:.2f} s")
+    calls.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+
+    s_max = max(len(r.prompt) for r in reqs)
+    prefill = [c for c in calls if c[0] == "prefill"]
+    decode = [c for c in calls if c[0] == "decode"]
+    real = sum(len(r.prompt) for r in reqs)
+    pf_s = prefill[0][1]
+    dec_ms = [c[1] * 1e3 for c in decode]
+    log(f"lm on {card}: {LM_ARCH}, {cfg.n_layers} layers, {LM_REQUESTS} "
+        f"requests, prompts {sorted(len(r.prompt) for r in reqs)} "
+        f"(left-padded to {s_max}, {-(-s_max // cfg.ssm_chunk)} SSD chunks), "
+        f"{LM_NEW_TOKENS} new tokens each; serve {wall:.3f} s")
+    log(f"lm on {card}: prefill {pf_s * 1e3:.3f} ms -> "
+        f"{LM_REQUESTS * s_max / pf_s:.1f} tokens/s computed "
+        f"({real / pf_s:.1f} prompt tokens/s without the left padding)")
+    log(f"lm on {card}: decode step p50 {np.percentile(dec_ms, 50):.3f} ms, "
+        f"p99 {np.percentile(dec_ms, 99):.3f} ms, min {min(dec_ms):.3f} ms "
+        f"over {len(dec_ms)} steps of batch {LM_REQUESTS} -> "
+        f"{LM_REQUESTS * 1e3 / np.percentile(dec_ms, 50):.1f} tokens/s; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"lm: every decode step, ms: {[round(x, 3) for x in dec_ms]}")
+    log(f"lm: kernel launches on the path: {launches}")
+    check(len(prefill) == 1 and prefill[0][2] == cfg.n_layers
+          and launches["decay_scan"] == cfg.n_layers,
+          f"decay_scan launched n_layers = {cfg.n_layers} times by the one "
+          f"prefill ({[c[2] for c in prefill]})")
+    check(len(decode) == LM_NEW_TOKENS - 1 and all(c[2] == 0 for c in decode),
+          f"decay_scan launched 0 times by each of {len(decode)} decode steps")
+    check(all(c[3] for c in calls), "every prefill and decode logit finite")
+    toks = np.stack([r.tokens for r in results])
+    check(toks.shape == (LM_REQUESTS, LM_NEW_TOKENS) and toks.min() >= 0
+          and toks.max() < cfg.vocab,
+          f"tokens {toks.shape} within [0, vocab = {cfg.vocab})")
+
+    # where a prefill's and a decode step's time goes: each once more under
+    # torch.profiler, after the path's counts were read
+    tokens = torch.zeros((LM_REQUESTS, s_max), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        tokens[i, s_max - len(r.prompt):] = torch.from_numpy(r.prompt)
+    tokens = tokens.to(dev)
+    with torch.inference_mode():
+        pf = profiled(lambda: plain_prefill(params, tokens))
+        _, caches, pos = plain_prefill(params, tokens)
+        cur = tokens[:, -1:]
+        dc = profiled(lambda: plain_decode(params, cur, caches, pos))
+    scan_ms = sum(v for k, v in pf["kernels"].items() if "decay_scan" in k)
+    for name, r, step_ms in (("prefill", pf, pf_s * 1e3),
+                             ("decode step", dc, np.percentile(dec_ms, 50))):
+        top = sorted(r["ops"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"lm profile, one {name}: device kernels {r['device_ms']:.3f} ms "
+            f"in {r['wall_ms']:.3f} ms profiled ({step_ms:.3f} ms unprofiled "
+            f"-> device idle {100 * (1 - r['device_ms'] / step_ms):.1f} %); "
+            f"{r['launches']} kernel launches; device ms by op: "
+            f"{[(k, round(v, 3)) for k, v in top]}")
+    check(scan_ms > 0, "torch.profiler traced the prefill's decay_scan kernels")
+    log(f"lm: decay_scan kernels inside one prefill: {scan_ms:.3f} ms of the "
+        f"{pf_s * 1e3:.3f} ms prefill -> {100 * scan_ms / (pf_s * 1e3):.2f} % "
+        f"of prefill time")
+    del engine, params
+    torch.cuda.empty_cache()
+    lm_checks(dev, cfg, M, T)
+    return dict(launches=launches, b=LM_REQUESTS,
+                nc=-(-s_max // cfg.ssm_chunk), c=h * p * n,
+                prefill_ms=pf_s * 1e3)
+
+
+def lm_checks(dev, cfg, M, T):
+    """The full-width model at CHECK_LAYERS layers in float32: the card
+    against the CPU port on the same weights, and, on the card, the
+    chunked prefill against prefill of all but the last token followed by
+    one recurrent decode step."""
+    cfg = dataclasses.replace(cfg, n_layers=CHECK_LAYERS, dtype="float32")
+    card = M.init_params(T.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(1), dev)
+    cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_PROMPT),
+                           generator=g, dtype=torch.int32)
+
+    def err(a, b):
+        """max |a - b|, and whether a is within rtol = LM_TOL, atol =
+        LM_TOL x max(1, max|b|) of b (sums of terms of b's size cancel
+        near zero)."""
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = max(1.0, float(b.abs().max()))
+        return (float((a - b).abs().max()),
+                bool(torch.allclose(a, b, rtol=LM_TOL, atol=LM_TOL * scale)))
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lg, cg, _ = T.prefill(card, tokens.to(dev), cfg, CHECK_PROMPT,
+                              last_logits_only=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lc, cc, _ = T.prefill(cpu, tokens, cfg, CHECK_PROMPT,
+                              last_logits_only=True)
+        t2 = time.perf_counter()
+        e_logit, ok_logit = err(lg, lc)
+        e_state = [err(a["ssm"]["state"], b["ssm"]["state"])
+                   for a, b in zip(cg, cc)]
+        check(ok_logit and all(ok for _, ok in e_state),
+              f"{cfg.name} full width, {CHECK_LAYERS} layers, float32, "
+              f"batch {CHECK_BATCH} x {CHECK_PROMPT} tokens: card == CPU port "
+              f"within rtol = {LM_TOL}, atol = {LM_TOL} x max(1, max|CPU|) "
+              f"(max |d| last logits "
+              f"{e_logit:.3e} of max |logit| {float(lc.abs().max()):.3e}; "
+              f"states {[f'{e:.3e}' for e, _ in e_state]}; card "
+              f"{(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms)")
+        _, caches, pos = T.prefill(card, tokens[:, :-1].to(dev), cfg,
+                                   CHECK_PROMPT)
+        step, sc = T.decode_step(card, tokens[:, -1:].to(dev), caches, pos,
+                                 cfg)
+        e_step, ok_step = err(step, lg)
+        e_rec = [err(a["ssm"]["state"], b["ssm"]["state"])
+                 for a, b in zip(sc, cg)]
+        check(ok_step and all(ok for _, ok in e_rec),
+              f"chunked prefill == prefill(prompt[:-1]) + decode_step on the "
+              f"card within the same band (max |d| logits "
+              f"{e_step:.3e}, states {[f'{e:.3e}' for e, _ in e_rec]})")
+
+
+def decay_scan_phase(dev, lm):
+    """Phase 4: decay_scan at the LM prefill's shapes vs its plain version,
+    and its times."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decay_scan import decay_scan_cuda
+
+    b, t, c = lm["b"], lm["nc"], lm["c"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.exp(-torch.rand((b, t, c), generator=g, device=dev))
+    x = torch.randn((b, t, c), generator=g, device=dev)
+    s0 = torch.randn((b, c), generator=g, device=dev)
+    st, fin = decay_scan_cuda(a, x)
+    st_r, fin_r = ref.decay_scan_ref(a, x)
+    st0, fin0 = decay_scan_cuda(a, x, s0)
+    st0_r, fin0_r = ref.decay_scan_ref(a, x, s0)
+    ok = all(same(u, v) for u, v in ((st, st_r), (fin, fin_r), (st0, st0_r),
+                                     (fin0, fin0_r)))
+    ulp = max(int(ref.ulp_distance(u, v).max()) for u, v in
+              ((st, st_r), (fin, fin_r), (st0, st0_r), (fin0, fin0_r)))
+    check(ok, f"decay_scan == its plain version bitwise at ({b}, {t}, {c}), "
+          f"with and without s0 (max {ulp} ULP)")
+    timer = Timer(dev)
+    ms = timer(lambda _: decay_scan_cuda(a, x), 30)
+    plain = timer(lambda _: ref.decay_scan_ref(a, x), 10)
+    nbytes = 4 * (3 * b * t * c + b * c)
+    b_ms, b_by = bound_ms(nbytes, 2 * b * t * c)
+    log(f"decay_scan: ({b}, {t}, {c}) {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({nbytes} B); x {lm['launches']['decay_scan']} "
+        f"launches = {ms * lm['launches']['decay_scan']:.3f} ms of a "
+        f"{lm['prefill_ms']:.3f} ms prefill")
+    return [dict(name="decay_scan", max_abs_err=float(max(
+        (st - st_r).abs().max(), (fin0 - fin0_r).abs().max())), max_ulp=ulp,
+        shape=[b, t, c], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -438,16 +721,28 @@ def main() -> int:
         f"{sum(len(w) for s in words for w in s)} events, "
         f"{time.perf_counter() - t0:.2f} s")
     mods = (_lib, ops, ts, aer, pipeline, rs, eng)
+    phase_s = {}
+    t0 = time.perf_counter()
     run = run_engine(dev, mods, words, card)
     rows = kernel_phase(dev, mods, words, run)
     torch.cuda.synchronize()
+    phase_s["time surface"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = run_lm(dev, card)
+    phase_s["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows += decay_scan_phase(dev, lm)
+    torch.cuda.synchronize()
+    phase_s["decay_scan"] = time.perf_counter() - t0
+    log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
 
+    launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
     for row in rows:
         name = row.pop("name")
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name],
-                            launches=run["launches"][name],
+                            launches=launches[name],
                             kernel_ms=row["ms"], **row))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:

@@ -1,0 +1,36 @@
+"""Config registry: ``--arch <id>`` resolution for the port's launchers.
+
+The port serves the architectures listed in ``_ARCH_MODULES``; every
+other architecture of the reference's registry raises
+``NotImplementedError`` until its slice of the port lands (ROADMAP.md,
+queue 1).
+"""
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec  # noqa: F401
+
+_ARCH_MODULES = {
+    "mamba2-2.7b": "mamba2_2p7b",
+}
+
+#: architectures of the reference's registry not ported yet
+NOT_PORTED = (
+    "kimi-k2-1t-a32b", "grok-1-314b", "musicgen-large", "gemma2-27b",
+    "glm4-9b", "gemma3-4b", "qwen3-8b", "internvl2-26b", "hymba-1.5b",
+    "isc-qvga",
+)
+
+ARCH_NAMES = list(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    import importlib
+
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet (see "
+            f"ROADMAP.md, queue 1); ported: {ARCH_NAMES}")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}, "
+                       f"not yet ported: {list(NOT_PORTED)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.CONFIG

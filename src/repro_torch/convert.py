@@ -1,19 +1,30 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-The JAX ``EngineState`` leaves, handed over as numpy arrays keyed by
-their path (``LEAVES``), map one to one onto the port's ``EngineState``
-and back.  Nothing here imports JAX: the caller converts its arrays with
-``np.asarray``.
+Every structure crosses as ``{leaf path: numpy array}``, paths joined
+with ``.``, and maps one to one onto the port's tensors and back:
+
+  * the time-surface engine's ``EngineState`` (``LEAVES``);
+  * an LM's parameters (``embed``, ``layers.ln1``, ``layers.ssm.<name>``
+    stacked on a leading layer dim, ``ln_f``, ``unembed``);
+  * an LM's decode caches, one dict per layer (``ssm.conv.x``,
+    ``ssm.conv.b``, ``ssm.conv.c``, ``ssm.state``).
+
+Nothing here imports JAX: the caller converts its arrays with
+``np.asarray`` (bfloat16 ones as float32, which holds them exactly).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import edram
 from repro_torch.core import time_surface as ts
+from repro_torch.models import module as M
+from repro_torch.models import ssm as SSM
+from repro_torch.models import transformer as T
 from repro_torch.serve.ts_engine import EngineState, ReadoutCache
 
 #: leaf path -> dtype of the engine state's arrays (``counts`` optional)
@@ -75,3 +86,62 @@ def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
     }
     return {k: v.detach().cpu().numpy() for k, v in out.items()
             if v is not None}
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def _to_numpy(tree) -> Dict[str, np.ndarray]:
+    """``{leaf path: array}``; bfloat16 leaves widen to float32."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+            .detach().cpu().numpy() for k, v in M.flatten(tree).items()}
+
+
+def lm_params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
+                         device) -> dict:
+    """The port's parameter dict for ``cfg`` on ``device`` from the
+    reference's ``{leaf path: array}``; raises on a missing, extra or
+    misshapen leaf."""
+    defs = M.flatten(T.param_defs(cfg))
+    if set(arrays) != set(defs):
+        raise KeyError(f"leaf paths differ: missing "
+                       f"{sorted(set(defs) - set(arrays))}, extra "
+                       f"{sorted(set(arrays) - set(defs))}")
+    out = {}
+    for path, d in defs.items():
+        a = np.asarray(arrays[path])
+        if a.shape != d.shape:
+            raise ValueError(f"{path}: shape {a.shape} != {d.shape}")
+        out[path] = _tensor(a, d.dtype, device)
+    return M.unflatten(out)
+
+
+def lm_params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``{leaf path: array}`` of the port's LM parameters."""
+    return _to_numpy(params)
+
+
+def decode_caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]],
+                             cfg: ModelConfig, device) -> List[dict]:
+    """Per-layer decode caches on ``device`` from the reference's
+    ``[{leaf path: array}]``: the conv rings in the activation dtype, the
+    SSM state in float32."""
+    want = M.flatten({"ssm": SSM.init_ssm_cache(cfg, 1, cfg.activation_dtype,
+                                                "cpu")})
+    if len(caches) != cfg.n_layers:
+        raise ValueError(f"{len(caches)} layer caches for "
+                         f"{cfg.n_layers} layers")
+    out = []
+    for layer in caches:
+        if set(layer) != set(want):
+            raise KeyError(f"cache leaf paths {sorted(layer)} != "
+                           f"{sorted(want)}")
+        out.append(M.unflatten({k: _tensor(layer[k], want[k].dtype, device)
+                                for k in want}))
+    return out
+
+
+def decode_caches_to_numpy(caches: Sequence[dict]) -> List[Dict[str, np.ndarray]]:
+    """``[{leaf path: array}]`` of the port's per-layer decode caches."""
+    return [_to_numpy(c) for c in caches]

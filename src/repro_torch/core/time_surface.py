@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 NEVER = float("-inf")
 
 
@@ -45,9 +47,10 @@ class EventBatch(NamedTuple):
 
 
 def empty_sae(h: int, w: int, polarities: int = 1, device=None) -> torch.Tensor:
-    """(P, H, W) float32 SAE initialized to 'never written'."""
+    """(P, H, W) float32 SAE initialized to 'never written', on ``device``
+    (default: the CUDA device; raises when there is none)."""
     return torch.full((polarities, h, w), NEVER, dtype=torch.float32,
-                      device=device)
+                      device=resolve_device(device))
 
 
 class SurfaceState(NamedTuple):
@@ -60,7 +63,9 @@ class SurfaceState(NamedTuple):
 
 def surface_init(h: int, w: int, polarities: int = 1,
                  device=None) -> SurfaceState:
-    """Fresh per-sensor surface state ('never written' everywhere)."""
+    """Fresh per-sensor surface state ('never written' everywhere), on
+    ``device`` (default: the CUDA device; raises when there is none)."""
+    device = resolve_device(device)
     return SurfaceState(
         sae=empty_sae(h, w, polarities, device),
         t_last=torch.zeros((), dtype=torch.float32, device=device),
@@ -97,15 +102,19 @@ def sae_update(sae: torch.Tensor, ev: EventBatch,
 
     max-combine makes the update order-independent within a batch, which
     is exactly the eDRAM semantics: a later write leaves the higher
-    voltage.  Invalid and out-of-range events write nothing.  This is the
+    voltage.  Invalid events write nothing; an index in [-dim, 0) wraps
+    (as Python indexing does) and any other out-of-range one drops, as in
+    the reference's ``.at[].max(mode="drop")``.  This is the
     offline builder; the serving engine writes through the scatter kernel
     (``kernels.ops.chunk_scatter``).
     """
     pp, h, w = sae.shape
     p = torch.zeros_like(ev.p) if merge_polarity or pp == 1 else ev.p
-    ok = (ev.valid & (ev.x >= 0) & (ev.x < w) & (ev.y >= 0) & (ev.y < h)
+    p, y, x = (torch.where(i < 0, i + n, i).long()
+               for i, n in ((p, pp), (ev.y, h), (ev.x, w)))
+    ok = (ev.valid & (x >= 0) & (x < w) & (y >= 0) & (y < h)
           & (p >= 0) & (p < pp))
-    idx = (p.long() * h + ev.y.long()) * w + ev.x.long()
+    idx = (p * h + y) * w + x
     out = sae.clone()
     scatter_max_(out.view(-1), idx[ok], ev.t[ok])
     return out

@@ -32,7 +32,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ts_decay.cu", "stcf.cu", "ts_fused.cu")
+SOURCES = ("ts_decay.cu", "stcf.cu", "ts_fused.cu", "decay_scan.cu")
 HEADERS = ("decay.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"ts_decay": 0, "stcf_support": 0,
-                            "chunk_scatter": 0}
+                            "chunk_scatter": 0, "decay_scan": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "stcf_support_fused": [_P, _P] + [_I] * 5 + [_F] * 7 + [_P],
     "chunk_scatter": [_P] + [_I] * 4 + [_P] * 6 + [_I, _I, _P, _I, _I]
     + [_P] * 4,
+    "decay_scan": [_P] * 5 + [_LL] * 3 + [_P],
     "stcf_max_radius": [],
 }
 

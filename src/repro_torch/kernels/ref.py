@@ -113,3 +113,20 @@ def chunk_scatter_ref(
     if n_events is not None:
         slots, n = torch.unique(sid, return_counts=True)
         n_events[slots] += n.to(torch.int32)
+
+
+def decay_scan_ref(a: torch.Tensor, x: torch.Tensor,
+                   s0: Optional[torch.Tensor] = None):
+    """``s_t = a_t * s_{t-1} + x_t`` over (B, T, C) in float32, a Python
+    loop over T with the product and the sum as two separate ops (each
+    rounded once, as the kernel's ``__fadd_rn(__fmul_rn(..))``).  ``s0``
+    (B, C) defaults to zeros.  Returns (states (B, T, C), final (B, C))."""
+    a, x = a.to(torch.float32), x.to(torch.float32)
+    b, t, c = a.shape
+    s = (torch.zeros((b, c), dtype=torch.float32, device=a.device)
+         if s0 is None else s0.to(torch.float32, copy=True))
+    out = torch.empty((b, t, c), dtype=torch.float32, device=a.device)
+    for i in range(t):
+        s = a[:, i] * s + x[:, i]
+        out[:, i] = s
+    return out, s

@@ -44,6 +44,7 @@ from repro_torch.core import edram
 from repro_torch.core import representations
 from repro_torch.core import stcf as stcf_mod
 from repro_torch.core import time_surface as ts
+from repro_torch.device import resolve_device
 from repro_torch.events import aer
 from repro_torch.events import synthetic as syn
 from repro_torch.hw import constants as C
@@ -191,22 +192,6 @@ def _scatter_chunks(state: EngineState, slot_ids: torch.Tensor,
         t_last=sur.t_last, n_events=sur.n_events,
     )
     return state
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA device, raising when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "TimeSurfaceEngine runs on the CUDA device by default and "
-                "none is available; pass device='cpu' to run the plain "
-                "PyTorch versions on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 #: an ingest item: (slot id | session, packed AER words | EventStream |

@@ -8,7 +8,12 @@ is no card.  Run them on the card with::
 
 Bands: decay reads <= 2 ULP from the plain version on the same device (0
 expected: both are IEEE float32 with the same ``expf``), comparator masks
-and support counts exact away from the threshold, scatter results bitwise.
+and support counts exact away from the threshold, scatter results and
+``decay_scan`` bitwise (one IEEE product and one IEEE sum per step on both
+sides).  The reduced Mamba-2 LM on the card sits within rtol = 1e-4,
+atol = 1e-4 x max(1, max|CPU|) of the CPU port in float32: the two
+devices sum inside their matrix products in other orders and evaluate
+``exp`` with other routines.
 """
 import pytest
 import torch
@@ -145,7 +150,62 @@ def test_engine_on_card_matches_cpu_port(cuda):
     spec = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
     out = gpu.serve_step([], spec, 0.05)
-    assert all(_lib.LAUNCHES[k] > 0 for k in _lib.LAUNCHES), _lib.LAUNCHES
+    assert all(_lib.LAUNCHES[k] > 0 for k in
+               ("ts_decay", "stcf_support", "chunk_scatter")), _lib.LAUNCHES
     dense = gpu.read(rs.SURFACE_SPEC, 0.05)["surface"]
     assert torch.equal(out["surface"].view(torch.int32),
                        dense.view(torch.int32))
+
+
+@pytest.mark.parametrize("c", [1001, 1024])       # scalar path, float4 path
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])        # aligned, then not
+def test_decay_scan_matches_plain(cuda, c, with_s0, offset):
+    g = torch.Generator().manual_seed(6)
+    b, t = 3, 19
+    a = torch.exp(-0.3 * torch.rand((b * t * c + offset,), generator=g))
+    x = torch.randn((b * t * c + offset,), generator=g)
+    a, x = (v.to(cuda)[offset:].view(b, t, c) for v in (a, x))
+    s0 = torch.randn((b, c), generator=g).to(cuda) if with_s0 else None
+    before = _lib.LAUNCHES["decay_scan"]
+    st, fin = ops.decay_scan(a, x, s0)
+    assert _lib.LAUNCHES["decay_scan"] == before + 1
+    st_r, fin_r = ref.decay_scan_ref(a, x, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(st.view(torch.int32), st_r.view(torch.int32))
+    assert torch.equal(fin.view(torch.int32), fin_r.view(torch.int32))
+    assert torch.equal(fin, st[:, -1])
+
+
+def test_reduced_lm_on_card_matches_cpu_port(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2-2.7b").reduced()
+    cpu = M.init_params(T.param_defs(cfg), torch.Generator().manual_seed(0),
+                        "cpu")
+    card = M.unflatten({k: v.to(cuda) for k, v in M.flatten(cpu).items()})
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (3, 45), generator=g)
+    _lib.reset_launches()
+    with torch.inference_mode():
+        lg, cg, _ = T.prefill(card, tokens.to(cuda), cfg, 64)
+        assert _lib.LAUNCHES["decay_scan"] == cfg.n_layers
+        lc, cc, _ = T.prefill(cpu, tokens, cfg, 64)
+    def close(a, b):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale)
+
+    close(lg, lc)
+    for a, b in zip(cg, cc):
+        for k, v in M.flatten(a).items():
+            close(v, M.flatten(b)[k])
+    prompts = [tokens[i, : 45 - 9 * i].numpy() for i in range(3)]
+    reqs = [Request(p, max_new_tokens=5) for p in prompts]
+    got = ServeEngine(cfg, card, 64).serve(reqs)
+    want = ServeEngine(cfg, cpu, 64, device="cpu").serve(reqs)
+    for a, b in zip(got, want):
+        assert (a.tokens == b.tokens).all()

@@ -222,6 +222,57 @@ def test_engine_without_a_card_raises(monkeypatch):
         teng.TimeSurfaceEngine(_cfgs("edram")[1])
 
 
+def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.core import time_surface as tts
+    from repro_torch.models import module, transformer
+    from repro_torch.serve import engine
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    return {
+        "empty_sae": lambda: tts.empty_sae(4, 5, 2),
+        "surface_init": lambda: tts.surface_init(4, 5, 2),
+        "init_params": lambda: module.init_params(
+            transformer.param_defs(cfg), torch.Generator()),
+        "init_decode_caches": lambda: transformer.init_decode_caches(
+            cfg, 1, 8),
+        "ServeEngine": lambda: engine.ServeEngine(cfg, {}),
+    }
+
+
+@pytest.mark.parametrize("entry", ["empty_sae", "surface_init", "init_params",
+                                   "init_decode_caches", "ServeEngine"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no device named, an entry point allocates on the CUDA device
+    and raises when there is none (it never falls back to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[entry]()
+
+
+def test_offline_sae_update_out_of_range_matches_reference():
+    """Five events off the (2, 4, 5) SAE -- x=-1, y=-1, p=-1, x=5, x=-6 --
+    into both packages' offline ``sae_update``, bitwise: an index in
+    [-dim, 0) wraps, as the reference's ``.at[].max(mode="drop")`` wraps
+    it, and the rest drop."""
+    import jax.numpy as jnp
+
+    from repro.core import time_surface as jts
+    from repro_torch.core import time_surface as tts
+
+    ev = dict(x=np.array([-1, 0, 0, 5, -6], np.int32),
+              y=np.array([0, -1, 0, 0, 0], np.int32),
+              t=np.array([0.1, 0.2, 0.3, 0.4, 0.5], np.float32),
+              p=np.array([0, 1, -1, 0, 1], np.int32),
+              valid=np.ones(5, bool))
+    want = jts.sae_update(jts.empty_sae(4, 5, 2), jts.EventBatch(
+        **{k: jnp.asarray(v) for k, v in ev.items()}))
+    got = tts.sae_update(tts.empty_sae(4, 5, 2, device="cpu"), tts.EventBatch(
+        **{k: torch.from_numpy(v) for k, v in ev.items()}))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert int(np.isfinite(np.asarray(want)).sum()) == 3
+
+
 def test_unported_products_raise():
     from repro_torch.serve import fidelity
 

@@ -305,15 +305,13 @@ def test_reads_off_counts_and_sae():
 
 def test_offline_sae_update_matches_reference():
     """The offline SAE builder (plain tensor ops) vs the reference's
-    ``sae_update``, bitwise, polarity-merged and not."""
-    ev = _events(21, (), 200, 40, 72, p_hi=2)
-    for k, hi in (("x", 71), ("y", 39), ("p", 1)):   # the reference
-        ev[k] = np.clip(ev[k], 0, hi)    # builder wraps negative indices
-    je, te = _both(ev)
+    ``sae_update``, bitwise, polarity-merged and not, out-of-range
+    indices included."""
+    je, te = _both(_events(21, (), 200, 40, 72, p_hi=2))
     for pp, merge in ((2, False), (2, True), (1, False)):
         want = jts.sae_update(jts.empty_sae(40, 72, pp), je,
                               merge_polarity=merge)
-        got = tts.sae_update(tts.empty_sae(40, 72, pp), te,
+        got = tts.sae_update(tts.empty_sae(40, 72, pp, device="cpu"), te,
                              merge_polarity=merge)
         np.testing.assert_array_equal(_bits(got), _bits(want))
 
