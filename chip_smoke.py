@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``--prev DIR`` names another checkout (e.g. the parent commit's tree,
+unpacked with ``git archive``): its ``stcf_support`` and
+``chunk_scatter`` sources are built into a library of their own and timed
+in turns with this tree's (old, new, new, old) in the kernel phase.
+
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, in order (phases 1-2 the time-surface path, 3-4 the LM path):
 
@@ -27,7 +32,12 @@ and then, in order (phases 1-2 the time-surface path, 3-4 the LM path):
    events (median over launches, L2 flushed before each) beside its plain
    version, a one-call PyTorch yardstick where one exists (TF32 off), and
    the least time the card could take (bytes over 3.35 TB/s, operations
-   over 67 TFLOP/s float32, the larger).
+   over 67 TFLOP/s float32, the larger).  Besides: ``ts_decay`` with
+   per-cell (H, W) parameter planes within 2 ULP at the pool's shape;
+   ``chunk_scatter`` bitwise on duplicate-heavy traffic (90 % of the
+   events on 8 cells, rows of 5,000 slots, out-of-range ids) at P = 2
+   and at P = 1, its time without the L2 flush and without the dirty
+   marks and counter plane, and the atomics per event it issues.
 3. **LM** -- the Mamba-2 token-serving path: ``ServeEngine`` on
    mamba2-2.7b at full width and depth (d_model 2560, 80 SSD heads x 64,
    state 128, vocab 50280 padded to 50432, 64 layers, float32 master
@@ -57,8 +67,11 @@ without the repository's sources beside it, it exits 2.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,13 +145,14 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn, reps: int, setup=None) -> float:
+    def __call__(self, fn, reps: int, setup=None, flush=True) -> float:
         for _ in range(2):
             fn(setup() if setup else None)
         times = []
         for _ in range(reps):
             arg = setup() if setup else None
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -147,6 +161,145 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def in_turns(timer, new, old, reps: int, what: str, **kw):
+    """Time ``new`` alone, or ``old`` and ``new`` in turns (old, new, new,
+    old) when there is an ``old``.  Returns (new ms, old ms or None), each
+    the mean of its turns' medians."""
+    if old is None:
+        return timer(new, reps, **kw), None
+    turns = [timer(fn, reps, **kw) for fn in (old, new, new, old)]
+    log(f"  {what} in turns old, new, new, old: "
+        f"{[round(t, 4) for t in turns]} ms")
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+
+
+def build_prev(prev_root: Path):
+    """The ``stcf_support`` and ``chunk_scatter`` kernels of another
+    checkout (``--prev``, e.g. the parent commit's tree), compiled with
+    this tree's flags into a library of their own.  Returns a function
+    that calls one of their C entry points on the current stream."""
+    from repro_torch.kernels import _lib
+
+    csrc = prev_root / "src" / "repro_torch" / "kernels" / "csrc"
+    out = ROOT / "build" / "prev_kernels"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    nvcc = _lib._nvcc()
+    objs, procs = [], []
+    for src in ("stcf.cu", "ts_fused.cu"):
+        objs.append(str(out / (src + ".o")))
+        procs.append(subprocess.Popen(
+            [nvcc, *_lib.NVCC_FLAGS, "-c", str(csrc / src), "-o", objs[-1]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {prev_root}:\n{text}")
+    lib_path = out / "libprev_kernels.so"
+    subprocess.run([nvcc, "-shared", "-Xcompiler", "-fPIC", *objs, "-o",
+                    str(lib_path)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("stcf_support_mask", "stcf_support_fused", "chunk_scatter"):
+        getattr(lib, name).argtypes = _lib._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    log(f"build: the previous stcf_support and chunk_scatter from "
+        f"{csrc} -> {lib_path}")
+
+    def call(name, *args):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous {name}: CUDA error {err}")
+    return call
+
+
+def prev_stcf(call, x, fused=None):
+    """The previous ``stcf_support`` on (..., H, W) ``x`` at RADIUS."""
+    h, w = x.shape[-2:]
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if fused is None:
+        call("stcf_support_mask", x.data_ptr(), out.data_ptr(),
+             x.numel() // (h * w), h, w, RADIUS, 0)
+    else:
+        params, v_tw, t_now = fused
+        call("stcf_support_fused", x.data_ptr(), out.data_ptr(),
+             x.numel() // (h * w), h, w, RADIUS, 0, float(t_now),
+             *(float(v) for v in params), float(v_tw))
+    return out
+
+
+def prev_scatter(call, st, sids, ev, block):
+    """The previous ``chunk_scatter`` into pool state ``st`` (sae, dirty,
+    counts, t_last, n_events; any but sae may be None)."""
+    s, p, h, w = st[0].shape
+    b, n = ev.x.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    call("chunk_scatter", st[0].data_ptr(), s, p, h, w, sids.data_ptr(),
+         ev.x.data_ptr(), ev.y.data_ptr(), ev.p.data_ptr(), ev.t.data_ptr(),
+         ev.valid.data_ptr(), b, n, ptr(st[1]), block[0], block[1],
+         ptr(st[2]), ptr(st[3]), ptr(st[4]))
+
+
+def scatter_traffic(sids, ev, shape, block, segment):
+    """What the sorted ``chunk_scatter`` issues for this push: the valid
+    events, and the distinct (segment, key), (segment, cell) and
+    (segment, tile) pairs -- one SAE atomic, one counter atomic and one
+    dirty-mark store each (the per-event kernel issues two atomics and a
+    store per valid event)."""
+    s, p, h, w = shape
+    b, n = ev.x.shape
+    pol = torch.zeros_like(ev.p) if p == 1 else ev.p
+    sid = sids.long()[:, None].expand(b, n)
+    ok = (ev.valid & (ev.x >= 0) & (ev.x < w) & (ev.y >= 0) & (ev.y < h)
+          & (pol >= 0) & (pol < p) & (sid >= 0) & (sid < s))
+    j = torch.arange(n, device=ev.x.device)
+    seg = (torch.arange(b, device=ev.x.device)[:, None] * -(-n // segment)
+           + j // segment)[ok]
+    x, y, pol = ev.x.long()[ok], ev.y.long()[ok], pol.long()[ok]
+    cell = y * w + x
+    th, tw = -(-h // block[0]), -(-w // block[1])
+    tile = (pol * th + y // block[0]) * tw + x // block[1]
+    n_ok = int(ok.sum())
+    out = dict(events=n_ok)
+    for name, v, span in (("sae_atomics", cell * p + pol, h * w * p),
+                          ("count_atomics", cell, h * w),
+                          ("dirty_stores", tile, p * th * tw)):
+        out[name] = torch.unique(seg * span + v).numel()
+    out["per_event"] = (out["sae_atomics"] + out["count_atomics"]) / max(n_ok, 1)
+    return out
+
+
+def duplicate_heavy_push(dev, s, p):
+    """A seeded push at the engine's plane size: 8 rows of 5,000 event
+    slots (more than one segment each), 90 % of the events on 8 hot
+    cells, t on a 10 us grid (equal stamps inside a run), three rows
+    aimed at slot 3, rows aimed at slots -1 and ``s`` (outside the pool),
+    and x, y, p out of range on a few events."""
+    from repro_torch.core import time_surface as ts
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, n = 8, 5000
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (b, n), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    hot = torch.randint(0, 8, (b, n), generator=g, device=dev)
+    hx = torch.randint(0, W, (8,), generator=g, device=dev, dtype=torch.int32)
+    hy = torch.randint(0, H, (8,), generator=g, device=dev, dtype=torch.int32)
+    is_hot = torch.rand((b, n), generator=g, device=dev) < 0.9
+    pol = torch.where(torch.rand((b, n), generator=g, device=dev) < 0.01,
+                      ints(0, 2) * 3 - 1, ints(0, p))   # -1 or 2 on 1 %
+    ev = ts.EventBatch(
+        x=torch.where(is_hot, hx[hot], ints(-2, W + 2)),
+        y=torch.where(is_hot, hy[hot], ints(-2, H + 2)),
+        t=0.1 + ints(0, 1000).float() * 1e-5,
+        p=pol,
+        valid=torch.rand((b, n), generator=g, device=dev) < 0.95)
+    sids = torch.tensor([3, 3, 3, 7, s, 0, -1, s - 1], dtype=torch.int32,
+                        device=dev)
+    return sids, ev
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -295,13 +448,16 @@ def split_pass(eng, cfg, frame, words, scene_of):
         f"{np.median(r[0::2, 2]):.3f}, incremental {np.median(r[1::2, 2]):.3f})")
 
 
-def kernel_phase(dev, mods, words, run):
-    """Phase 2: each kernel vs its plain version, and its times."""
+def kernel_phase(dev, mods, words, run, prev=None):
+    """Phase 2: each kernel vs its plain version, and its times; with
+    ``prev`` (``build_prev``), the previous ``stcf_support`` and
+    ``chunk_scatter`` timed in turns with the current ones."""
     _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.core import edram
     from repro_torch.kernels import ref
     from repro_torch.kernels.stcf import stcf_support_cuda
     from repro_torch.kernels.ts_decay import ts_decay_cuda
-    from repro_torch.kernels.ts_fused import chunk_scatter_cuda
+    from repro_torch.kernels.ts_fused import SEGMENT, chunk_scatter_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -329,10 +485,27 @@ def kernel_phase(dev, mods, words, run):
     log(f"ts_decay: {ms:.4f} ms (with mask {ms_mask:.4f} ms, bound "
         f"{bound_ms(9 * cells, 13 * cells)[0]:.4f} ms), plain {plain:.4f} ms, "
         f"bound {b_ms:.4f} ms")
+    # the per-cell-plane entry (ts_decay_planes) at the pool's shape: tau1
+    # and tau2 varied per cell by a seeded 5 % spread
+    g = torch.Generator(device=dev).manual_seed(4)
+    eps = 1.0 + 0.05 * torch.randn((2, H, W), generator=g, device=dev)
+    full = lambda x: torch.full((H, W), float(x), device=dev)
+    planes = edram.DecayParams(full(params.a1), float(params.tau1) / eps[0],
+                               full(params.a2), float(params.tau2) / eps[1],
+                               full(params.b))
+    vp = ts_decay_cuda(sae, t_now, planes)
+    ulp_p = int(ref.ulp_distance(vp, ref.ts_decay_ref(sae, t_now, planes))
+                .max())
+    check(ulp_p <= 2, f"ts_decay with (H, W) parameter planes within 2 ULP "
+          f"of its plain version at {tuple(sae.shape)} ({ulp_p})")
+    ms_planes = timer(lambda _: ts_decay_cuda(sae, t_now, planes), 30)
+    log(f"ts_decay with parameter planes: {ms_planes:.4f} ms, bound "
+        f"{bound_ms(8 * cells + 20 * H * W, 12 * cells)[0]:.4f} ms")
     rows.append(dict(name="ts_decay", max_abs_err=float((v - vr).abs().max()),
                      max_ulp=ulp, near_threshold_cells=int(near.sum()),
                      ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, ms_with_mask=ms_mask))
+                     library_ms=None, ms_with_mask=ms_mask,
+                     planes_ms=ms_planes, planes_max_ulp=ulp_p))
 
     # -- stcf_support: the Stcf product (fused decay + compare + count)
     s = stcf_support_cuda(sae, RADIUS, False, fused=(params, v_tw, t_now))
@@ -346,11 +519,20 @@ def kernel_phase(dev, mods, words, run):
     sm = stcf_support_cuda(m, RADIUS, False)
     check(torch.equal(sm, ref.stcf_support_ref(m, RADIUS)),
           "stcf_support on the mask == its plain version")
-    ms = timer(lambda _: stcf_support_cuda(sae, RADIUS, False,
-                                           fused=(params, v_tw, t_now)), 30)
+    fused = (params, v_tw, t_now)
+    old_f = old_m = None
+    if prev is not None:
+        check(torch.equal(prev_stcf(prev, sae, fused), s)
+              and torch.equal(prev_stcf(prev, m), sm),
+              "the previous stcf_support gives the same counts, both forms")
+        old_f = lambda _: prev_stcf(prev, sae, fused)
+        old_m = lambda _: prev_stcf(prev, m)
+    ms, prev_ms = in_turns(timer, lambda _: stcf_support_cuda(
+        sae, RADIUS, False, fused=fused), old_f, 30, "stcf_support fused")
     plain = timer(lambda _: ref.stcf_support_fused_ref(
         sae, RADIUS, params, v_tw, t_now), 5)
-    ms_m = timer(lambda _: stcf_support_cuda(m, RADIUS, False), 30)
+    ms_m, prev_m = in_turns(timer, lambda _: stcf_support_cuda(
+        m, RADIUS, False), old_m, 30, "stcf_support mask form")
     plain_m = timer(lambda _: ref.stcf_support_ref(m, RADIUS), 5)
     k = 2 * RADIUS + 1
     ones = torch.ones((1, 1, k, k), device=dev)
@@ -362,15 +544,18 @@ def kernel_phase(dev, mods, words, run):
     lib_m = timer(lambda _: torch.nn.functional.conv2d(mf, ones,
                                                        padding=RADIUS), 30)
     b_ms, b_by = bound_ms(8 * cells, (12 + 2 * k) * cells)
-    log(f"stcf_support fused: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms; mask form: {ms_m:.4f} ms, plain {plain_m:.4f} ms, "
-        f"conv2d {lib_m:.4f} ms, bound "
+    log(f"stcf_support fused: {ms:.4f} ms (previous kernel "
+        f"{prev_ms if prev_ms is None else round(prev_ms, 4)} ms), plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms; mask form: {ms_m:.4f} ms "
+        f"(previous {prev_m if prev_m is None else round(prev_m, 4)} ms), "
+        f"plain {plain_m:.4f} ms, conv2d {lib_m:.4f} ms, bound "
         f"{bound_ms(5 * cells, 2 * k * cells)[0]:.4f} ms")
     rows.append(dict(name="stcf_support",
                      max_abs_err=float((s - sr).abs().max()),
                      near_threshold_pixels=int(near_p.sum()), ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, mask_form_ms=ms_m,
+                     library_ms=None, prev_kernel_ms=prev_ms,
+                     mask_form_ms=ms_m, mask_form_prev_ms=prev_m,
                      mask_form_plain_ms=plain_m,
                      mask_form_library_ms=lib_m))
 
@@ -398,10 +583,79 @@ def kernel_phase(dev, mods, words, run):
     err = torch.nan_to_num(outs[0][0] - outs[1][0], nan=0.0).abs().max()
     scat = lambda st: chunk_scatter_cuda(st[0], sids, ev, st[1], cfg.block,
                                          st[2], st[3], st[4])
-    ms = timer(scat, 30, setup=fresh)
+    old_scat = None
+    if prev is not None:
+        st = fresh()
+        prev_scatter(prev, st, sids, ev, cfg.block)
+        check(all(same(a, b) for a, b in zip(st, outs[0])),
+              "the previous chunk_scatter gives the same five outputs")
+        old_scat = lambda st: prev_scatter(prev, st, sids, ev, cfg.block)
+    ms, prev_ms = in_turns(timer, scat, old_scat, 30, "chunk_scatter",
+                           setup=fresh)
     plain = timer(lambda st: ref.chunk_scatter_ref(
         st[0], sids, ev, st[1], cfg.block, st[2], st[3], st[4]), 5,
         setup=fresh)
+
+    # where its time goes: (a) as timed above, L2 flushed; (b) the same
+    # without the flush; (c) flushed, with no dirty marks and no counter
+    # plane (the SAE, t_last and n_events only)
+    sae_only = lambda st: (st[0], None, None, st[3], st[4])
+    diag = {}
+    for who, fn in (("kernel", scat), ("previous kernel", old_scat)):
+        if fn is None:
+            continue
+        diag[who] = dict(
+            flushed=ms if who == "kernel" else prev_ms,
+            warm=timer(fn, 30, setup=fresh, flush=False),
+            sae_t_only=timer(fn, 30, setup=lambda: sae_only(fresh())))
+        log(f"chunk_scatter diagnosis, {who}: (a) L2 flushed "
+            f"{diag[who]['flushed']:.4f} ms, (b) not flushed "
+            f"{diag[who]['warm']:.4f} ms, (c) flushed, dirty = counts = "
+            f"None {diag[who]['sae_t_only']:.4f} ms")
+    traffic = scatter_traffic(sids, ev, tuple(base.surfaces.sae.shape),
+                              cfg.block, SEGMENT)
+    log(f"chunk_scatter traffic: {traffic['events']} valid events -> "
+        f"{traffic['sae_atomics']} SAE atomics, {traffic['count_atomics']} "
+        f"counter atomics, {traffic['dirty_stores']} dirty-mark stores "
+        f"merged per {SEGMENT}-slot segment: "
+        f"{traffic['per_event']:.4f} atomics per event (2 unmerged)")
+
+    # duplicate-heavy traffic, at P = 2 on the engine's state and at P = 1
+    # on a polarity-merged pool, bitwise against the plain version
+    dup = {}
+    for pp in (P, 1):
+        d_sids, d_ev = duplicate_heavy_push(dev, S, pp)
+        if pp == P:
+            start = fresh
+        else:
+            sae1 = base.surfaces.sae.amax(dim=1, keepdim=True)
+            start = lambda _=None: (
+                sae1.clone(), torch.zeros((S, ops.tile_geometry(
+                    H, W, cfg.block)[2]), dtype=torch.bool, device=dev),
+                base.counts.clone(), base.surfaces.t_last.clone(),
+                base.surfaces.n_events.clone())
+        d_outs = []
+        for fn in (chunk_scatter_cuda, ref.chunk_scatter_ref):
+            st = start()
+            fn(st[0], d_sids, d_ev, st[1], cfg.block, st[2], st[3], st[4])
+            d_outs.append(st)
+        d_tr = scatter_traffic(d_sids, d_ev, (S, pp, H, W), cfg.block,
+                               SEGMENT)
+        check(all(same(a, b) for a, b in zip(*d_outs)),
+              f"chunk_scatter == its plain version on duplicate-heavy "
+              f"traffic at P = {pp} ({d_tr['events']} valid events, "
+              f"{d_tr['per_event']:.4f} atomics per event): SAE, dirty, "
+              f"counts, t_last, n_events bitwise")
+        if pp == P:
+            d_scat = lambda st: chunk_scatter_cuda(
+                st[0], d_sids, d_ev, st[1], cfg.block, st[2], st[3], st[4])
+            d_old = None if prev is None else (lambda st: prev_scatter(
+                prev, st, d_sids, d_ev, cfg.block))
+            dup = dict(zip(("ms", "prev_ms"), in_turns(
+                timer, d_scat, d_old, 30, "chunk_scatter, duplicate-heavy",
+                setup=start)), atomics_per_event=d_tr["per_event"])
+            log(f"chunk_scatter duplicate-heavy: {dup['ms']:.4f} ms "
+                f"(previous kernel {dup['prev_ms']} ms)")
     ok = ev.valid & (ev.x >= 0) & (ev.x < W) & (ev.y >= 0) & (ev.y < H)
     sid = sids.long()[:, None].expand_as(ev.x)
     lin = (((sid * P + ev.p.long()) * H + ev.y.long()) * W + ev.x.long())
@@ -420,13 +674,17 @@ def kernel_phase(dev, mods, words, run):
               + 8 * counts_hit + tiles_hit + 16 * S)
     b_ms, b_by = bound_ms(nbytes, 2 * n_ev)
     log(f"chunk_scatter: {ev.x.shape[0]} chunks x {CAP}, {n_ev} valid events, "
-        f"{cells_hit} cells hit: {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"{cells_hit} cells hit: {ms:.4f} ms (previous kernel "
+        f"{prev_ms if prev_ms is None else round(prev_ms, 4)} ms), plain "
+        f"{plain:.4f} ms, "
         f"scatter_reduce_ amax (SAE only) {lib:.4f} ms, bound {b_ms:.4f} ms "
         f"({nbytes} B)")
     rows.append(dict(name="chunk_scatter", max_abs_err=float(err),
                      bitwise=exact, events=n_ev, chunks=int(ev.x.shape[0]),
                      ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib))
+                     library_ms=lib, prev_kernel_ms=prev_ms,
+                     diagnosis=diag, traffic=traffic,
+                     duplicate_heavy=dup))
     return rows
 
 
@@ -682,6 +940,12 @@ def decay_scan_phase(dev, lm):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--prev", type=Path, default=None,
+                    help="root of another checkout (e.g. the parent "
+                    "commit's tree): time its stcf_support and "
+                    "chunk_scatter in turns with this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -724,7 +988,8 @@ def main() -> int:
     phase_s = {}
     t0 = time.perf_counter()
     run = run_engine(dev, mods, words, card)
-    rows = kernel_phase(dev, mods, words, run)
+    prev = None if args.prev is None else build_prev(args.prev.resolve())
+    rows = kernel_phase(dev, mods, words, run, prev)
     torch.cuda.synchronize()
     phase_s["time surface"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import edram
 from repro_torch.core import time_surface as ts
+from repro_torch.device import resolve_device
 from repro_torch.models import module as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
@@ -39,13 +40,16 @@ LEAVES = {
 }
 
 
-def decay_params_from_numpy(params) -> edram.DecayParams:
+def decay_params_from_numpy(params, device=None) -> edram.DecayParams:
     """Decay params from five arrays or scalars (a1, tau1, a2, tau2, b):
-    0-d values become float32 host scalars, planes float32 tensors."""
+    0-d values become float32 host scalars, planes float32 tensors on
+    ``device`` (default: the CUDA device; raises when there is none)."""
+    device = resolve_device(device)
     out = []
     for x in params:
         a = np.asarray(x, np.float32)
-        out.append(np.float32(a) if a.ndim == 0 else torch.from_numpy(a.copy()))
+        out.append(np.float32(a) if a.ndim == 0
+                   else torch.from_numpy(a.copy()).to(device))
     return edram.DecayParams(*out)
 
 

@@ -12,16 +12,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import time_surface as ts
+from repro_torch.device import resolve_device
 from repro_torch.events import synthetic as syn
 
 
 def _batch(fields, device) -> ts.EventBatch:
+    device = resolve_device(device)
     return ts.EventBatch(*(torch.from_numpy(f).to(device) for f in fields))
 
 
 def to_event_batch(s: syn.EventStream, capacity: Optional[int] = None,
                    device=None) -> ts.EventBatch:
-    """Pad/truncate a host stream to a fixed-capacity EventBatch."""
+    """Pad/truncate a host stream to a fixed-capacity EventBatch on
+    ``device`` (default: the CUDA device; raises when there is none)."""
     n = s.n if capacity is None else capacity
     pad = max(0, n - s.n)
     cut = min(s.n, n)
@@ -36,7 +39,8 @@ def to_event_batch(s: syn.EventStream, capacity: Optional[int] = None,
 
 def window_chunks(s: syn.EventStream, window_s: float,
                   capacity_per_window: int, device=None) -> ts.EventBatch:
-    """Bin a stream into fixed windows: (K, capacity) EventBatch fields.
+    """Bin a stream into fixed windows: (K, capacity) EventBatch fields on
+    ``device`` (default: the CUDA device; raises when there is none).
 
     Each event lands in exactly one window.  Overflowing windows keep
     their first ``capacity`` events in time order; short windows are

@@ -16,6 +16,9 @@ from repro_torch.core import time_surface as ts
 from repro_torch.kernels import _lib
 
 _MAX_ROWS = 65535   # the kernel's grid y-extent
+_MAX_TILES = 1 << 16   # dirty tiles of one slot: the kernel's shared bitmap
+#: event slots of one chunk row that one block sorts and merges
+SEGMENT = 2048
 
 
 def chunk_scatter_cuda(
@@ -40,6 +43,9 @@ def chunk_scatter_cuda(
     b, n = ev.x.shape
     if b > _MAX_ROWS:
         raise ValueError(f"{b} chunks exceed the kernel's {_MAX_ROWS}")
+    if (h * w) << (p - 1).bit_length() >= 1 << 31:
+        raise ValueError(f"an (H, W) = {(h, w)} plane with {p} polarities "
+                         "does not fit the kernel's 31-bit sort key")
     for name, dtype in (("x", torch.int32), ("y", torch.int32),
                         ("t", torch.float32), ("p", torch.int32),
                         ("valid", torch.bool)):
@@ -53,6 +59,9 @@ def chunk_scatter_cuda(
         tp = p * -(-h // bh) * -(-w // bw)
         if dirty.shape != (s, tp):
             raise ValueError(f"dirty: shape {tuple(dirty.shape)} != {(s, tp)}")
+        if tp > _MAX_TILES:
+            raise ValueError(f"{tp} dirty tiles per slot exceed the "
+                             f"kernel's {_MAX_TILES}")
     if counts is not None:
         _lib.check(counts, "counts", torch.int32, dev)
         if counts.shape != (s, h, w):

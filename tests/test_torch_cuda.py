@@ -8,7 +8,9 @@ is no card.  Run them on the card with::
 
 Bands: decay reads <= 2 ULP from the plain version on the same device (0
 expected: both are IEEE float32 with the same ``expf``), comparator masks
-and support counts exact away from the threshold, scatter results and
+and support counts exact away from the threshold (and the fused support
+bitwise equal to the mask form's on the kernel's own mask), scatter
+results and
 ``decay_scan`` bitwise (one IEEE product and one IEEE sum per step on both
 sides).  The reduced Mamba-2 LM on the card sits within rtol = 1e-4,
 atol = 1e-4 x max(1, max|CPU|) of the CPU port in float32: the two
@@ -96,6 +98,97 @@ def test_stcf_support_matches_plain(cuda, radius, include_self):
     assert torch.equal(fused[far], plain[far])
     assert torch.equal(ops.stcf_support(m, radius, include_self),
                        ref.stcf_support_ref(m, radius, include_self))
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 61), (2, 240, 320), (1, 5, 1000),
+                                   (2, 45, 20), (1, 70, 1601)])
+@pytest.mark.parametrize("radius", [0, 1, 3, 7, 16])
+@pytest.mark.parametrize("include_self", [False, True])
+def test_stcf_support_ragged_shapes_match_plain(cuda, shape, radius,
+                                                include_self):
+    """Both forms at ragged planes: H not a multiple of a band, a plane
+    narrower than one 32-column word, planes wider than one block's span
+    (1000 and 1601 columns), every radius."""
+    p = edram.decay_params_for_cmem()
+    v_tw = edram.v_tw_for_window(0.024, p)
+    sae = _sae(cuda, 9, shape)
+    fused = ops.stcf_support_fused(sae, p, v_tw, T_NOW, radius, include_self)
+    _, m = ops.ts_decay_with_mask(sae, T_NOW, p, v_tw)
+    mask_form = ops.stcf_support(m, radius, include_self)
+    assert torch.equal(fused, mask_form)
+    assert torch.equal(mask_form, ref.stcf_support_ref(m, radius,
+                                                       include_self))
+    plain = ref.stcf_support_fused_ref(sae, radius, p, v_tw, T_NOW,
+                                       include_self)
+    far = ~_near(ref.ts_decay_ref(sae, T_NOW, p), v_tw, radius)
+    assert torch.equal(fused[far], plain[far])
+
+
+def _pool(device, s, p, h, w, block, seed):
+    _, _, tpl = ops.tile_geometry(h, w, block)
+    g = torch.Generator().manual_seed(seed)
+    return (_sae(device, seed, (s, p, h, w)),
+            (torch.rand((s, p * tpl), generator=g) < 0.2).to(device),
+            torch.randint(0, 5, (s, h, w), generator=g,
+                          dtype=torch.int32).to(device),
+            torch.rand(s, generator=g).to(device) * T_NOW,
+            torch.randint(0, 100, (s,), generator=g,
+                          dtype=torch.int32).to(device))
+
+
+@pytest.mark.parametrize("polarities", [2, 1])
+@pytest.mark.parametrize("n, offset", [(5000, 0), (5001, 0), (5000, 1)])
+def test_chunk_scatter_duplicate_heavy_matches_plain(cuda, polarities, n,
+                                                     offset):
+    """Rows of 5,000+ events (three segments), 90 % of the events on 8
+    cells, equal stamps inside a run, four rows aimed at one slot, rows
+    aimed outside the pool, x, y and p out of range; P = 1 merges
+    polarity.  Aligned vector loads (n = 5000), then the scalar path (an
+    odd n, and fields one element off 16-byte alignment).  All five
+    outputs bitwise."""
+    s, h, w, block = 6, 60, 100, (8, 128)
+    g = torch.Generator().manual_seed(10)
+    b = 9
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (b, n), generator=g, dtype=torch.int32)
+
+    hot = torch.randint(0, 8, (b, n), generator=g)
+    hx, hy = torch.randint(0, w, (8,), generator=g), torch.randint(0, h, (8,),
+                                                                  generator=g)
+    is_hot = torch.rand((b, n), generator=g) < 0.9
+    fields = dict(
+        x=torch.where(is_hot, hx[hot].int(), ints(-3, w + 3)),
+        y=torch.where(is_hot, hy[hot].int(), ints(-3, h + 3)),
+        t=(ints(0, 500).float() * 1e-4 - 0.01),
+        p=ints(-1, polarities + 1),
+        valid=torch.rand((b, n), generator=g) < 0.9)
+
+    def place(f):   # a contiguous (b, n) view ``offset`` elements in
+        buf = torch.zeros(b * n + offset, dtype=f.dtype)
+        buf[offset:] = f.flatten()
+        return buf.to(cuda)[offset:].view(b, n)
+
+    ev = ts.EventBatch(**{k: place(v) for k, v in fields.items()})
+    sids = torch.tensor([2, 2, 2, 2, 5, -1, s, 0, 3], dtype=torch.int32,
+                        device=cuda)
+    outs = []
+    for fn in (ops.chunk_scatter_, ref.chunk_scatter_ref):
+        st = _pool(cuda, s, polarities, h, w, block, 11)
+        fn(st[0], sids, ev, st[1], block, st[2], st[3], st[4])
+        outs.append(st)
+    for a, b_ in zip(*outs):
+        if a.dtype == torch.float32:
+            a, b_ = a.view(torch.int32), b_.view(torch.int32)
+        assert torch.equal(a, b_)
+    # and with no dirty marks or counter plane
+    outs = []
+    for fn in (ops.chunk_scatter_, ref.chunk_scatter_ref):
+        st = _pool(cuda, s, polarities, h, w, block, 12)
+        fn(st[0], sids, ev, None, block, None, st[3], st[4])
+        outs.append((st[0].view(torch.int32), st[3].view(torch.int32), st[4]))
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
 
 
 def test_chunk_scatter_matches_plain(cuda):

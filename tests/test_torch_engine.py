@@ -211,7 +211,7 @@ def test_state_carried_over_from_reference():
     back = convert.engine_state_to_numpy(te.state)
     np.testing.assert_array_equal(back["surfaces.sae"].view(np.int32),
                                   _bits(je.state.surfaces.sae))
-    params = convert.decay_params_from_numpy(je.cfg.decay_params())
+    params = convert.decay_params_from_numpy(je.cfg.decay_params(), "cpu")
     assert all(np.float32(a) == b for a, b in zip(je.cfg.decay_params(),
                                                    params))
 
@@ -222,13 +222,24 @@ def test_engine_without_a_card_raises(monkeypatch):
         teng.TimeSurfaceEngine(_cfgs("edram")[1])
 
 
+def _planes():
+    """Seeded (4, 5) per-cell planes of the reference's eDRAM decay
+    parameters (a1, tau1, a2, tau2, b), as numpy float32."""
+    rng = np.random.default_rng(8)
+    base = _cfgs("edram")[0].decay_params()
+    return tuple((np.float32(v) * (1 + 0.05 * rng.standard_normal((4, 5))))
+                 .astype(np.float32) for v in base)
+
+
 def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.core import time_surface as tts
+    from repro_torch.events import pipeline as tpipe
     from repro_torch.models import module, transformer
     from repro_torch.serve import engine
 
     cfg = get_config("mamba2-2.7b").reduced()
+    stream = tdatasets.dnd21_like("hotel_bar", 4, 5, 0.01, seed=0)
     return {
         "empty_sae": lambda: tts.empty_sae(4, 5, 2),
         "surface_init": lambda: tts.surface_init(4, 5, 2),
@@ -237,17 +248,37 @@ def _entry_points():
         "init_decode_caches": lambda: transformer.init_decode_caches(
             cfg, 1, 8),
         "ServeEngine": lambda: engine.ServeEngine(cfg, {}),
+        "to_event_batch": lambda: tpipe.to_event_batch(stream, 16),
+        "window_chunks": lambda: tpipe.window_chunks(stream, 0.005, 16),
+        "decay_params_from_numpy": lambda: convert.decay_params_from_numpy(
+            _planes()),
     }
 
 
 @pytest.mark.parametrize("entry", ["empty_sae", "surface_init", "init_params",
-                                   "init_decode_caches", "ServeEngine"])
+                                   "init_decode_caches", "ServeEngine",
+                                   "to_event_batch", "window_chunks",
+                                   "decay_params_from_numpy"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point allocates on the CUDA device
     and raises when there is none (it never falls back to the CPU)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[entry]()
+
+
+def test_decay_params_from_numpy_on_cpu():
+    """Planes land on the named device bitwise equal to the reference's
+    arrays; 0-d values stay float32 host scalars."""
+    planes = _planes()
+    got = convert.decay_params_from_numpy(planes, device="cpu")
+    for a, b in zip(planes, got):
+        assert b.device.type == "cpu" and b.dtype == torch.float32
+        np.testing.assert_array_equal(b.numpy().view(np.int32), a.view(np.int32))
+    mixed = convert.decay_params_from_numpy(
+        (planes[0],) + tuple(_cfgs("edram")[0].decay_params())[1:], "cpu")
+    assert isinstance(mixed[0], torch.Tensor)
+    assert all(type(x) is np.float32 for x in mixed[1:])
 
 
 def test_offline_sae_update_out_of_range_matches_reference():

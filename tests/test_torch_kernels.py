@@ -345,10 +345,11 @@ def test_host_event_modules_match_reference():
 
     s = jdatasets.dnd21_like("hotel_bar", 24, 32, 0.03, seed=3)
     for want, got in ((jpipe.to_event_batch(s, 4096),
-                       tpipe.to_event_batch(s, 4096)),
+                       tpipe.to_event_batch(s, 4096, device="cpu")),
                       (jpipe.window_chunks(s, 0.005, 64),
-                       tpipe.window_chunks(s, 0.005, 64))):
+                       tpipe.window_chunks(s, 0.005, 64, device="cpu"))):
         for a, b in zip(want, got):
+            assert b.device.type == "cpu"
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     dt = np.concatenate([np.linspace(0.0, 0.08, 257, dtype=np.float32),
                          [np.inf]]).astype(np.float32)
