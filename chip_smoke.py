@@ -11,7 +11,8 @@ unpacked with ``git archive``): its ``stcf_support`` and
 in turns with this tree's (old, new, new, old) in the kernel phase.
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-and then, in order (phases 1-2 the time-surface path, 3-4 the LM path):
+and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
+5 the vision heads and labeled ingest on the time-surface path):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -58,6 +59,27 @@ and then, in order (phases 1-2 the time-surface path, 3-4 the LM path):
    655,360) against its plain version on the card, bitwise, with and
    without ``s0``, and timed like the others (no one PyTorch call
    computes this recurrence, so it has no yardstick).
+5. **Heads and labels** -- the engine phase's configuration and traffic
+   served through ``serve_step`` with the FRAME+heads spec: FRAME, a
+   second ``Surface(mode="ideal", tau=5 ms)`` named ``fast``,
+   ``logits = Classify(inputs=("surface", "fast"), n_classes=10,
+   width=32)`` on weights drawn on the CPU from a seeded generator and
+   registered under a key, and ``labels = Denoise()``; counters zeroed
+   just before, read just after.  Prints the step p50/p99 and the
+   ``Classify`` head's own time (CUDA events).  Checks: every logit
+   finite; ``read`` == ``read_many([heads spec, FRAME])`` bitwise for
+   every product; ``labels`` == ``stcf >= stcf_threshold`` bitwise; the
+   card's logits for 4 slots == the CPU port's ``cnn_apply`` on the
+   card's surfaces copied to the host (rtol = 1e-4, atol = 1e-4 x
+   max(1, max|CPU|), float32, TF32 off); the three time-surface kernels
+   launched.  Then one 10 ms push of 8 sensors through ``push_labeled``
+   on the card and on a CPU engine: supports equal wherever no compared
+   cell reads within 2 ULP of V_tw (the excepted events counted);
+   sensor 0's labels == the offline ``stcf_chunked`` at chunk 2048 on
+   the card, bitwise; ``roc_curve`` AUC against the driving scene's
+   ground truth, card vs CPU, within 1e-6; events/s of the labeled push.
+   Last, the pool's ``TsQuantized(n_bits=16, tick=1 ms)`` read within 2
+   ULP of the plain ``ts_wrapped_read_ref`` on the card.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -102,6 +124,12 @@ LM_NEW_TOKENS = 32
 CHECK_LAYERS = 2              # depth of the float32 card-vs-CPU model
 CHECK_BATCH, CHECK_PROMPT = 2, 300
 LM_TOL = 1e-4    # rtol; atol x max(1, max|ref|): float32 card vs CPU, recurrent
+
+HEADS_KEY = "chip-smoke-heads"
+HEADS_CLASSES, HEADS_WIDTH = 10, 32
+HEADS_CHECK_SLOTS = 4
+HEADS_TOL = 1e-4  # rtol; atol x max(1, max|CPU|): float32 card vs CPU CNN
+LABEL_SENSORS = 8
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -713,6 +741,21 @@ def profiled(fn):
                      and e.self_device_time_total > 0})
 
 
+def profile_line(what: str, r: dict, step_ms=None) -> None:
+    """Log one ``profiled`` run: device time, launches, the device's idle
+    share of the profiled host time (and of ``step_ms``, an unprofiled
+    step, when given) and the device time of the top PyTorch ops."""
+    top = sorted(r["ops"].items(), key=lambda kv: -kv[1])[:6]
+    idle = f"{100 * (1 - r['device_ms'] / r['wall_ms']):.1f} % of it"
+    if step_ms is not None:
+        idle += (f", {100 * (1 - r['device_ms'] / step_ms):.1f} % of an "
+                 f"unprofiled {step_ms:.3f} ms step")
+    log(f"{what}: device kernels {r['device_ms']:.3f} ms in "
+        f"{r['wall_ms']:.3f} ms profiled -> device idle {idle}; "
+        f"{r['launches']} kernel launches; device ms by op: "
+        f"{[(k, round(v, 3)) for k, v in top]}")
+
+
 def lm_requests(cfg, request_cls):
     """The LM phase's traffic: seeded prompt lengths and tokens."""
     rng = np.random.default_rng(0)
@@ -830,12 +873,7 @@ def run_lm(dev, card):
     scan_ms = sum(v for k, v in pf["kernels"].items() if "decay_scan" in k)
     for name, r, step_ms in (("prefill", pf, pf_s * 1e3),
                              ("decode step", dc, np.percentile(dec_ms, 50))):
-        top = sorted(r["ops"].items(), key=lambda kv: -kv[1])[:6]
-        log(f"lm profile, one {name}: device kernels {r['device_ms']:.3f} ms "
-            f"in {r['wall_ms']:.3f} ms profiled ({step_ms:.3f} ms unprofiled "
-            f"-> device idle {100 * (1 - r['device_ms'] / step_ms):.1f} %); "
-            f"{r['launches']} kernel launches; device ms by op: "
-            f"{[(k, round(v, 3)) for k, v in top]}")
+        profile_line(f"lm profile, one {name}", r, step_ms)
     check(scan_ms > 0, "torch.profiler traced the prefill's decay_scan kernels")
     log(f"lm: decay_scan kernels inside one prefill: {scan_ms:.3f} ms of the "
         f"{pf_s * 1e3:.3f} ms prefill -> {100 * scan_ms / (pf_s * 1e3):.2f} % "
@@ -939,6 +977,204 @@ def decay_scan_phase(dev, lm):
         library_ms=None)]
 
 
+def label_band(sae, ev, cfg, stcf_mod, edram, ref, ts) -> torch.Tensor:
+    """Per valid event of one sensor's labeled push from an empty slot:
+    whether any cell or earlier event its STCF support compares reads
+    within 2 ULP of V_tw -- replayed chunk by chunk on the CPU as the
+    engine labels them (against the SAE of the earlier chunks, plus the
+    chunk's own earlier events)."""
+    scfg, params, v_tw = cfg.stcf_config(), cfg.decay_params(), cfg.v_tw()
+
+    def close(dt):
+        v = edram.v_mem(dt, params)
+        return ref.ulp_distance(v, torch.full_like(v, v_tw)) <= 2
+
+    out = []
+    for lo in range(0, ev.x.shape[0], CAP):
+        ch = ts.EventBatch(*(f[lo:lo + CAP] for f in ev))
+        cell, inb = stcf_mod._patch(sae.shape, ch.x, ch.y, ch.p, scfg)
+        band = (close(ch.t[:, None] - sae.reshape(-1)[cell]) & inb).any(1)
+        near = (((ch.x[:, None] - ch.x[None, :]).abs() <= scfg.radius)
+                & ((ch.y[:, None] - ch.y[None, :]).abs() <= scfg.radius))
+        dt = ch.t[:, None] - ch.t[None, :]
+        band |= (near & (dt > 0) & ch.valid[None, :]
+                 & close(dt.clamp_min(0.0))).any(1)
+        out.append(band[ch.valid])
+        sae = ts.sae_update(sae, ch)
+    return torch.cat(out)
+
+
+def run_heads(dev, mods, words, card, timer):
+    """Phase 5: the vision heads and labeled ingest.  Returns the heads
+    path's kernel launches and what the phase measured."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.core import edram
+    from repro_torch.core import stcf as stcf_mod
+    from repro_torch.events import datasets
+    from repro_torch.kernels import ref
+    from repro_torch.models import cnn
+    from repro_torch.models import module as M
+    from repro_torch.models.frontends import ts_stack_frontend
+    from repro_torch.serve import heads
+
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    spec = rs.ReadoutSpec(
+        **dict(frame.products), fast=rs.surface(mode="ideal", tau=5e-3),
+        logits=rs.classify(inputs=("surface", "fast"), weights=HEADS_KEY,
+                           n_classes=HEADS_CLASSES, width=HEADS_WIDTH),
+        labels=rs.denoise())
+    cfg = eng.TSEngineConfig(h=H, w=W, polarities=P, n_slots=S,
+                             chunk_capacity=CAP, mode="edram",
+                             specs=(spec, frame))
+    params = M.init_params(heads.head_param_defs(spec["logits"], cfg),
+                           torch.Generator().manual_seed(11), "cpu")
+    heads.register_head_params(HEADS_KEY, params)
+    engine = eng.TimeSurfaceEngine(cfg, device=dev)
+    sessions = [engine.attach() for _ in range(S)]
+    bursts = [[(sessions[k], words[k % N_SCENES][b]) for k in range(S)]
+              for b in range(2 * DEADLINES)]
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    step_ms, finite = [], True
+    for d in range(DEADLINES):
+        t_now = (d + 1) * DEADLINE_S
+        for half in range(2):
+            t0 = time.perf_counter()
+            out = engine.serve_step(bursts[2 * d + half], spec, t_now)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            finite &= bool(torch.isfinite(out["logits"]).all())
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    t_end = DEADLINES * DEADLINE_S
+    steady = step_ms[2:]
+    log(f"heads on {card}: {S} sensors x {P}x{H}x{W}, FRAME + fast surface "
+        f"+ Classify({HEADS_CLASSES} classes, width {HEADS_WIDTH}, "
+        f"{2 * P} input channels) + Denoise, {DEADLINES} deadlines x 2 "
+        f"bursts: serve_step p50 {np.percentile(steady, 50):.3f} ms, p99 "
+        f"{np.percentile(steady, 99):.3f} ms over deadlines 2..{DEADLINES}; "
+        f"first deadline {step_ms[0]:.3f} + {step_ms[1]:.3f} ms")
+    log(f"heads: every serve_step, ms: {[round(x, 3) for x in step_ms]}")
+    log(f"heads: kernel launches on the path: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched on the heads path ({n})")
+    check(finite, f"every logit finite at every step "
+          f"({tuple(out['logits'].shape)})")
+
+    single = engine.read(spec, t_end)
+    shared = engine.read_many([spec, frame], t_end)
+    check(all(same(single[n], shared[spec][n]) for n in spec.names)
+          and all(same(single[n], shared[frame][n]) for n in frame.names),
+          "read == read_many([heads spec, FRAME]) bitwise, every product")
+    check(torch.equal(single["labels"],
+                      single["stcf"] >= cfg.stcf_threshold),
+          "labels == stcf >= stcf_threshold, bitwise")
+    k = HEADS_CHECK_SLOTS
+    t0 = time.perf_counter()
+    want = cnn.cnn_apply(params, ts_stack_frontend(
+        [single["surface"][:k].cpu(), single["fast"][:k].cpu()]))
+    cpu_s = time.perf_counter() - t0
+    got = single["logits"][:k].cpu()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=HEADS_TOL,
+                              atol=HEADS_TOL * scale)),
+          f"card logits of {k} slots == CPU port cnn_apply on the card's "
+          f"surfaces within rtol = {HEADS_TOL}, atol = {HEADS_TOL} x max(1, "
+          f"max|CPU|) (max |d| {err:.3e} of max |logit| "
+          f"{float(want.abs().max()):.3e}; CPU {cpu_s * 1e3:.1f} ms)")
+    _, hp = engine._resolved(spec)
+    stack = ts_stack_frontend([single["surface"], single["fast"]])
+    classify_ms = timer(lambda _: cnn.cnn_apply(hp["logits"], stack), 10)
+    log(f"heads: Classify head alone (ts_stack_frontend + cnn_apply on "
+        f"{S} slots of {H}x{W}x{2 * P}) {classify_ms:.4f} ms (CUDA events, "
+        f"median of 10, L2 flushed)")
+
+    q_spec = rs.ReadoutSpec(q=rs.ts_quantized(n_bits=16, tick=1e-3))
+    q = engine.read(q_spec, t_end)["q"]
+    q_ref = ref.ts_wrapped_read_ref(
+        ops.ts_quantize_sae(engine.state.surfaces.sae, 16, 1e-3), t_end,
+        cfg.tau, 16, 1e-3)
+    q_ulp = int(ref.ulp_distance(q, q_ref).max())
+    check(q_ulp <= 2, f"TsQuantized(16 bits, 1 ms) read within 2 ULP of "
+          f"ts_wrapped_read_ref on the card ({q_ulp})")
+    profile_line("heads profile, one serve_step (the first burst again)",
+                 profiled(lambda: engine.serve_step(bursts[0], spec, t_end)),
+                 np.percentile(steady, 50))
+    heads.clear_registry()
+    del engine, single, shared, stack
+
+    # labeled ingest: one 10 ms push of LABEL_SENSORS sensors
+    lab_cfg = eng.TSEngineConfig(h=H, w=W, polarities=P,
+                                 n_slots=LABEL_SENSORS, chunk_capacity=CAP,
+                                 mode="edram")
+    payloads = [np.concatenate(words[k % N_SCENES][0:2])
+                for k in range(LABEL_SENSORS)]
+    results = {}
+    for where in (dev, "cpu"):
+        e = eng.TimeSurfaceEngine(lab_cfg, device=where)
+        cams = [e.attach() for _ in payloads]
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        labeled = [c.push_labeled(w) for c, w in zip(cams, payloads)]
+        torch.cuda.synchronize()
+        results[str(where)] = (labeled, time.perf_counter() - t0,
+                               dict(_lib.LAUNCHES), e)
+    card_lab, card_s, lab_launches, card_eng = results[str(dev)]
+    cpu_lab, cpu_s, _, cpu_eng = results["cpu"]
+    n_ev = sum(len(w) for w in payloads)
+    excepted, mismatched = 0, 0
+    for (gs, gl), (cs, cl), w in zip(card_lab, cpu_lab, payloads):
+        st = aer.unpack(w, H, W)
+        ev = pipeline.to_event_batch(st, st.n + (-st.n) % CAP, device="cpu")
+        band = label_band(ts.empty_sae(H, W, P, "cpu"), ev, lab_cfg,
+                          stcf_mod, edram, ref, ts)
+        excepted += int(band.sum())
+        diff = (gs.cpu() != cs) | (gl.cpu() != cl)
+        mismatched += int((diff & ~band).sum())
+    check(mismatched == 0,
+          f"push_labeled card == CPU port on {n_ev} events of "
+          f"{LABEL_SENSORS} sensors, away from the comparator band "
+          f"({excepted} events excepted: a compared cell within 2 ULP of "
+          f"V_tw; {mismatched} mismatched outside it)")
+    check(same(card_eng.state.surfaces.sae, cpu_eng.state.surfaces.sae),
+          "SAE after push_labeled, card == CPU port, bitwise")
+    log(f"labels on {card}: push_labeled of {n_ev} events ({LABEL_SENSORS} "
+        f"sensors x 10 ms) {card_s * 1e3:.3f} ms -> {n_ev / card_s:.1f} "
+        f"events/s (CPU port {cpu_s * 1e3:.1f} ms); launches {lab_launches}")
+    e = eng.TimeSurfaceEngine(lab_cfg, device=dev)
+    cam = e.attach()
+    profile_line("labels profile, push_labeled of sensor 0 (10 ms, "
+                 f"{len(payloads[0])} events)",
+                 profiled(lambda: cam.push_labeled(payloads[0])))
+    del e, cam
+    st0 = aer.unpack(payloads[0], H, W)
+    ev0 = pipeline.to_event_batch(st0, st0.n + (-st0.n) % CAP, device=dev)
+    off, off_sig = stcf_mod.stcf_chunked(
+        ev0, H, W, lab_cfg.stcf_config(), chunk=CAP, mode="edram",
+        params=lab_cfg.decay_params(), v_tw=lab_cfg.v_tw())
+    check(torch.equal(card_lab[0][0], off[:st0.n])
+          and torch.equal(card_lab[0][1], off_sig[:st0.n]),
+          f"push_labeled == offline stcf_chunked(chunk={CAP}) on the card, "
+          f"bitwise ({st0.n} events of sensor 0)")
+    truth = datasets.dnd21_like("driving", H, W, DEADLINES * DEADLINE_S,
+                                seed=0).window(0.0, DEADLINE_S)
+    check(truth.n == st0.n, f"scene 0's ground truth covers its push "
+          f"({truth.n} == {st0.n} events)")
+    labels = torch.from_numpy(truth.is_signal)
+    valid = torch.ones(st0.n, dtype=torch.bool)
+    _, _, auc_card = stcf_mod.roc_curve(card_lab[0][0], labels.to(dev),
+                                        valid.to(dev))
+    _, _, auc_cpu = stcf_mod.roc_curve(cpu_lab[0][0], labels, valid)
+    check(abs(float(auc_card) - float(auc_cpu)) <= 1e-6,
+          f"roc_curve AUC card {float(auc_card):.7f} == CPU port "
+          f"{float(auc_cpu):.7f} within 1e-6 (driving scene 0, 10 ms)")
+    return dict(launches=launches, step_ms=step_ms, classify_ms=classify_ms,
+                label_events_per_s=n_ev / card_s, auc=float(auc_card))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -999,6 +1235,10 @@ def main() -> int:
     rows += decay_scan_phase(dev, lm)
     torch.cuda.synchronize()
     phase_s["decay_scan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hd = run_heads(dev, mods, words, card, Timer(dev))
+    torch.cuda.synchronize()
+    phase_s["heads and labels"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
@@ -1008,6 +1248,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name],
                             launches=launches[name],
+                            heads_path_launches=hd["launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:

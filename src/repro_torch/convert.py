@@ -7,7 +7,9 @@ with ``.``, and maps one to one onto the port's tensors and back:
   * an LM's parameters (``embed``, ``layers.ln1``, ``layers.ssm.<name>``
     stacked on a leading layer dim, ``ln_f``, ``unembed``);
   * an LM's decode caches, one dict per layer (``ssm.conv.x``,
-    ``ssm.conv.b``, ``ssm.conv.c``, ``ssm.state``).
+    ``ssm.conv.b``, ``ssm.conv.c``, ``ssm.state``);
+  * a ``Classify`` head's CNN parameters, whose paths are joined with
+    ``/`` instead (``inc1/b3a/w``), as a checkpoint names its leaves.
 
 Nothing here imports JAX: the caller converts its arrays with
 ``np.asarray`` (bfloat16 ones as float32, which holds them exactly).
@@ -26,6 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import module as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.serve import heads
 from repro_torch.serve.ts_engine import EngineState, ReadoutCache
 
 #: leaf path -> dtype of the engine state's arrays (``counts`` optional)
@@ -149,3 +152,29 @@ def decode_caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]],
 def decode_caches_to_numpy(caches: Sequence[dict]) -> List[Dict[str, np.ndarray]]:
     """``[{leaf path: array}]`` of the port's per-layer decode caches."""
     return [_to_numpy(c) for c in caches]
+
+
+def head_params_from_numpy(arrays: Mapping[str, np.ndarray], head, cfg,
+                           device=None) -> dict:
+    """A ``Classify`` head's param tree on ``device`` (default: the CUDA
+    device; raises when there is none) from the reference's ``{leaf path:
+    array}``; raises on a missing, extra or misshapen leaf.  ``cfg`` is
+    the engine config (its polarities size the input channels)."""
+    device = resolve_device(device)
+    defs = M.flatten(heads.head_param_defs(head, cfg), sep="/")
+    if set(arrays) != set(defs):
+        raise KeyError(f"leaf paths {sorted(arrays)} != {sorted(defs)}")
+    out = {}
+    for path, d in defs.items():
+        a = np.asarray(arrays[path])
+        if a.shape != d.shape:
+            raise ValueError(f"{path}: shape {a.shape} != {d.shape}")
+        out[path] = _tensor(a, d.dtype, device)
+    return M.unflatten(out, sep="/")
+
+
+def head_params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``{leaf path: array}`` of a head's param tree, paths joined with
+    ``/``."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in M.flatten(params, sep="/").items()}

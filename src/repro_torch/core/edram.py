@@ -19,6 +19,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.device import f32
 from repro_torch.hw import constants as C
 from repro_torch.hw import spice_fit
 
@@ -61,26 +62,22 @@ def rate_sigma() -> float:
     return spice_fit.calibrate_rate_sigma(spice_fit.fit_20ff())
 
 
-def _f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
 def v_mem(dt, params: DecayParams) -> torch.Tensor:
     """Cell voltage ``dt`` seconds after a write, in float32.
 
     ``dt`` may be +inf (never written) -> 0: an unwritten cell holds no
     charge (``b`` models the fit's floor, not a standing offset).
     """
-    dt = _f32(dt)
-    p = [_f32(x, dt.device) for x in params]
+    dt = f32(dt)
+    p = [f32(x, dt.device) for x in params]
     v = p[0] * torch.exp(-dt / p[1]) + p[2] * torch.exp(-dt / p[3]) + p[4]
     return torch.where(torch.isfinite(dt), v, torch.zeros_like(v))
 
 
 def ideal_exp(dt, tau: float) -> torch.Tensor:
     """The ideal software TS kernel exp(-dt/tau) (paper Eq. 3/5)."""
-    dt = _f32(dt)
-    v = torch.exp(-dt / _f32(tau, dt.device))
+    dt = f32(dt)
+    v = torch.exp(-dt / f32(tau, dt.device))
     return torch.where(torch.isfinite(dt), v, torch.zeros_like(v))
 
 

@@ -1,4 +1,4 @@
-"""Time-surface construction (paper Sec. II-B / III), as far as serving needs.
+"""Time-surface construction (paper Sec. II-B / III).
 
 The port of ``repro.core.time_surface``.  The SAE (surface of active
 events) stores the last write time per cell; "never written" is -inf, so
@@ -7,15 +7,19 @@ lazy: nothing is computed between events.
 
 Event batches are fixed-capacity tensors (padded, ``valid`` masked), the
 layout the engine's scatter kernel takes.
+
+The reference's scan-based ``events_to_frames`` and ``streaming_ts`` are
+not ported.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.core import edram
+from repro_torch.device import f32, resolve_device
 
 NEVER = float("-inf")
 
@@ -71,6 +75,56 @@ def surface_init(h: int, w: int, polarities: int = 1,
         t_last=torch.zeros((), dtype=torch.float32, device=device),
         n_events=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def surface_update(state: SurfaceState, ev: EventBatch,
+                   merge_polarity: bool = False) -> SurfaceState:
+    """Scatter one (N,) event batch into one sensor's state, returning the
+    new state (``t_last`` is the latest valid stamp seen, ``n_events``
+    counts the valid events)."""
+    sae = sae_update(state.sae, ev, merge_polarity=merge_polarity)
+    t_valid = torch.where(ev.valid, ev.t, torch.full_like(ev.t, NEVER))
+    t_max = t_valid.max() if t_valid.numel() else t_valid.new_tensor(NEVER)
+    return SurfaceState(
+        sae=sae,
+        t_last=torch.maximum(state.t_last, t_max),
+        n_events=state.n_events + ev.valid.sum().to(torch.int32),
+    )
+
+
+def surface_read(state: SurfaceState, t_now, tau: Optional[float] = None,
+                 params=None) -> torch.Tensor:
+    """Read the TS off a SurfaceState: ideal (``tau``) or eDRAM
+    (``params``), in plain tensor ops.  The kernel-backed form the serving
+    engine shares is ``surface_read_kernel``."""
+    if params is not None:
+        return ts_edram(state.sae, t_now, params)
+    if tau is None:
+        raise ValueError("pass tau (ideal) or params (edram)")
+    return ts_ideal(state.sae, t_now, tau)
+
+
+def ts_ideal(sae: torch.Tensor, t_now, tau: float) -> torch.Tensor:
+    """Paper Eq. (5): TS = exp(-(t_now - SAE)/tau), in [0, 1]."""
+    return edram.ideal_exp(f32(t_now, sae.device) - sae, tau)
+
+
+def ts_edram(sae: torch.Tensor, t_now, params: edram.DecayParams
+             ) -> torch.Tensor:
+    """Hardware TS: the eDRAM voltage map f(t_now - SAE) in volts
+    (``params`` may hold per-cell planes)."""
+    return edram.v_mem(f32(t_now, sae.device) - sae, params)
+
+
+def window_mask_ideal(sae: torch.Tensor, t_now, tau_tw: float) -> torch.Tensor:
+    """Ideal digital comparison: event within the time window tau_tw."""
+    return (f32(t_now, sae.device) - sae) < f32(tau_tw, sae.device)
+
+
+def window_mask_edram(sae: torch.Tensor, t_now, params: edram.DecayParams,
+                      v_tw) -> torch.Tensor:
+    """Hardware comparison: V_mem > V_tw (one comparator per pixel)."""
+    return ts_edram(sae, t_now, params) > f32(v_tw, sae.device)
 
 
 def scatter_max_(flat: torch.Tensor, idx: torch.Tensor,

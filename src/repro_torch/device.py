@@ -1,7 +1,17 @@
-"""The device an entry point runs on when its caller names none."""
+"""The device an entry point runs on when its caller names none, and
+float32 operands placed on the data's device."""
 from __future__ import annotations
 
 import torch
+
+
+def f32(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device`` (None: where ``x`` is, or
+    the CPU): an operand on the data's device, never a host scalar.
+    PyTorch's elementwise kernels may take a host-scalar operand down
+    another path (a divisor through its reciprocal), which would cost the
+    last bit."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -135,6 +135,40 @@ def decay_scan(a: torch.Tensor, x: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
+# wrapped n-bit timestamps ([26]'s SRAM TPI storage)
+# ----------------------------------------------------------------------------
+
+def ts_quantize_sae(sae: torch.Tensor, n_bits: int = 16,
+                    tick: float = 1e-3) -> torch.Tensor:
+    """Wrap a raw SAE's stamps to n-bit ``tick``-second storage: the value
+    the hardware would actually hold.  NEVER cells stay NEVER.  Stamps
+    must be >= 0 (``time_surface.rebase_times``).  ``floor`` is monotone,
+    so quantizing the maxed raw SAE equals maxing per-event quantized
+    stamps whenever the stream spans less than one wrap period."""
+    fin = torch.isfinite(sae)
+    safe = torch.where(fin, sae, torch.zeros_like(sae))
+    return torch.where(fin, _ref.quantize_stamps(safe, n_bits, tick),
+                       torch.full_like(sae, ts.NEVER))
+
+
+def ts_wrapped_read(stored: torch.Tensor, t_read, params, n_bits: int = 16,
+                    tick: float = 1e-3) -> torch.Tensor:
+    """TS readout over wrapped stamps (``ts_quantize_sae``): the hardware
+    cannot know how many wraps happened, so the elapsed time is modular and
+    ancient events alias as recent ([26]'s periodic corruption).
+
+    The modular age is folded into a virtual SAE read at ``t_now = 0``
+    (``sae' = -dt``, so the decay's ``0 - sae'`` is ``dt`` exactly) and
+    read through the one ``ts_decay`` entry: on a CUDA tensor the
+    hand-written kernel.
+    """
+    dt = _ref.wrapped_age(stored, t_read, n_bits, tick)
+    virtual = torch.where(torch.isfinite(stored), -dt,
+                          torch.full_like(dt, ts.NEVER))
+    return ts_decay(virtual, 0.0, params)
+
+
+# ----------------------------------------------------------------------------
 # dirty-tile incremental readout (plain tensor indexing around ts_decay)
 # ----------------------------------------------------------------------------
 

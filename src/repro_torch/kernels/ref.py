@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import time_surface as ts
+from repro_torch.device import f32
+from repro_torch.models.cnn import cnn_apply
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,13 +27,6 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (key(a) - key(b)).abs()
 
 
-def _f32(x, device) -> torch.Tensor:
-    # a 0-dim tensor on the data's device, never a host scalar: PyTorch's
-    # elementwise kernels may take a host-scalar operand down another path
-    # (a divisor through its reciprocal), which would cost the last bit
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
 def ts_decay_ref(sae: torch.Tensor, t_now, params,
                  v_tw: Optional[float] = None):
     """Double-exp readout of an SAE (+ the comparator mask ``v > v_tw``).
@@ -41,15 +36,15 @@ def ts_decay_ref(sae: torch.Tensor, t_now, params,
     driver clamps them).
     """
     dev = sae.device
-    a1, tau1, a2, tau2, b = (_f32(x, dev) for x in params)
+    a1, tau1, a2, tau2, b = (f32(x, dev) for x in params)
     if params.varied:
         tau1, tau2 = tau1.clamp_min(1e-9), tau2.clamp_min(1e-9)
-    dt = _f32(t_now, dev) - sae
+    dt = f32(t_now, dev) - sae
     v = a1 * torch.exp(-dt / tau1) + a2 * torch.exp(-dt / tau2) + b
     v = torch.where(torch.isfinite(sae), v, torch.zeros_like(v))
     if v_tw is None:
         return v
-    return v, v > _f32(v_tw, dev)
+    return v, v > f32(v_tw, dev)
 
 
 def stcf_support_ref(mask: torch.Tensor, radius: int,
@@ -71,6 +66,70 @@ def stcf_support_fused_ref(sae, radius, params, v_tw, t_now,
     """SAE -> decay -> comparator -> support, composed from the above."""
     _, m = ts_decay_ref(sae, t_now, params, v_tw=v_tw)
     return stcf_support_ref(m, radius, include_self)
+
+
+def _mod(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``jnp.mod`` of float32 tensors: the exact ``fmod``, plus the divisor
+    where the remainder is nonzero and its sign differs from the
+    divisor's."""
+    r = torch.fmod(x, m)
+    fix = (r != 0) & ((r < 0) != (m < 0))
+    return torch.where(fix, r + m, r)
+
+
+def quantize_stamps(t: torch.Tensor, n_bits: int, tick: float) -> torch.Tensor:
+    """Stamps ``t`` (seconds, >= 0) as n-bit ``tick``-second storage holds
+    them: ``floor(t * (1/tick)) mod 2^n`` ticks, back in float32 seconds.
+    The reference's compiled op multiplies by the float32 reciprocal of
+    ``tick`` (XLA rewrites a division by a constant so) rather than
+    dividing; the two can floor to different ticks where ``t / tick`` lies
+    within a rounding error of an integer, and this is the one the
+    reference stores."""
+    dev = t.device
+    tick_t = f32(tick, dev)
+    ticks = torch.floor(t * (f32(1.0, dev) / tick_t)).to(torch.int64)
+    return (ticks % (2 ** n_bits)).to(torch.float32) * tick_t
+
+
+def wrapped_age(stored: torch.Tensor, t_read, n_bits: int, tick: float
+                ) -> torch.Tensor:
+    """Modular age of wrapped n-bit stamps at ``t_read``: the read time
+    wrapped to ``floor(t_read / tick) mod 2^n`` ticks, then ``(t_read_w -
+    stored) mod 2^n*tick``, in float32 (``tick`` and the period rounded to
+    float32, as the reference's weakly typed Python floats are; the read
+    time divided, as the reference's plain oracle divides it)."""
+    dev = stored.device
+    tick_t = f32(tick, dev)
+    q = torch.floor(f32(t_read, dev) / tick_t)
+    t_read_w = _mod(q, f32(2 ** n_bits, dev)) * tick_t
+    return _mod(t_read_w - stored, f32((2 ** n_bits) * tick, dev))
+
+
+def ts_wrapped_read_ref(stored: torch.Tensor, t_read, tau: float,
+                        n_bits: int = 16, tick: float = 1e-3) -> torch.Tensor:
+    """Plain version of ``ops.ts_wrapped_read`` with the ideal decay: the
+    direct [26] formula ``exp(-dt/tau)`` on the modular age, written
+    without the virtual-SAE folding the op uses."""
+    dt = wrapped_age(stored, t_read, n_bits, tick)
+    dt = torch.where(torch.isfinite(stored), dt,
+                     torch.full_like(dt, float("inf")))
+    v = torch.exp(-dt / f32(tau, stored.device))
+    return torch.where(torch.isfinite(dt), v, torch.zeros_like(v))
+
+
+def classify_ref(params, surfaces) -> torch.Tensor:
+    """Plain version of the ``Classify`` head: K pool reads, each
+    (S, P, H, W), stacked on the channel axis (the k-th input's
+    polarities at channels [k*P, (k+1)*P), restated here rather than
+    imported from the frontend) and fed to ``models.cnn.cnn_apply``."""
+    x = torch.cat([torch.as_tensor(s) for s in surfaces], dim=1)
+    return cnn_apply(params, x.movedim(1, -1))
+
+
+def denoise_ref(support: torch.Tensor, threshold: int) -> torch.Tensor:
+    """Plain version of the ``Denoise`` head: the per-pixel label map of an
+    STCF support read (True = signal)."""
+    return support >= threshold
 
 
 def chunk_scatter_ref(

@@ -53,24 +53,25 @@ def _initialize(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
     return x.mul_(std).to(device=device, dtype=d.dtype)
 
 
-def flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """``{leaf path: leaf}`` of a nested dict, paths joined with ``.`` and
-    in sorted order (the order ``init_params`` draws in)."""
+def flatten(tree, sep: str = ".", prefix: str = "") -> Dict[str, Any]:
+    """``{leaf path: leaf}`` of a nested dict, paths joined with ``sep``
+    and keys sorted at every level (the order ``init_params`` draws in,
+    and JAX's flattening order of a dict)."""
     out: Dict[str, Any] = {}
     for k in sorted(tree):
         v, path = tree[k], f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(flatten(v, path + "."))
+            out.update(flatten(v, sep, path + sep))
         else:
             out[path] = v
     return out
 
 
-def unflatten(flat) -> dict:
+def unflatten(flat, sep: str = ".") -> dict:
     """The nested dict of ``{leaf path: leaf}`` (inverse of ``flatten``)."""
     out: dict = {}
     for path, v in flat.items():
-        *parents, leaf = path.split(".")
+        *parents, leaf = path.split(sep)
         node = out
         for p in parents:
             node = node.setdefault(p, {})

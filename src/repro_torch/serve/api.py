@@ -6,6 +6,7 @@ The port of ``repro.serve.api``.  ``engine.attach()`` returns a
 
     session = engine.attach()
     session.push(aer_words)                          # scatter events
+    support, is_signal = session.push_labeled(words) # scatter + STCF labels
     out = session.read(spec, t_now)                  # products, this sensor
     out = session.push_and_read(burst, spec, t_now)  # cache-backed read
     session.detach()                                 # slot wiped + reusable
@@ -75,6 +76,15 @@ class SensorSession:
         sensor's surface."""
         self._check()
         self._engine.push([(self._slot, payload)])
+
+    def push_labeled(self, payload) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Push and label: ``(support, is_signal)`` per valid event, the
+        STCF denoise verdicts of this payload against the surface as it
+        stood when each chunk landed (the offline ``stcf_chunked`` at
+        ``chunk = chunk_capacity``), on the engine's device."""
+        self._check()
+        (sup, sig), = self._engine._ingest_labeled([(self._slot, payload)])
+        return sup, sig
 
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
              t_now: float = 0.0) -> Dict[str, torch.Tensor]:

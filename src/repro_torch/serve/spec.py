@@ -1,24 +1,40 @@
 """Declarative readout specs: *what to read*, not *which method to call*.
 
-The port of the stage-0 half of ``repro.serve.spec``.  A ``ReadoutSpec``
-is an immutable, hashable composition of named surface products, all read
-off the same slot-pool state in one pass::
+The port of ``repro.serve.spec``.  A ``ReadoutSpec`` is an immutable,
+hashable composition of named products, all read off the same slot-pool
+state.  It is a **two-stage product graph**.  Stage-0 *surface products*
+read the pool::
 
-    surface(...)   decayed time surface (the classic TS readout)
-    mask(...)      comparator mask V > V_tw (denoiser front end)
-    stcf(...)      dense STCF patch-support map
-    count(n_bits)  saturating per-pixel event counter  [refs 32, 33]
-    ebbi()         event-based binary image            [refs 34, 35]
-    sae_raw()      raw last-timestamp surface (-inf = never) [21, 36]
+    surface(...)       decayed time surface (the classic TS readout)
+    mask(...)          comparator mask V > V_tw (denoiser front end)
+    stcf(...)          dense STCF patch-support map
+    count(n_bits)      saturating per-pixel event counter  [refs 32, 33]
+    ebbi()             event-based binary image            [refs 34, 35]
+    sae_raw()          raw last-timestamp surface (-inf = never) [21, 36]
+    ts_quantized(...)  TS from n_T-bit wrapping timestamps  [ref 26]
 
-Not ported yet, and so not constructible here: ``ts_quantized`` (waits
-for ``ts_wrapped_read``, ROADMAP queue 3), the stage-1 heads
-``classify``/``denoise`` (ROADMAP queue 1 item 8), and analog-fidelity
-reads (item 9; a read that asks for one raises ``NotImplementedError``).
+Stage-1 *head products* consume stage-0 products **by name**::
 
-Bit-identity contract: each product calls the same ``kernels.ops`` entry
-its standalone read uses, so the ``surface()`` product of any spec is
-bitwise a standalone ``ops.ts_decay`` of the same state.
+    classify(inputs, weights, ...)   CNN class logits over a stack of
+                                     surface products (Sec. IV-D)
+    denoise(input, threshold)        STCF-thresholded event-label map
+
+The constructor validates the wiring (``classify`` eats ``surface()``
+products, ``denoise`` a ``stcf()``), so a malformed graph never reaches a
+read.  ``compile_spec`` plans a spec into its stage-0 sub-spec, its heads
+and its resolved decay params and thresholds; ``read_compiled`` reads
+stage 0, then applies the heads to exactly the tensors stage 0 served
+(eager PyTorch fuses nothing, so no barrier is needed for the staged
+contract: a head's output is bitwise the standalone head on the served
+stage-0 products).
+
+Analog-fidelity reads are not ported (ROADMAP queue 1 item 9): a read
+that asks for one raises ``NotImplementedError``.
+
+Bit-identity contract: each stage-0 product calls the same
+``kernels.ops`` entry its standalone read uses, so the ``surface()``
+product of any spec is bitwise a standalone ``ops.ts_decay`` of the same
+state.
 """
 from __future__ import annotations
 
@@ -31,14 +47,18 @@ import torch
 from repro_torch.core import edram
 from repro_torch.core import representations as representations_mod
 from repro_torch.kernels import ops
+from repro_torch.models import cnn
+from repro_torch.models.frontends import ts_stack_frontend
 from repro_torch.serve import fidelity as fidelity_mod
 from repro_torch.serve.fidelity import FidelityModel
 
 __all__ = [
     "ReadoutSpec", "Surface", "Mask", "Stcf", "Count", "Ebbi", "SaeRaw",
-    "surface", "mask", "stcf", "count", "ebbi", "sae_raw", "SURFACE_SPEC",
-    "needs_counts", "CompiledSpec", "compile_spec", "resolve_static",
-    "resolve_dynamic", "read_stage0",
+    "TsQuantized", "Classify", "Denoise", "surface", "mask", "stcf",
+    "count", "ebbi", "sae_raw", "ts_quantized", "classify", "denoise",
+    "SURFACE_SPEC", "needs_counts", "CompiledSpec", "compile_spec",
+    "resolve_static", "resolve_dynamic", "read_stage0", "apply_heads",
+    "read_compiled",
 ]
 
 
@@ -107,7 +127,63 @@ class SaeRaw:
     seconds, -inf = never written."""
 
 
-_STAGE0_TYPES = (Surface, Mask, Stcf, Count, Ebbi, SaeRaw)
+@dataclasses.dataclass(frozen=True)
+class TsQuantized:
+    """TS rebuilt from n_T-bit, ``tick``-second timestamps that WRAP on
+    overflow -- the SRAM TPI failure mode of ref [26].  ``tau`` defaults
+    to the engine's ideal-TS constant."""
+
+    n_bits: int = 16
+    tick: float = 1e-3
+    tau: Optional[float] = None
+
+
+_STAGE0_TYPES = (Surface, Mask, Stcf, Count, Ebbi, SaeRaw, TsQuantized)
+
+
+@dataclasses.dataclass(frozen=True)
+class Classify:
+    """CNN class logits over a stack of surface products (stage-1 head).
+
+    ``inputs`` names ``Surface`` products of the same spec, stacked on the
+    channel axis (``models.frontends.ts_stack_frontend``) and fed to
+    ``models.cnn.cnn_apply``.  ``weights`` is a key that ``serve.heads``
+    resolves to a param tree (registry / checkpoint directory /
+    ``"default"``).
+    """
+
+    inputs: Tuple[str, ...] = ("surface",)
+    weights: str = "default"
+    n_classes: int = 10
+    width: int = 32
+
+    def __post_init__(self):
+        if isinstance(self.inputs, str):
+            raise TypeError(
+                f"Classify inputs must be a tuple of product names, got "
+                f"the bare string {self.inputs!r} (write "
+                f"inputs=({self.inputs!r},))"
+            )
+        object.__setattr__(self, "inputs", tuple(self.inputs))
+        if not self.inputs:
+            raise ValueError("Classify needs at least one input product")
+
+
+@dataclasses.dataclass(frozen=True)
+class Denoise:
+    """STCF-thresholded event-label map (stage-1 head): True where the
+    named ``Stcf`` product's support reaches ``threshold`` (``None`` = the
+    engine's ``stcf_threshold``)."""
+
+    input: str = "stcf"
+    threshold: Optional[int] = None
+
+
+_HEAD_TYPES = (Classify, Denoise)
+_PRODUCT_TYPES = _STAGE0_TYPES + _HEAD_TYPES
+
+#: which stage-0 family each head's inputs must come from
+_HEAD_INPUT_TYPES = {Classify: Surface, Denoise: Stcf}
 
 surface = Surface
 mask = Mask
@@ -115,6 +191,26 @@ stcf = Stcf
 count = Count
 ebbi = Ebbi
 sae_raw = SaeRaw
+ts_quantized = TsQuantized
+classify = Classify
+denoise = Denoise
+
+
+def _validate_ranges(name: str, p) -> None:
+    """Range-check the knobs of one product at spec construction: counter
+    reads and quantized stamps are exact integers in float32 up to 2^24."""
+    if isinstance(p, (Count, TsQuantized)):
+        if not isinstance(p.n_bits, int) or not 1 <= p.n_bits <= 24:
+            raise ValueError(
+                f"product {name!r}: {type(p).__name__}.n_bits must be an "
+                f"int in [1, 24], got {p.n_bits!r}"
+            )
+    if isinstance(p, TsQuantized) and not (np.isfinite(p.tick)
+                                           and p.tick > 0.0):
+        raise ValueError(
+            f"product {name!r}: TsQuantized.tick must be a finite "
+            f"positive duration in seconds, got {p.tick!r}"
+        )
 
 
 class ReadoutSpec:
@@ -132,20 +228,29 @@ class ReadoutSpec:
         if not products:
             raise ValueError("a ReadoutSpec needs at least one product")
         for name, p in products.items():
-            if not isinstance(p, _STAGE0_TYPES):
+            if not isinstance(p, _PRODUCT_TYPES):
                 raise TypeError(
                     f"product {name!r} must be one of "
-                    f"{[t.__name__ for t in _STAGE0_TYPES]}, got {p!r} "
-                    "(ts_quantized, classify and denoise are not ported "
-                    "to repro_torch yet; see ROADMAP)"
+                    f"{[t.__name__ for t in _PRODUCT_TYPES]}, got {p!r}"
                 )
-            if isinstance(p, Count) and not (
-                isinstance(p.n_bits, int) and 1 <= p.n_bits <= 24
-            ):
-                raise ValueError(
-                    f"product {name!r}: Count.n_bits must be an int in "
-                    f"[1, 24], got {p.n_bits!r}"
-                )
+            _validate_ranges(name, p)
+        for name, p in products.items():
+            if not isinstance(p, _HEAD_TYPES):
+                continue
+            want = _HEAD_INPUT_TYPES[type(p)]
+            for inp in p.inputs if isinstance(p, Classify) else (p.input,):
+                got = products.get(inp)
+                if got is None:
+                    raise ValueError(
+                        f"head {name!r} consumes product {inp!r}, which "
+                        f"this spec does not define"
+                    )
+                if not isinstance(got, want):
+                    raise ValueError(
+                        f"head {name!r} needs a {want.__name__} product "
+                        f"for input {inp!r}, got {type(got).__name__} "
+                        "(heads cannot consume other heads)"
+                    )
         object.__setattr__(self, "products", tuple(sorted(products.items())))
         object.__setattr__(self, "_hash", hash(self.products))
 
@@ -179,6 +284,22 @@ class ReadoutSpec:
     def surface_products(self) -> Tuple[Tuple[str, Surface], ...]:
         return tuple((n, p) for n, p in self.products
                      if isinstance(p, Surface))
+
+    def head_products(self) -> Tuple[Tuple[str, object], ...]:
+        """The (name, head) pairs of this spec's stage-1 products."""
+        return tuple((n, p) for n, p in self.products
+                     if isinstance(p, _HEAD_TYPES))
+
+    @property
+    def has_heads(self) -> bool:
+        return any(isinstance(p, _HEAD_TYPES) for _, p in self.products)
+
+    def stage0(self) -> "ReadoutSpec":
+        """This spec minus its heads (itself when it has none).  Specs with
+        equal stage-0 sub-specs share one stage-0 read in ``read_many``."""
+        s0 = {n: p for n, p in self.products
+              if not isinstance(p, _HEAD_TYPES)}
+        return self if len(s0) == len(self.products) else ReadoutSpec(**s0)
 
 
 #: the spec behind the classic readout: one decayed surface, engine decay
@@ -255,21 +376,33 @@ def resolve_dynamic(spec: ReadoutSpec, cfg) -> Dict[str, edram.DecayParams]:
             dyn[name] = _decay_params(p, cfg)
         elif isinstance(p, (Mask, Stcf)):
             dyn[name] = _decay_params(p.decay, cfg)
+        elif isinstance(p, TsQuantized):
+            dyn[name] = representations_mod.edram_ideal_params(
+                p.tau if p.tau is not None else cfg.tau)
     return dyn
 
 
 class CompiledSpec(NamedTuple):
-    """A spec planned under one engine config: its products' decay
-    params (``dynamic``) and comparator thresholds (``statics``)."""
+    """A spec planned under one engine config: its stage-0 sub-spec, its
+    heads in canonical (sorted-name) order, and its products' decay params
+    (``dynamic``) and comparator thresholds (``statics``)."""
 
     spec: ReadoutSpec
+    stage0: ReadoutSpec
+    heads: Tuple[Tuple[str, object], ...]
     dynamic: Dict[str, edram.DecayParams]
     statics: Dict[str, float]
 
+    @property
+    def has_heads(self) -> bool:
+        return bool(self.heads)
+
 
 def compile_spec(spec: ReadoutSpec, cfg) -> CompiledSpec:
-    """Resolve ``spec``'s decay params and thresholds under ``cfg``."""
-    return CompiledSpec(spec, resolve_dynamic(spec, cfg),
+    """Plan ``spec`` under ``cfg``: split stage 0 from the heads and
+    resolve the decay params and thresholds."""
+    return CompiledSpec(spec, spec.stage0(), spec.head_products(),
+                        resolve_dynamic(spec, cfg),
                         dict(resolve_static(spec, cfg)))
 
 
@@ -280,11 +413,11 @@ def read_stage0(
     compiled: CompiledSpec,
     cfg,                                     # TSEngineConfig
 ) -> Dict[str, torch.Tensor]:
-    """Every product of a compiled spec, read off the pool state, in the
-    spec's canonical name order."""
+    """Every stage-0 product of a compiled spec, read off the pool state,
+    in canonical name order."""
     dynamic, v_tws = compiled.dynamic, compiled.statics
     out: Dict[str, torch.Tensor] = {}
-    for name, p in compiled.spec.products:
+    for name, p in compiled.stage0.products:
         fid = fidelity_mod.product_fidelity(p)
         if fid is not None and fid.is_analog:
             raise NotImplementedError(
@@ -311,6 +444,43 @@ def read_stage0(
             out[name] = ops.ebbi_read(sae)
         elif isinstance(p, SaeRaw):
             out[name] = sae.clone()
+        elif isinstance(p, TsQuantized):
+            stored = ops.ts_quantize_sae(sae, n_bits=p.n_bits, tick=p.tick)
+            out[name] = ops.ts_wrapped_read(stored, t_now, dynamic[name],
+                                            n_bits=p.n_bits, tick=p.tick)
         else:  # pragma: no cover - closed by the constructor's type check
             raise TypeError(p)
     return out
+
+
+def apply_heads(
+    stage0_out: Dict[str, torch.Tensor],     # the served stage-0 products
+    head_params: Optional[Dict[str, dict]],  # {classify head name: params}
+    compiled: CompiledSpec,
+    cfg,                                     # TSEngineConfig
+) -> Dict[str, torch.Tensor]:
+    """Every head of a compiled spec off the served stage-0 products.
+    Logits and label maps lead with the slot axis."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, h in compiled.heads:
+        if isinstance(h, Classify):
+            stack = ts_stack_frontend([stage0_out[n] for n in h.inputs])
+            out[name] = cnn.cnn_apply(head_params[name], stack)
+        elif isinstance(h, Denoise):
+            thr = (h.threshold if h.threshold is not None
+                   else cfg.stcf_threshold)
+            out[name] = stage0_out[h.input] >= thr
+        else:  # pragma: no cover - closed by the constructor's type check
+            raise TypeError(h)
+    return out
+
+
+def read_compiled(sae, counts, t_now, compiled: CompiledSpec, cfg,
+                  head_params: Optional[Dict[str, dict]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """One staged spec read: the stage-0 products, then the heads over
+    them, in the spec's canonical name order."""
+    out = read_stage0(sae, counts, t_now, compiled, cfg)
+    if compiled.heads:
+        out.update(apply_heads(out, head_params, compiled, cfg))
+    return {name: out[name] for name in compiled.spec.names}

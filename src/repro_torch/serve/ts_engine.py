@@ -12,7 +12,14 @@ polarity) plus its bookkeeping, batched along a leading slot axis:
     slot's ``t_last``/``n_events``.  O(#events) writes.
   * **read** -- a ``serve.spec.ReadoutSpec`` is served over the whole pool
     by the ``ts_decay`` and ``stcf_support`` kernels, slot and polarity
-    axes being batch dimensions of one launch.
+    axes being batch dimensions of one launch; its stage-1 heads (CNN
+    logits, denoise labels) then run on the served stage-0 tensors, with
+    the ``Classify`` weights resolved once per spec onto the engine's
+    device (``serve.heads``).
+  * **labeled ingest** -- ``push_labeled`` labels each event with its STCF
+    support against the slot's surface as each chunk lands, chunk by
+    chunk, then scatters the chunk: the offline ``stcf_chunked`` at
+    ``chunk = chunk_capacity``.
   * **serve_step** -- push, then read with the spec's first surface
     product backed by a *dirty-tile cache*: repeat reads under one cache
     epoch (same ``t_now``, same surface product, tracked on the host in
@@ -29,8 +36,7 @@ when there is none; ``device="cpu"`` runs the plain PyTorch versions
 TS is the double-exp transient with ``a1=1, a2=0, b=0, tau1=tau``.
 
 Not ported (ROADMAP): the device mesh, the ingest ring, elastic
-grow/shrink/migrate, labeled ingest (``push_labeled``), and the
-deprecated method-per-feature shims.
+grow/shrink/migrate, and the deprecated method-per-feature shims.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from repro_torch.events import synthetic as syn
 from repro_torch.hw import constants as C
 from repro_torch.kernels import ops
 from repro_torch.serve import fidelity as fidelity_mod
+from repro_torch.serve import heads as heads_mod
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.api import SensorSession
 
@@ -194,6 +201,21 @@ def _scatter_chunks(state: EngineState, slot_ids: torch.Tensor,
     return state
 
 
+def ingest_support(state: EngineState, slot_ids: torch.Tensor,
+                   ev: ts.EventBatch, cfg_stcf: stcf_mod.STCFConfig,
+                   mode: str, params: edram.DecayParams, v_tw,
+                   intra_chunk: bool = True) -> torch.Tensor:
+    """STCF support ((B, N) int32) of each chunk's events (``ev`` fields
+    (B, N)) against its slot's pre-ingest SAE: the offline
+    ``stcf_chunk_support`` per row.  A pure read."""
+    sae_b = state.surfaces.sae[slot_ids.long()]          # (B, P, H, W)
+    return torch.stack([
+        stcf_mod.stcf_chunk_support(
+            sae_b[i], ts.EventBatch(*(f[i] for f in ev)), cfg_stcf,
+            mode=mode, params=params, v_tw=v_tw, intra_chunk=intra_chunk)
+        for i in range(sae_b.shape[0])])
+
+
 #: an ingest item: (slot id | session, packed AER words | EventStream |
 #: EventBatch)
 IngestItem = Tuple[Union[int, SensorSession],
@@ -232,6 +254,7 @@ class TimeSurfaceEngine:
         self._cache_surface: Optional[Tuple[str, spec_mod.Surface]] = None
         self._compiled_cache: Dict[spec_mod.ReadoutSpec,
                                    spec_mod.CompiledSpec] = {}
+        self._head_cache: Dict[spec_mod.ReadoutSpec, Optional[dict]] = {}
         self._rest_cache: Dict[spec_mod.ReadoutSpec,
                                Optional[spec_mod.ReadoutSpec]] = {}
         _, _, tp = cfg.tile_counts()
@@ -294,21 +317,25 @@ class TimeSurfaceEngine:
         valid[:n] = True
         return out + [valid.reshape(k, cap)]
 
-    def _collect(self, items: Sequence[IngestItem]):
-        """Items -> (slot ids (B,), the five (B, cap) fields) on the host."""
-        slot_ids: List[int] = []
-        parts: List[List[np.ndarray]] = []
+    def _item_chunks(self, items: Sequence[IngestItem]):
+        """Items -> [(slot, its five (k, cap) fields)] on the host, every
+        slot checked before any is written."""
+        out = []
         for slot, payload in items:
             if isinstance(slot, SensorSession):
                 slot._check()
                 slot = slot.slot
             self._check_acquired(slot)
-            fields = self._host_chunks(payload)
-            slot_ids.extend([slot] * fields[0].shape[0])
-            parts.append(fields)
+            out.append((slot, self._host_chunks(payload)))
+        return out
+
+    def _collect(self, items: Sequence[IngestItem]):
+        """Items -> (slot ids (B,), the five (B, cap) fields) on the host."""
+        parts = self._item_chunks(items)
         if not parts:
             return None
-        fields = [np.concatenate(f) for f in zip(*parts)]
+        slot_ids = [slot for slot, f in parts for _ in range(f[0].shape[0])]
+        fields = [np.concatenate(f) for f in zip(*(f for _, f in parts))]
         return np.asarray(slot_ids, np.int32), fields
 
     def push(self, items: Sequence[IngestItem]) -> None:
@@ -323,6 +350,34 @@ class TimeSurfaceEngine:
         dev = self.device
         ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
         _scatter_chunks(self.state, torch.from_numpy(sids).to(dev), ev)
+
+    def _ingest_labeled(self, items: Sequence[IngestItem]) -> list:
+        """Scatter payloads *and* label each event with its STCF support
+        (the body behind ``SensorSession.push_labeled``).
+
+        Chunks go one at a time -- each chunk's support is read against
+        the slot's SAE with every earlier chunk written, then the chunk is
+        scattered -- so the labels are those of the offline
+        ``stcf_chunked`` at ``chunk = chunk_capacity``.  Returns, per
+        item, ``(support (n,) int32, support >= stcf_threshold)`` over its
+        valid events, on the engine's device.
+        """
+        cfg, dev = self.cfg, self.device
+        stcf_cfg, params = cfg.stcf_config(), cfg.decay_params()
+        v_tw = cfg.v_tw()
+        out = []
+        for slot, fields in self._item_chunks(items):
+            ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
+            sid = torch.tensor([slot], dtype=torch.int32, device=dev)
+            sups = []
+            for i in range(ev.x.shape[0]):
+                chunk = ts.EventBatch(*(f[i:i + 1] for f in ev))
+                sups.append(ingest_support(self.state, sid, chunk, stcf_cfg,
+                                           cfg.mode, params, v_tw)[0])
+                _scatter_chunks(self.state, sid, chunk)
+            sup = torch.cat(sups)[ev.valid.reshape(-1)]
+            out.append((sup, sup >= cfg.stcf_threshold))
+        return out
 
     # -- spec reads ----------------------------------------------------------
     def _check_spec(self, spec: spec_mod.ReadoutSpec) -> None:
@@ -346,23 +401,58 @@ class TimeSurfaceEngine:
                 spec, self.cfg)
         return plan
 
+    def _resolved(self, spec: spec_mod.ReadoutSpec):
+        """``(compiled plan, {classify head name: params} or None)``, both
+        resolved once per spec; head weights land on the engine's device
+        (``serve.heads``)."""
+        compiled = self._compiled(spec)
+        if spec not in self._head_cache:
+            params = {name: heads_mod.resolve_head_params(h, self.cfg,
+                                                          self.device)
+                      for name, h in compiled.heads
+                      if isinstance(h, spec_mod.Classify)}
+            self._head_cache[spec] = params or None
+        return compiled, self._head_cache[spec]
+
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
              t_now: float = 0.0) -> Dict[str, torch.Tensor]:
-        """Every product of ``spec`` over the whole pool at ``t_now``.
+        """Every product of ``spec`` over the whole pool at ``t_now``:
+        the stage-0 products, then the heads over exactly those tensors.
         Free slots read as never-written.  The ``surface()`` product is
         the same ``ops.ts_decay`` an offline reader
         (``time_surface.surface_read_kernel``) runs, so engine and
         offline reads of equal SAE state are bitwise equal."""
         self._check_spec(spec)
-        return spec_mod.read_stage0(self.state.surfaces.sae, self.state.counts,
-                                    t_now, self._compiled(spec), self.cfg)
+        compiled, head_params = self._resolved(spec)
+        return spec_mod.read_compiled(self.state.surfaces.sae,
+                                      self.state.counts, t_now, compiled,
+                                      self.cfg, head_params)
 
     def read_many(self, specs: Sequence[spec_mod.ReadoutSpec],
                   t_now: float = 0.0
                   ) -> Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]]:
-        """Serve several specs against the same pool state; duplicate
-        specs are read once."""
-        return {sp: self.read(sp, t_now) for sp in dict.fromkeys(specs)}
+        """Serve several specs against the same pool state.  Duplicate
+        specs are read once, and specs with equal stage-0 sub-specs share
+        one stage-0 read, each member's heads running on its tensors --
+        bitwise what the member's own ``read`` serves."""
+        uniq = list(dict.fromkeys(specs))
+        groups: Dict[spec_mod.ReadoutSpec, List[spec_mod.ReadoutSpec]] = {}
+        for sp in uniq:
+            self._check_spec(sp)
+            groups.setdefault(self._compiled(sp).stage0, []).append(sp)
+        out: Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]] = {}
+        for stage0, members in groups.items():
+            if len(members) == 1:
+                out[members[0]] = self.read(members[0], t_now)
+                continue
+            base = self.read(stage0, t_now)
+            for sp in members:
+                compiled, head_params = self._resolved(sp)
+                heads = spec_mod.apply_heads(base, head_params, compiled,
+                                             self.cfg)
+                merged = {**base, **heads}
+                out[sp] = {n: merged[n] for n in sp.names}
+        return {sp: out[sp] for sp in uniq}
 
     def serve_step(self, items: Sequence[IngestItem],
                    spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
@@ -370,10 +460,12 @@ class TimeSurfaceEngine:
         """Push ``items``, then serve every product of ``spec`` at
         ``t_now`` with its first surface product read through the
         dirty-tile cache (an empty ``items`` is a pure cached read).
-        Other products read densely, after the push."""
+        Other products read densely, after the push.  A head-bearing spec
+        reads everything densely after the push (the heads need every
+        input current): the same staged read a ``read`` runs."""
         self._check_spec(spec)
         surface_products = spec.surface_products()
-        if (not surface_products
+        if (not surface_products or spec.has_heads
                 or fidelity_mod.spec_fidelity_mode(spec) != "ideal"):
             self.push(items)
             return self.read(spec, t_now)

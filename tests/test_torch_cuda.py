@@ -302,3 +302,90 @@ def test_reduced_lm_on_card_matches_cpu_port(cuda):
     want = ServeEngine(cfg, cpu, 64, device="cpu").serve(reqs)
     for a, b in zip(got, want):
         assert (a.tokens == b.tokens).all()
+
+
+def _heads_engines(h=60, w=100, duration=0.05):
+    from repro_torch.serve import heads
+
+    spec = rs.ReadoutSpec(
+        surface=rs.surface(), fast=rs.surface(mode="ideal", tau=5e-3),
+        mask=rs.mask(), stcf=rs.stcf(), q=rs.ts_quantized(n_bits=8, tick=1e-4),
+        logits=rs.classify(inputs=("surface", "fast"), weights="card-test",
+                           n_classes=5, width=16),
+        labels=rs.denoise())
+    cfg = eng.TSEngineConfig(h=h, w=w, polarities=2, n_slots=4,
+                             chunk_capacity=256, specs=(spec,))
+    heads.register_head_params("card-test", heads.resolve_head_params(
+        rs.classify(inputs=("surface", "fast"), n_classes=5, width=16), cfg,
+        "cpu"))
+    gpu, cpu = eng.TimeSurfaceEngine(cfg), eng.TimeSurfaceEngine(cfg, "cpu")
+    for e in (gpu, cpu):
+        for _ in range(cfg.n_slots):
+            e.attach()
+    words = [aer.pack(datasets.dnd21_like(("driving", "hotel_bar")[k % 2],
+                                          h, w, duration, seed=k))
+             for k in range(cfg.n_slots)]
+    return spec, cfg, gpu, cpu, words
+
+
+def test_heads_on_card_match_cpu_port(cuda):
+    """Heads on the card: logits within rtol 1e-4, atol 1e-4 x max(1,
+    max|CPU|) of the CPU port's cnn_apply on the card's own surfaces
+    (float32, TF32 off inside the head); labels == stcf >= threshold
+    bitwise; the heads launch the three stage-0 kernels; read ==
+    read_many with the stage-0 read shared, bitwise."""
+    from repro_torch.models import cnn
+    from repro_torch.serve import heads
+
+    spec, cfg, gpu, cpu, words = _heads_engines()
+    try:
+        _lib.reset_launches()
+        out = gpu.serve_step(list(enumerate(words)), spec, 0.05)
+        assert all(_lib.LAUNCHES[k] > 0 for k in
+                   ("ts_decay", "stcf_support", "chunk_scatter"))
+        assert torch.isfinite(out["logits"]).all()
+        assert torch.equal(out["labels"], out["stcf"] >= cfg.stcf_threshold)
+        params = heads.resolve_head_params(spec["logits"], cfg, "cpu")
+        from repro_torch.models.frontends import ts_stack_frontend
+
+        want = cnn.cnn_apply(params, ts_stack_frontend(
+            [out["surface"].cpu(), out["fast"].cpu()]))
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(out["logits"].cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * scale)
+        plain = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask())
+        both = gpu.read_many([spec, spec.stage0(), plain], 0.05)
+        again = gpu.read(spec, 0.05)
+        for name in spec.names:
+            a, b = both[spec][name], again[name]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), name
+        stored = ops.ts_quantize_sae(gpu.state.surfaces.sae, 8, 1e-4)
+        q = ref.ts_wrapped_read_ref(stored, 0.05, cfg.tau, 8, 1e-4)
+        assert int(ref.ulp_distance(out["q"], q).max()) <= 2
+    finally:
+        heads.clear_registry()
+
+
+def test_push_labeled_on_card_matches_cpu(cuda):
+    """Supports equal wherever no earlier event of the patch reads within 2
+    ULP of V_tw (a superset of the comparator band); the SAE after the
+    labeled push bitwise."""
+    spec, cfg, gpu, cpu, words = _heads_engines(duration=0.01)
+    for k in (0, 1):
+        g_sup, g_sig = gpu._sessions[k].push_labeled(words[k])
+        c_sup, c_sig = cpu._sessions[k].push_labeled(words[k])
+        assert g_sup.device.type == "cuda" and g_sup.shape == c_sup.shape
+        s = aer.unpack(words[k], cfg.h, cfg.w)
+        x, y, t = (torch.from_numpy(f) for f in (s.x, s.y, s.t))
+        dt = t[:, None] - t[None, :]
+        near = (((x[:, None] - x[None, :]).abs() <= cfg.stcf_radius)
+                & ((y[:, None] - y[None, :]).abs() <= cfg.stcf_radius))
+        v = edram.v_mem(dt.clamp_min(0.0), cfg.decay_params())
+        band = (near & (dt >= 0) & (ref.ulp_distance(
+            v, torch.full_like(v, cfg.v_tw())) <= 2)).any(dim=1)
+        assert torch.equal(g_sup.cpu()[~band], c_sup[~band])
+        assert torch.equal(g_sig.cpu()[~band], c_sig[~band])
+    assert torch.equal(gpu.state.surfaces.sae.cpu().view(torch.int32),
+                       cpu.state.surfaces.sae.view(torch.int32))

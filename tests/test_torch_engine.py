@@ -236,10 +236,11 @@ def _entry_points():
     from repro_torch.core import time_surface as tts
     from repro_torch.events import pipeline as tpipe
     from repro_torch.models import module, transformer
-    from repro_torch.serve import engine
+    from repro_torch.serve import engine, heads
 
     cfg = get_config("mamba2-2.7b").reduced()
     stream = tdatasets.dnd21_like("hotel_bar", 4, 5, 0.01, seed=0)
+    head, ecfg = tspec.Classify(n_classes=3, width=8), _cfgs("edram")[1]
     return {
         "empty_sae": lambda: tts.empty_sae(4, 5, 2),
         "surface_init": lambda: tts.surface_init(4, 5, 2),
@@ -252,13 +253,20 @@ def _entry_points():
         "window_chunks": lambda: tpipe.window_chunks(stream, 0.005, 16),
         "decay_params_from_numpy": lambda: convert.decay_params_from_numpy(
             _planes()),
+        "resolve_head_params": lambda: heads.resolve_head_params(
+            head, ecfg),
+        "head_params_from_numpy": lambda: convert.head_params_from_numpy(
+            convert.head_params_to_numpy(heads.resolve_head_params(
+                head, ecfg, "cpu")), head, ecfg),
     }
 
 
 @pytest.mark.parametrize("entry", ["empty_sae", "surface_init", "init_params",
                                    "init_decode_caches", "ServeEngine",
                                    "to_event_batch", "window_chunks",
-                                   "decay_params_from_numpy"])
+                                   "decay_params_from_numpy",
+                                   "resolve_head_params",
+                                   "head_params_from_numpy"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point allocates on the CUDA device
     and raises when there is none (it never falls back to the CPU)."""
@@ -305,10 +313,11 @@ def test_offline_sae_update_out_of_range_matches_reference():
 
 
 def test_unported_products_raise():
+    """Analog-fidelity reads are not ported: asking for one raises.  (The
+    quantized and head products are served now; their construction is
+    tested in ``test_torch_heads.py``.)"""
     from repro_torch.serve import fidelity
 
-    with pytest.raises(TypeError, match="not ported"):
-        tspec.ReadoutSpec(q=jspec.TsQuantized())
     _, te = _engines("edram")
     analog = tspec.ReadoutSpec(surface=tspec.Surface(
         fidelity=fidelity.FidelityModel("analog_3d")))

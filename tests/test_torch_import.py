@@ -1,9 +1,10 @@
 """repro_torch stands alone: it imports neither JAX nor the JAX package.
 
-The port has to run on a machine without JAX, so ``import repro_torch``
-and every submodule must succeed with ``jax`` and the top-level ``repro``
-package blocked, and no source line of the port or of ``chip_smoke.py``
-may import either.
+The port has to run on a machine without JAX or ``msgpack``, so ``import
+repro_torch`` and every submodule (the checkpoint's manifest codec
+included) must succeed with ``jax``, ``msgpack`` and the top-level
+``repro`` package blocked, and no source line of the port or of
+``chip_smoke.py`` may import any of them.
 """
 import os
 import pathlib
@@ -19,7 +20,7 @@ import importlib, importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "repro"):
+        if top in ("jax", "jaxlib", "repro", "msgpack"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -31,7 +32,8 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, %r)
 import chip_smoke
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "repro", "msgpack")]
 assert not leaked, leaked
 missing = [m for m in %r if m not in names]
 assert not missing, missing
@@ -50,6 +52,12 @@ REQUIRED = (
     "repro_torch.kernels.decay_scan", "repro_torch.kernels.ts_decay",
     "repro_torch.kernels.stcf", "repro_torch.kernels.ts_fused",
     "repro_torch.serve.engine", "repro_torch.serve.ts_engine",
+    "repro_torch.serve.heads", "repro_torch.serve.spec",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.checkpoint.manifest",
+    "repro_torch.models.cnn", "repro_torch.models.frontends",
+    "repro_torch.core.stcf", "repro_torch.core.representations",
+    "repro_torch.core.time_surface",
     "repro_torch.launch", "repro_torch.launch.serve",
 )
 
@@ -61,10 +69,11 @@ def test_import_with_jax_and_repro_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 39   # every port module imported
+    assert int(proc.stdout.split()[-1]) >= 45   # every port module imported
 
 
-_IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b")
+_IMPORT_LINE = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro|msgpack)\b")
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -79,4 +88,5 @@ def test_no_source_line_imports_jax_or_repro():
     assert not offenders, offenders
     assert _IMPORT_LINE.match("from repro.kernels import ops")
     assert _IMPORT_LINE.match("import jax.numpy as jnp")
+    assert _IMPORT_LINE.match("import msgpack")
     assert not _IMPORT_LINE.match("from repro_torch.kernels import ops")
