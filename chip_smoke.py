@@ -12,7 +12,8 @@ in turns with this tree's (old, new, new, old) in the kernel phase.
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
-5 the vision heads and labeled ingest on the time-surface path):
+5 the vision heads and labeled ingest on the time-surface path, 6 the
+analog-fidelity reads, the streaming runtime and the ``sweep`` CLI):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -80,6 +81,32 @@ and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
    ground truth, card vs CPU, within 1e-6; events/s of the labeled push.
    Last, the pool's ``TsQuantized(n_bits=16, tick=1 ms)`` read within 2
    ULP of the plain ``ts_wrapped_read_ref`` on the card.
+6. **Analog fidelity and the stream** -- the engine phase's pool after one
+   10 ms push of all 64 sensors, read with the sweep's spec (analog
+   surface, analog ``Stcf``, ``Denoise``, ``Classify`` of 4 classes at
+   width 16) at ``analog_3d`` and ``analog_2d``.  Checks: sigma = 0 ==
+   the digital read bitwise, every product; a repeated read at the same
+   (step, generations) bitwise; a new step draws other noise; the first
+   8 sensors against a CPU engine fed the same words (surfaces within 8
+   ULP, STCF counts and labels equal outside the comparator band, logits
+   within 1e-4 x max(1, max|CPU|)); ``ts_decay`` on the virtual SAE
+   within 2 ULP and the mask-form ``stcf_support`` on the analog mask
+   bitwise against their plain versions, and ``chunk_scatter`` on one
+   ring-staged push bitwise.  Times ``cell_eps``, the analog and digital
+   reads (CUDA events) and the ring against the host-staged push.  Then
+   ``StreamRuntime`` over the pool through ``events.replay``: every third
+   sensor in the ``gesture`` tier on the analog_3d sweep spec, the rest
+   ``telemetry`` on FRAME, the scene words offered in 2 substeps per 10
+   ms deadline for 10 deadlines, ``drop_oldest``, pipelined, ring on;
+   counters zeroed just before and read just after.  Checks: the digests
+   replay bitwise through the synchronous oracle on the card; the same
+   run with the ring off gives the same digests; each tier conserves its
+   events; the three kernels launched.  Prints events/s, readout latency
+   p50/p99 per tier, modeled energy per event per mode, and one step
+   under ``torch.profiler``.  Last, ``python -m repro_torch.launch.serve
+   sweep --hw 120x160 --sensors 4 --duration 0.06 --cmem 10,20
+   --retention 12,24`` in a subprocess on the card: its three verdicts
+   must hold.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -93,6 +120,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -130,6 +158,15 @@ HEADS_CLASSES, HEADS_WIDTH = 10, 32
 HEADS_CHECK_SLOTS = 4
 HEADS_TOL = 1e-4  # rtol; atol x max(1, max|CPU|): float32 card vs CPU CNN
 LABEL_SENSORS = 8
+
+SWEEP_CLASSES = 4                 # the sweep CLI's default --classes
+ANALOG_CHECK_SLOTS = 8
+ANALOG_ULP = 8    # card vs CPU port analog reads (the CPU tests' analog_2d band)
+STREAM_DEADLINES = DEADLINES
+STREAM_SUBSTEPS = 2
+SWEEP_ARGV = ("--hw", "120x160", "--sensors", "4", "--duration", "0.06",
+              "--cmem", "10,20", "--retention", "12,24")
+SWEEP_TIMEOUT_S = 400
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -1175,6 +1212,303 @@ def run_heads(dev, mods, words, card, timer):
                 label_events_per_s=n_ev / card_s, auc=float(auc_card))
 
 
+def gesture_sensor(k: int) -> bool:
+    """The reference's ``tiered=True`` split: every third sensor (the
+    glyph feeds of ``mixed_scene_feeds``) is the gesture tier."""
+    return k % 3 == 2
+
+
+def analog_phase(dev, mods, words, card, timer, rows):
+    """Phase 6, part 1: analog reads of the sweep's spec over the full
+    pool, and the three kernels at this path's shapes against their plain
+    versions (results added to ``rows``)."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stcf import stcf_support_cuda
+    from repro_torch.kernels.ts_decay import ts_decay_cuda
+    from repro_torch.kernels.ts_fused import chunk_scatter_cuda
+    from repro_torch.launch.serve import _sweep_spec
+    from repro_torch.serve import fidelity as fm
+    from repro_torch.serve.ts_engine import IngestRing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    specs = {name: _sweep_spec(fid, SWEEP_CLASSES) for name, fid in (
+        ("analog_3d", fm.analog_3d()), ("analog_2d", fm.analog_2d()),
+        ("sigma0", fm.analog_3d(sigma=0.0)), ("digital", None))}
+    cfg = eng.TSEngineConfig(h=H, w=W, polarities=P, n_slots=S,
+                             chunk_capacity=CAP, mode="edram",
+                             specs=(specs["analog_2d"],))
+    engine = eng.TimeSurfaceEngine(cfg, device=dev)
+    for _ in range(S):
+        engine.attach()
+    payload = [np.concatenate(words[k % N_SCENES][0:2]) for k in range(S)]
+    engine.push(list(enumerate(payload)))
+    t_read, step = DEADLINE_S, 1
+    reads = {n: engine.read(sp, t_read, noise_step=step)
+             for n, sp in specs.items()}
+    torch.cuda.synchronize()
+    check(all(same(reads["sigma0"][n], reads["digital"][n])
+              for n in specs["digital"].names),
+          f"sigma = 0 analog_3d read == digital read, bitwise, every product "
+          f"of the sweep spec at {S} x {P}x{H}x{W}")
+    again = engine.read(specs["analog_3d"], t_read, noise_step=step)
+    check(all(same(again[n], reads["analog_3d"][n])
+              for n in specs["analog_3d"].names),
+          "analog_3d read repeated at the same (step, generations), bitwise")
+    other = engine.read(specs["analog_3d"], t_read, noise_step=step + 1)
+    check(not same(other["surface"], reads["analog_3d"]["surface"]),
+          "a new noise step draws other noise")
+
+    # a sub-pool of the first sensors on the CPU port, fed the same words
+    k = ANALOG_CHECK_SLOTS
+    cpu = eng.TimeSurfaceEngine(dataclasses.replace(cfg, n_slots=k), "cpu")
+    for _ in range(k):
+        cpu.attach()
+    cpu.push(list(enumerate(payload[:k])))
+    v_tw = torch.full((), cfg.v_tw())
+    agreement = {}
+    for name in ("analog_3d", "analog_2d"):
+        c = cpu.read(specs[name], t_read, noise_step=step)
+        g = {n: v[:k].cpu() for n, v in reads[name].items()}
+        ulp = int(ref.ulp_distance(g["surface"], c["surface"]).max())
+        near = ref.ulp_distance(c["surface"],
+                                v_tw.expand_as(c["surface"])) <= ANALOG_ULP
+        near_p = ref.stcf_support_ref(near, RADIUS, include_self=True) > 0
+        moved = (g["stcf"] != c["stcf"]) | (g["labels"] != c["labels"])
+        scale = max(1.0, float(c["logits"].abs().max()))
+        lg = float((g["logits"] - c["logits"]).abs().max())
+        agreement[name] = dict(max_ulp=ulp, band_pixels=int(near_p.sum()),
+                               moved_in_band=int((moved & near_p).sum()),
+                               moved_outside=int((moved & ~near_p).sum()),
+                               logits_max_abs=lg)
+        check(ulp <= ANALOG_ULP and not bool((moved & ~near_p).any())
+              and lg <= HEADS_TOL * scale,
+              f"{name} card == CPU port on {k} sensors: surface within "
+              f"{ANALOG_ULP} ULP ({ulp}), STCF counts and labels equal "
+              f"outside the comparator band ({int(near_p.sum())} pixels see "
+              f"a cell within {ANALOG_ULP} ULP of V_tw; "
+              f"{int((moved & near_p).sum())} moved inside it), logits "
+              f"within {HEADS_TOL} x max(1, max|CPU|) ({lg:.3e})")
+
+    # times: the draw, the analog read given the draw, the digital read,
+    # and the whole sweep-spec reads
+    sae, params = engine.state.surfaces.sae, cfg.decay_params()
+    fid = fm.analog_3d()
+    eps = fm.cell_eps(fid, step, engine.state.generation, sae.shape[1:])
+    eps_ms = timer(lambda _: fm.cell_eps(fid, step, engine.state.generation,
+                                         sae.shape[1:]), 5)
+    analog_ms = timer(lambda _: ops.ts_analog_read(sae, t_read, params,
+                                                   eps=eps), 20)
+    digital_ms = timer(lambda _: ops.ts_decay(sae, t_read, params), 20)
+    spec_ms = {n: timer(lambda _, sp=specs[n]: engine.read(
+        sp, t_read, noise_step=step), 5) for n in ("analog_3d", "digital")}
+    log(f"analog on {card}: cell_eps ({S} x {P}x{H}x{W} normals) "
+        f"{eps_ms:.4f} ms; ts_analog_read given eps {analog_ms:.4f} ms; "
+        f"digital ts_decay {digital_ms:.4f} ms; whole sweep-spec read "
+        f"analog_3d {spec_ms['analog_3d']:.4f} ms, digital "
+        f"{spec_ms['digital']:.4f} ms (CUDA events, median, L2 flushed)")
+
+    # the kernels at this path's shapes against their plain versions
+    dt = t_read - sae
+    virtual = torch.where(torch.isfinite(sae), -(dt * eps),
+                          torch.full_like(sae, ts.NEVER))
+    vv = ts_decay_cuda(virtual, 0.0, params)
+    v_ulp = int(ref.ulp_distance(vv, ref.ts_decay_ref(virtual, 0.0,
+                                                      params)).max())
+    check(v_ulp <= 2, f"ts_decay on the virtual SAE (ages dt * eps) within "
+          f"2 ULP of its plain version ({v_ulp})")
+    m = vv > cfg.v_tw()
+    sm = stcf_support_cuda(m, RADIUS, False)
+    check(torch.equal(sm, ref.stcf_support_ref(m, RADIUS)),
+          "stcf_support mask form on the analog mask == its plain version")
+    virtual_ms = timer(lambda _: ts_decay_cuda(virtual, 0.0, params), 30)
+    mask_ms = timer(lambda _: stcf_support_cuda(m, RADIUS, False), 30)
+    ring = IngestRing(CAP, dev)
+    parts = []
+    for k2 in range(S):
+        st0 = aer.unpack(words[k2 % N_SCENES][2], H, W)
+        parts += [(k2, tuple(f[i:i + CAP] for f in (st0.x, st0.y, st0.t,
+                                                     st0.p)))
+                  for i in range(0, st0.n, CAP)]
+    buf = ring.acquire(len(parts))
+    for i, (slot, part) in enumerate(parts):
+        IngestRing.fill_row(buf, i, slot, part)
+    sids, ev = ring.upload(buf)
+    base = engine.state
+    outs = []
+    for fn in (chunk_scatter_cuda, ref.chunk_scatter_ref):
+        st1 = (base.surfaces.sae.clone(), base.cache.dirty.clone(),
+               base.counts.clone(), base.surfaces.t_last.clone(),
+               base.surfaces.n_events.clone())
+        fn(st1[0], sids, ev, st1[1], cfg.block, st1[2], st1[3], st1[4])
+        outs.append(st1)
+    check(all(same(a, b) for a, b in zip(*outs)),
+          f"chunk_scatter on one ring-staged push ({len(parts)} rows, "
+          f"{int(ev.valid.sum())} events) == its plain version, bitwise")
+    log(f"analog kernels: ts_decay on the virtual SAE {virtual_ms:.4f} ms, "
+        f"stcf_support on the analog mask {mask_ms:.4f} ms")
+    for row in rows:
+        if row["name"] == "ts_decay":
+            row.update(virtual_sae_ms=virtual_ms, virtual_sae_max_ulp=v_ulp)
+        elif row["name"] == "stcf_support":
+            row.update(analog_mask_ms=mask_ms)
+
+    # ring against host push of the same parts, in turns
+    def push_ms(staged):
+        e = eng.TimeSurfaceEngine(cfg, device=dev)
+        for _ in range(S):
+            e.attach()
+        streams = [(slot, aer.unpack(words[slot % N_SCENES][2], H, W))
+                   for slot in range(S)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if staged:
+            e.push_staged(parts)
+        else:
+            e.push(streams)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    turns = [push_ms(staged) for staged in (True, False) * 2
+             for _ in range(2)]
+    ring_ms = float(np.median(turns[0::2]))
+    host_ms = float(np.median(turns[1::2]))
+    log(f"ingest on {card}: one 5 ms push of {S} sensors, ring (pinned, "
+        f"staged parts) {ring_ms:.3f} ms vs host-staged push (EventStreams) "
+        f"{host_ms:.3f} ms, medians of 4 in turns: "
+        f"{[round(x, 3) for x in turns]}")
+    return dict(cell_eps_ms=eps_ms, analog_ms=analog_ms,
+                digital_ms=digital_ms, spec_ms=spec_ms, ring_ms=ring_ms,
+                host_ms=host_ms, agreement=agreement)
+
+
+def stream_phase(dev, mods, words, card):
+    """Phase 6, part 2: the streaming runtime over the full pool.  Returns
+    the stream path's kernel launches and what it measured."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.events import replay as rp
+    from repro_torch.launch.serve import _sweep_spec
+    from repro_torch.serve import fidelity as fm
+    from repro_torch.serve import stream as st
+
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    gesture = _sweep_spec(fm.analog_3d(), SWEEP_CLASSES)
+    cfg = eng.TSEngineConfig(h=H, w=W, polarities=P, n_slots=S,
+                             chunk_capacity=CAP, mode="edram",
+                             specs=(frame, gesture))
+    tiers = {True: dataclasses.replace(st.GESTURE_TIER, spec=gesture),
+             False: st.TELEMETRY_TIER}
+    streams = [aer.unpack(np.concatenate(words[j][:2 * STREAM_DEADLINES]),
+                          H, W) for j in range(N_SCENES)]
+    feeds = [rp.SensorFeed(stream=streams[k % N_SCENES], name=f"sensor-{k}",
+                           qos=tiers[gesture_sensor(k)]) for k in range(S)]
+    t_end = STREAM_DEADLINES * DEADLINE_S - 1e-6
+    scfg = st.StreamConfig(policy="drop_oldest", deadline_s=DEADLINE_S,
+                           pipeline=True, device_ring=True)
+
+    def make():
+        return eng.TimeSurfaceEngine(cfg, device=dev)
+
+    def run(**over):
+        return rp.replay(make(), feeds, dataclasses.replace(scfg, **over),
+                         frame, arrival_substeps=STREAM_SUBSTEPS, t_end=t_end)
+
+    rp.replay(make(), feeds, scfg, frame, arrival_substeps=STREAM_SUBSTEPS,
+              t_end=1.5 * DEADLINE_S)          # first-touch costs
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    report = run()
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    log(f"stream on {card}: {S} sensors ({sum(map(gesture_sensor, range(S)))}"
+        f" gesture on the analog_3d sweep spec, the rest telemetry on "
+        f"FRAME), {report.n_steps} deadlines x {DEADLINE_S * 1e3:.0f} ms, "
+        f"{STREAM_SUBSTEPS} arrival substeps, drop_oldest, pipelined, ring:")
+    for line in report.summary().splitlines():
+        log(f"  {line}")
+    energy = {}
+    for tier, mode in (("gesture", "analog_3d"), ("telemetry", "ideal")):
+        row, e = report.tiers[tier], report.tier_energy_uj[tier]
+        energy[mode] = e["total_uj"] * 1e3 / max(row["ingested"], 1)
+        log(f"stream tier {tier} ({mode}): ingested {row['ingested']}, "
+            f"readout latency p50 {row['latency_p50_us'] / 1e3:.3f} ms, p99 "
+            f"{row['latency_p99_us'] / 1e3:.3f} ms; modeled energy "
+            f"{energy[mode]:.6f} nJ/event")
+        check(row["offered"] == row["ingested"] + row["dropped"]
+              + row["refused"] + row["discarded"] + row["deferred"],
+              f"tier {tier} conserves: offered {row['offered']} == ingested "
+              f"+ dropped + refused + discarded + deferred")
+    log(f"stream: events/s {report.events_per_sec:.1f}; kernel launches on "
+        f"the stream path: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched on the stream path ({n})")
+    try:
+        n = rp.check_oracle(report, make, frame)
+        check(n == report.n_steps, f"stream digests == the synchronous "
+              f"oracle's on the card, bitwise, at all {n} deadlines")
+    except AssertionError as err:
+        check(False, f"stream oracle gate on the card: {err}")
+    host = run(device_ring=False)
+    check(host.digests == report.digests,
+          "the same stream with device_ring=False gives the same digests")
+
+    # one step under the profiler: push (ring) + both specs' reads + the
+    # previous step's digest
+    rt = st.StreamRuntime(make(), scfg, frame)
+    sensors = [rt.connect(f.qos) for f in feeds]
+
+    def offer(d):
+        for sen, f in zip(sensors, feeds):
+            w = f.stream.window(d * DEADLINE_S, (d + 1) * DEADLINE_S)
+            sen.offer((w.x, w.y, w.t, w.p))
+
+    offer(0)
+    rt.step(DEADLINE_S)
+    offer(1)
+    rt.step(2 * DEADLINE_S)
+    offer(2)
+    prof = profiled(lambda: (rt.step(3 * DEADLINE_S), rt.flush()))
+    profile_line("stream profile, one step (ring push, FRAME + analog sweep "
+                 "spec, the previous step's digest)", prof)
+    return dict(launches=launches, events_per_s=report.events_per_sec,
+                tiers={t: {k: report.tiers[t][k] for k in
+                           ("ingested", "dropped", "latency_p50_us",
+                            "latency_p99_us")} for t in report.tiers},
+                energy_nj_per_event=energy,
+                idle_share=1 - prof["device_ms"] / prof["wall_ms"])
+
+
+def sweep_phase(card):
+    """Phase 6, part 3: the ``sweep`` CLI in a subprocess on the card."""
+    out = ROOT / "build" / "smoke_sweep"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "sweep",
+         *SWEEP_ARGV, "--out", str(out)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=SWEEP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  sweep | {line}")
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+        check(False, f"sweep CLI exited {proc.returncode}")
+        return {}
+    doc = json.loads((out / "sweep.json").read_text())
+    v = doc["verdicts"]
+    log(f"sweep on {card}: {len(doc['rows'])} runs in {secs:.1f} s")
+    check(v["analog_3d_within_tol"] and v["analog_3d_energy_ok"]
+          and v["analog_2d_worse_than_3d"],
+          f"sweep verdicts: analog_3d within tolerance "
+          f"{v['analog_3d_within_tol']}, energy >= 10x "
+          f"{v['analog_3d_energy_ok']} (min "
+          f"{v['analog_3d_energy_factor']:.0f}x), analog_2d worse "
+          f"{v['analog_2d_worse_than_3d']}")
+    return dict(verdicts=v, seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -1239,7 +1573,16 @@ def main() -> int:
     hd = run_heads(dev, mods, words, card, Timer(dev))
     torch.cuda.synchronize()
     phase_s["heads and labels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    an = analog_phase(dev, mods, words, card, Timer(dev), rows)
+    sm = stream_phase(dev, mods, words, card)
+    torch.cuda.synchronize()
+    phase_s["analog and stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sw = sweep_phase(card)
+    phase_s["sweep"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
+    log(json.dumps({"analog": an, "stream": sm, "sweep": sw}))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -1249,6 +1592,7 @@ def main() -> int:
                             replaces=REPLACES[name],
                             launches=launches[name],
                             heads_path_launches=hd["launches"].get(name, 0),
+                            stream_path_launches=sm["launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:

@@ -3,7 +3,10 @@
 Every structure crosses as ``{leaf path: numpy array}``, paths joined
 with ``.``, and maps one to one onto the port's tensors and back:
 
-  * the time-surface engine's ``EngineState`` (``LEAVES``);
+  * the time-surface engine's ``EngineState`` (``LEAVES``; the slot
+    generations, which key the analog noise draws, included);
+  * an ``ISCArray``'s ``ISCState`` (``sae``, ``droop``, ``params.<name>``
+    as planes or 0-d scalars);
   * an LM's parameters (``embed``, ``layers.ln1``, ``layers.ssm.<name>``
     stacked on a leading layer dim, ``ln_f``, ``unembed``);
   * an LM's decode caches, one dict per layer (``ssm.conv.x``,
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import edram
+from repro_torch.core.isc_array import ISCState
 from repro_torch.core import time_surface as ts
 from repro_torch.device import resolve_device
 from repro_torch.models import module as M
@@ -93,6 +97,37 @@ def engine_state_to_numpy(state: EngineState) -> Dict[str, np.ndarray]:
     }
     return {k: v.detach().cpu().numpy() for k, v in out.items()
             if v is not None}
+
+
+def isc_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                         device=None) -> ISCState:
+    """An ``ISCState`` on ``device`` (default: the CUDA device; raises
+    when there is none) from ``{leaf path: array}``: ``sae`` and
+    ``droop`` float32 (P, H, W), ``params.a1`` ... ``params.b`` planes or
+    0-d values (``decay_params_from_numpy``)."""
+    device = resolve_device(device)
+
+    def plane(name):
+        a = np.asarray(arrays[name])
+        if a.dtype != np.float32:
+            raise TypeError(f"{name}: dtype {a.dtype}, expected float32")
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+    params = decay_params_from_numpy(
+        [arrays[f"params.{f}"] for f in edram.DecayParams._fields], device)
+    return ISCState(sae=plane("sae"), droop=plane("droop"), params=params)
+
+
+def isc_state_to_numpy(state: ISCState) -> Dict[str, np.ndarray]:
+    """``{leaf path: numpy array}`` of an ``ISCState`` (0-d parameters as
+    0-d float32 arrays)."""
+    out = {"sae": state.sae.detach().cpu().numpy(),
+           "droop": state.droop.detach().cpu().numpy()}
+    for f, v in zip(edram.DecayParams._fields, state.params):
+        out[f"params.{f}"] = (v.detach().cpu().numpy()
+                              if isinstance(v, torch.Tensor)
+                              else np.asarray(v, np.float32))
+    return out
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:

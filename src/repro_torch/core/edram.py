@@ -1,9 +1,11 @@
-"""The 3DS-ISC eDRAM cell model (paper Sec. III-A), as far as serving reads it.
+"""The 3DS-ISC eDRAM cell model (paper Sec. III-A).
 
 The port of ``repro.core.edram``: the double-exponential leakage transient
 fitted to the paper's SPICE anchors, ``v(dt) = a1*exp(-dt/tau1) +
-a2*exp(-dt/tau2) + b``.  Times are float32 **seconds**, voltages float32
-**volts**.
+a2*exp(-dt/tau2) + b``, its per-cell Monte-Carlo spread
+(``sample_variability``) and the 2D crossbar's half-select disturbance
+(``apply_half_select``, Fig. 4).  Times are float32 **seconds**, voltages
+float32 **volts**.
 
 ``DecayParams`` holds float32 values rounded from the same float64 fit as
 the reference, so the two packages hold bitwise-equal parameters.  Uniform
@@ -19,6 +21,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import f32
 from repro_torch.hw import constants as C
 from repro_torch.hw import spice_fit
@@ -62,6 +65,25 @@ def rate_sigma() -> float:
     return spice_fit.calibrate_rate_sigma(spice_fit.fit_20ff())
 
 
+def sample_variability(key: torch.Tensor, shape, params: DecayParams,
+                       sigma: float | None = None) -> DecayParams:
+    """Per-cell decay parameters: the leakage rate scaled by ``1 + sigma *
+    N(0, 1)``, drawn from the threefry ``key`` (``core.prng``) on the
+    key's device, so ``tau -> tau / eps`` (the paper's mapping of 8 000
+    Monte-Carlo SPICE fits onto pixels, Sec. IV-C).  ``sigma`` defaults
+    to the calibrated ``rate_sigma()``.  Returns (``shape``) float32
+    planes."""
+    if sigma is None:
+        sigma = rate_sigma()
+    dev = key.device
+    eps = f32(1.0, dev) + f32(sigma, dev) * prng.normal(key, shape)
+    full = lambda x: torch.full(tuple(shape), float(x), dtype=torch.float32,
+                                device=dev)
+    return DecayParams(a1=full(params.a1), tau1=f32(params.tau1, dev) / eps,
+                       a2=full(params.a2), tau2=f32(params.tau2, dev) / eps,
+                       b=full(params.b))
+
+
 def v_mem(dt, params: DecayParams) -> torch.Tensor:
     """Cell voltage ``dt`` seconds after a write, in float32.
 
@@ -79,6 +101,39 @@ def ideal_exp(dt, tau: float) -> torch.Tensor:
     dt = f32(dt)
     v = torch.exp(-dt / f32(tau, dt.device))
     return torch.where(torch.isfinite(dt), v, torch.zeros_like(v))
+
+
+#: Fractional charge loss per half-select exposure (green cells of Fig. 4a):
+#: the ON-state LL switch leaks the capacitor into the grounded WBL during
+#: the selected cell's write pulse, a droop proportional to the stored
+#: voltage.
+HALF_SELECT_ALPHA = 0.05
+#: Capacitive-coupling ripple for blue cells (WBL active, WWL off).
+HALF_SELECT_COUPLING = 0.002
+
+
+def half_select_factors(row_hits: torch.Tensor, col_hits: torch.Tensor,
+                        alpha: float = HALF_SELECT_ALPHA,
+                        coupling: float = HALF_SELECT_COUPLING):
+    """``((1 - alpha)^row_hits, (1 - coupling)^col_hits)`` in float32,
+    the bases rounded to float32 as the reference's weakly typed Python
+    floats are."""
+    dev = row_hits.device
+    rowf = torch.pow(f32(1.0 - alpha, dev), row_hits.to(torch.float32))
+    colf = torch.pow(f32(1.0 - coupling, dev), col_hits.to(torch.float32))
+    return rowf, colf
+
+
+def apply_half_select(v: torch.Tensor, row_hits: torch.Tensor,
+                      col_hits: torch.Tensor,
+                      alpha: float = HALF_SELECT_ALPHA,
+                      coupling: float = HALF_SELECT_COUPLING) -> torch.Tensor:
+    """Disturb a (H, W) voltage map given per-row (H,) / per-column (W,)
+    write counts: a write at (r, c) droops every cell of row r by
+    ``1 - alpha`` and couples ``1 - coupling`` into every cell of
+    column c."""
+    rowf, colf = half_select_factors(row_hits, col_hits, alpha, coupling)
+    return v * rowf[:, None] * colf[None, :]
 
 
 def v_tw_for_window(tau_tw: float, params: DecayParams) -> float:

@@ -18,7 +18,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import edram
 from repro_torch.core import time_surface as ts
+from repro_torch.device import f32
 from repro_torch.kernels import ref as _ref
 
 
@@ -166,6 +168,42 @@ def ts_wrapped_read(stored: torch.Tensor, t_read, params, n_bits: int = 16,
     virtual = torch.where(torch.isfinite(stored), -dt,
                           torch.full_like(dt, ts.NEVER))
     return ts_decay(virtual, 0.0, params)
+
+
+def ts_analog_read(sae: torch.Tensor, t_now, params,
+                   eps: Optional[torch.Tensor] = None,
+                   row_hits: Optional[torch.Tensor] = None,
+                   col_hits: Optional[torch.Tensor] = None,
+                   alpha: float = 0.05,
+                   coupling: float = 0.002) -> torch.Tensor:
+    """Analog eDRAM readout: the leakage transient with a per-cell rate
+    spread ``eps`` (``edram.sample_variability``'s ``tau -> tau / eps``),
+    plus the 2D crossbar's half-select droop from per-row (..., H) and
+    per-column (..., W) write counts.
+
+    A rate spread is a per-cell dilation of the elapsed time, so it is
+    folded into a virtual SAE read at ``t_now = 0`` (``sae' = -(dt *
+    eps)``; the decay's ``0 - sae'`` is ``dt * eps`` exactly) and read
+    through the one ``ts_decay`` entry: on a CUDA tensor the hand-written
+    kernel.  With ``eps=None`` and no hits the call **is** ``ts_decay``
+    on ``sae``, bitwise (the sigma = 0 anchor).  The droop multiplies
+    ``(1 - alpha)^row_hits`` over rows, then ``(1 - coupling)^col_hits``
+    over columns.
+    """
+    if eps is None:
+        v = ts_decay(sae, t_now, params)
+    else:
+        dt = f32(t_now, sae.device) - sae
+        virtual = torch.where(torch.isfinite(sae), -(dt * eps),
+                              torch.full_like(dt, ts.NEVER))
+        v = ts_decay(virtual, 0.0, params)
+    if row_hits is None and col_hits is None:
+        return v
+    if row_hits is None or col_hits is None:
+        raise ValueError("row_hits and col_hits must be given together")
+    rowf, colf = edram.half_select_factors(row_hits, col_hits, alpha,
+                                           coupling)
+    return v * rowf[..., :, None] * colf[..., None, :]
 
 
 # ----------------------------------------------------------------------------

@@ -117,6 +117,29 @@ def ts_wrapped_read_ref(stored: torch.Tensor, t_read, tau: float,
     return torch.where(torch.isfinite(dt), v, torch.zeros_like(v))
 
 
+def ts_analog_read_ref(sae: torch.Tensor, t_read, params, eps=None,
+                       row_hits=None, col_hits=None, alpha: float = 0.05,
+                       coupling: float = 0.002) -> torch.Tensor:
+    """Plain version of ``ops.ts_analog_read``: the direct Sec. IV-C cell
+    physics, written per cell without the virtual-SAE folding the op
+    uses.  The rate spread ``eps`` dilates each cell's elapsed time
+    through the double-exp transient, then the 2D half-select droop
+    multiplies ``(1 - alpha)^row_hits`` per row and ``(1 -
+    coupling)^col_hits`` per column."""
+    dev = sae.device
+    a1, tau1, a2, tau2, b = (f32(x, dev) for x in params)
+    dt = f32(t_read, dev) - sae
+    if eps is not None:
+        dt = dt * eps
+    v = a1 * torch.exp(-dt / tau1) + a2 * torch.exp(-dt / tau2) + b
+    v = torch.where(torch.isfinite(sae), v, torch.zeros_like(v))
+    if row_hits is not None:
+        rowf = torch.pow(f32(1.0 - alpha, dev), row_hits.to(torch.float32))
+        colf = torch.pow(f32(1.0 - coupling, dev), col_hits.to(torch.float32))
+        v = v * rowf[..., :, None] * colf[..., None, :]
+    return v
+
+
 def classify_ref(params, surfaces) -> torch.Tensor:
     """Plain version of the ``Classify`` head: K pool reads, each
     (S, P, H, W), stacked on the channel axis (the k-th input's

@@ -29,10 +29,11 @@ class SensorSession:
     session's slot may already belong to a new sensor.
     """
 
-    def __init__(self, engine, slot: int):
+    def __init__(self, engine, slot: int, qos=None):
         self._engine = engine
         self._slot = slot
         self._alive = True
+        self.qos = qos   # optional serve.stream.QoSClass tag
 
     @property
     def slot(self) -> int:
@@ -87,10 +88,12 @@ class SensorSession:
         return sup, sig
 
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
-             t_now: float = 0.0) -> Dict[str, torch.Tensor]:
-        """This sensor's products at ``t_now`` (a view of the pool read)."""
+             t_now: float = 0.0, noise_step: int = 0
+             ) -> Dict[str, torch.Tensor]:
+        """This sensor's products at ``t_now`` (a view of the pool read;
+        ``noise_step`` keys analog noise)."""
         self._check()
-        pool = self._engine.read(spec, t_now)
+        pool = self._engine.read(spec, t_now, noise_step)
         return {name: v[self._slot] for name, v in pool.items()}
 
     def push_and_read(self, payload,

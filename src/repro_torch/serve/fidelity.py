@@ -1,11 +1,25 @@
-"""Read-fidelity descriptors, as far as the digital serving path needs.
+"""Analog-fidelity models: serve reads through the eDRAM cell physics.
 
-The port of the descriptor half of ``repro.serve.fidelity``: a frozen,
-hashable ``FidelityModel`` (``ideal`` | ``analog_3d`` | ``analog_2d``)
-that a ``Surface`` product may carry, and the spec-level queries the
-engine asks.  The port serves the digital (``ideal``) read only; the
-analog cell physics and its noise draws are ROADMAP queue 1 item 9, and a
-spec read that asks for them raises ``NotImplementedError``.
+The port of ``repro.serve.fidelity``.  A ``FidelityModel`` attaches the
+analog side of the paper's power/accuracy trade to a surface-like spec
+product (masks and STCF products inherit through their ``decay``):
+
+    ``ideal``      the digital read (the default, a no-op marker)
+    ``analog_3d``  the 3DS-ISC cell: the double-exp leakage transient plus
+                   a per-cell Monte-Carlo leakage-rate spread
+    ``analog_2d``  the 2D-integration strawman: all of the above plus the
+                   crossbar's half-select droop (Fig. 4)
+
+An analog read lowers to ``kernels.ops.ts_analog_read`` (the spread folded
+into a virtual SAE read through the ``ts_decay`` kernel), and sigma = 0 is
+bitwise the digital read.
+
+Determinism: the per-cell noise of slot ``s`` is drawn from the threefry
+key ``fold_in(fold_in(PRNGKey(seed), noise_step), generation[s])``
+(``core.prng``, the reference's stream), where ``noise_step`` is the
+stream runtime's step index and ``generation`` the slot's attach epoch.
+Both are in the stream's action log, so the synchronous replay oracle
+redraws every cell bitwise on the same device.
 """
 from __future__ import annotations
 
@@ -13,28 +27,19 @@ import dataclasses
 import functools
 from typing import Optional
 
+import torch
+
 from repro_torch.core import edram
+from repro_torch.core import prng
+from repro_torch.device import f32
 
 __all__ = [
-    "FidelityModel", "IDEAL", "resolved_sigma", "needs_noise",
-    "product_fidelity", "spec_needs_noise", "spec_needs_hits",
-    "spec_fidelity_mode", "ANALOG_NOT_PORTED",
+    "FidelityModel", "IDEAL", "analog_3d", "analog_2d", "resolved_sigma",
+    "needs_noise", "cell_eps", "crossbar_hits", "product_fidelity",
+    "spec_needs_noise", "spec_needs_hits", "spec_fidelity_mode",
 ]
 
 _MODES = ("ideal", "analog_3d", "analog_2d")
-
-#: what an analog read raises with
-ANALOG_NOT_PORTED = (
-    "analog-fidelity reads are not ported to repro_torch yet (ROADMAP "
-    "queue 1 item 9: serve/fidelity.py cell_eps/crossbar_hits and "
-    "edram.sample_variability); serve the digital read or use the JAX "
-    "package"
-)
-
-#: Fractional charge loss per half-select exposure (Fig. 4a).
-HALF_SELECT_ALPHA = 0.05
-#: Capacitive-coupling ripple for blue cells (WBL active, WWL off).
-HALF_SELECT_COUPLING = 0.002
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +55,8 @@ class FidelityModel:
     mode: str = "ideal"
     sigma: Optional[float] = None
     seed: int = 0
-    alpha: float = HALF_SELECT_ALPHA
-    coupling: float = HALF_SELECT_COUPLING
+    alpha: float = edram.HALF_SELECT_ALPHA
+    coupling: float = edram.HALF_SELECT_COUPLING
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -78,6 +83,19 @@ class FidelityModel:
 IDEAL = FidelityModel("ideal")
 
 
+def analog_3d(sigma: Optional[float] = None, seed: int = 0) -> FidelityModel:
+    """The 3DS-ISC analog cell: leakage transient + per-cell spread."""
+    return FidelityModel("analog_3d", sigma=sigma, seed=seed)
+
+
+def analog_2d(sigma: Optional[float] = None, seed: int = 0,
+              alpha: float = edram.HALF_SELECT_ALPHA,
+              coupling: float = edram.HALF_SELECT_COUPLING) -> FidelityModel:
+    """The 2D-integration strawman: analog cell + half-select droop."""
+    return FidelityModel("analog_2d", sigma=sigma, seed=seed, alpha=alpha,
+                         coupling=coupling)
+
+
 @functools.lru_cache(maxsize=1)
 def _calibrated_sigma() -> float:
     return float(edram.rate_sigma())
@@ -93,6 +111,27 @@ def resolved_sigma(fid: FidelityModel) -> float:
 def needs_noise(fid: Optional[FidelityModel]) -> bool:
     """Whether serving this model draws per-cell noise."""
     return fid is not None and fid.is_analog and resolved_sigma(fid) > 0.0
+
+
+def cell_eps(fid: FidelityModel, noise_step: int, generation: torch.Tensor,
+             pol_shape) -> torch.Tensor:
+    """Per-cell leakage-rate multipliers, ``(S,) + pol_shape`` float32 on
+    ``generation``'s device: ``eps[s] = 1 + sigma * N(0, 1)`` drawn from
+    ``fold_in(fold_in(PRNGKey(seed), noise_step), generation[s])``, the
+    key contract the replay oracle reproduces."""
+    dev = generation.device
+    base = prng.fold_in(prng.PRNGKey(fid.seed, dev), int(noise_step))
+    keys = prng.fold_in(base, generation)
+    return f32(1.0, dev) + f32(resolved_sigma(fid), dev) * prng.normal(
+        keys, tuple(pol_shape))
+
+
+def crossbar_hits(counts: torch.Tensor):
+    """Per-row / per-column write counts for the half-select model from
+    the (S, H, W) counter plane: every write to (y, x) half-selects all
+    of row y and couples into all of column x.  Shaped (S, 1, H) /
+    (S, 1, W) to broadcast over polarity."""
+    return counts.sum(dim=-1)[:, None, :], counts.sum(dim=-2)[:, None, :]
 
 
 def product_fidelity(p) -> Optional[FidelityModel]:

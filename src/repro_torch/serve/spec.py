@@ -28,8 +28,12 @@ stage 0, then applies the heads to exactly the tensors stage 0 served
 contract: a head's output is bitwise the standalone head on the served
 stage-0 products).
 
-Analog-fidelity reads are not ported (ROADMAP queue 1 item 9): a read
-that asks for one raises ``NotImplementedError``.
+A surface-like product that carries an analog ``FidelityModel`` reads
+through the eDRAM cell physics (``_analog_read``, ``ops.ts_analog_read``):
+the per-cell rate spread is drawn once per read for each (seed, sigma)
+from the (noise step, slot generation) key contract and shared by every
+product that asks for it; an analog ``Stcf`` thresholds the analog
+voltage and counts with the mask form of ``stcf_support``.
 
 Bit-identity contract: each stage-0 product calls the same
 ``kernels.ops`` entry its standalone read uses, so the ``surface()``
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch.core import edram
 from repro_torch.core import representations as representations_mod
+from repro_torch.device import f32
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
 from repro_torch.models.frontends import ts_stack_frontend
@@ -67,7 +72,7 @@ class Surface:
     """Decayed time surface.  ``mode``/``tau``/``cmem_f`` default to the
     engine config's decay (None = inherit); overriding them serves a
     second decay profile off the same SAE.  ``fidelity`` names an analog
-    read model (not ported: reading one raises)."""
+    read model (``serve.fidelity``)."""
 
     mode: Optional[str] = None       # "edram" | "ideal" | None (engine's)
     tau: Optional[float] = None      # ideal-TS decay constant override
@@ -406,33 +411,80 @@ def compile_spec(spec: ReadoutSpec, cfg) -> CompiledSpec:
                         dict(resolve_static(spec, cfg)))
 
 
+def _analog_read(sae, counts, t_now, params, fid, name, noise_step,
+                 generation, draws) -> torch.Tensor:
+    """One analog surface read: the per-cell spread (drawn once per read
+    for each (seed, sigma), kept in ``draws``), the half-select hit
+    counts off the counter plane for ``analog_2d``, then
+    ``ops.ts_analog_read``.  sigma = 0 draws nothing, so that read IS the
+    digital ``ts_decay`` (the bitwise anchor)."""
+    eps = None
+    if fidelity_mod.needs_noise(fid):
+        if noise_step is None or generation is None:
+            raise ValueError(
+                f"spec product {name!r} draws per-cell noise; the read "
+                "must thread noise_step and the slot generations "
+                "(engine.read(..., noise_step=...))")
+        key = (fid.seed, fidelity_mod.resolved_sigma(fid))
+        eps = draws.get(key)
+        if eps is None:
+            eps = draws[key] = fidelity_mod.cell_eps(
+                fid, noise_step, generation, sae.shape[1:])
+    row_hits = col_hits = None
+    if fid.mode == "analog_2d":
+        if counts is None:
+            raise ValueError(
+                f"spec product {name!r} has analog_2d fidelity and needs "
+                "the counter plane for its half-select hit counts; "
+                "declare the spec in TSEngineConfig.specs")
+        row_hits, col_hits = fidelity_mod.crossbar_hits(counts)
+    return ops.ts_analog_read(sae, t_now, params, eps=eps, row_hits=row_hits,
+                              col_hits=col_hits, alpha=fid.alpha,
+                              coupling=fid.coupling)
+
+
 def read_stage0(
     sae: torch.Tensor,                       # (S, P, H, W) slot-pool SAE
     counts: Optional[torch.Tensor],          # (S, H, W) int32 or None
     t_now,
     compiled: CompiledSpec,
     cfg,                                     # TSEngineConfig
+    noise_step: Optional[int] = None,        # the stream's step index
+    generation: Optional[torch.Tensor] = None,  # (S,) int32 slot epochs
 ) -> Dict[str, torch.Tensor]:
     """Every stage-0 product of a compiled spec, read off the pool state,
-    in canonical name order."""
+    in canonical name order.  ``noise_step`` and ``generation`` key the
+    analog products' noise draws; a spec that draws none ignores them.
+    Every product is a new tensor, never a view of the pool state (the
+    stream digests products after later pushes wrote the pool)."""
     dynamic, v_tws = compiled.dynamic, compiled.statics
+    draws: Dict[tuple, torch.Tensor] = {}
     out: Dict[str, torch.Tensor] = {}
     for name, p in compiled.stage0.products:
         fid = fidelity_mod.product_fidelity(p)
-        if fid is not None and fid.is_analog:
-            raise NotImplementedError(
-                f"product {name!r}: {fidelity_mod.ANALOG_NOT_PORTED}")
+        analog = fid is not None and fid.is_analog
+        if analog and isinstance(p, (Surface, Mask, Stcf)):
+            v = _analog_read(sae, counts, t_now, dynamic[name], fid, name,
+                             noise_step, generation, draws)
         if isinstance(p, Surface):
-            out[name] = ops.ts_decay(sae, t_now, dynamic[name])
+            out[name] = v if analog else ops.ts_decay(sae, t_now,
+                                                      dynamic[name])
         elif isinstance(p, Mask):
-            _, out[name] = ops.ts_decay_with_mask(sae, t_now, dynamic[name],
-                                                  v_tws[name])
+            if analog:
+                out[name] = v > f32(v_tws[name], v.device)
+            else:
+                _, out[name] = ops.ts_decay_with_mask(
+                    sae, t_now, dynamic[name], v_tws[name])
         elif isinstance(p, Stcf):
             radius = p.radius if p.radius is not None else cfg.stcf_radius
-            out[name] = ops.stcf_support_fused(
-                sae, dynamic[name], v_tws[name], t_now, radius=radius,
-                include_self=p.include_self,
-            )
+            if analog:
+                out[name] = ops.stcf_support(
+                    v > f32(v_tws[name], v.device), radius=radius,
+                    include_self=p.include_self)
+            else:
+                out[name] = ops.stcf_support_fused(
+                    sae, dynamic[name], v_tws[name], t_now, radius=radius,
+                    include_self=p.include_self)
         elif isinstance(p, Count):
             if counts is None:
                 raise ValueError(
@@ -476,11 +528,14 @@ def apply_heads(
 
 
 def read_compiled(sae, counts, t_now, compiled: CompiledSpec, cfg,
-                  head_params: Optional[Dict[str, dict]] = None
+                  head_params: Optional[Dict[str, dict]] = None,
+                  noise_step: Optional[int] = None,
+                  generation: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
     """One staged spec read: the stage-0 products, then the heads over
     them, in the spec's canonical name order."""
-    out = read_stage0(sae, counts, t_now, compiled, cfg)
+    out = read_stage0(sae, counts, t_now, compiled, cfg, noise_step,
+                      generation)
     if compiled.heads:
         out.update(apply_heads(out, head_params, compiled, cfg))
     return {name: out[name] for name in compiled.spec.names}

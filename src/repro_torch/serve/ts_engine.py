@@ -20,6 +20,11 @@ polarity) plus its bookkeeping, batched along a leading slot axis:
     support against the slot's surface as each chunk lands, chunk by
     chunk, then scatters the chunk: the offline ``stcf_chunked`` at
     ``chunk = chunk_capacity``.
+  * **staged ingest** -- ``push_staged`` takes raw ``(slot, (x, y, t,
+    p))`` host parts (the stream runtime's hot path), fills one of the
+    ``IngestRing``'s two pinned staging sets, copies each field to the
+    card once (``non_blocking``, on a copy stream) and scatters in place:
+    bitwise the ``push`` of the same parts.
   * **serve_step** -- push, then read with the spec's first surface
     product backed by a *dirty-tile cache*: repeat reads under one cache
     epoch (same ``t_now``, same surface product, tracked on the host in
@@ -35,8 +40,14 @@ when there is none; ``device="cpu"`` runs the plain PyTorch versions
 (the tests do).  Both decay modes run through the same kernel: the ideal
 TS is the double-exp transient with ``a1=1, a2=0, b=0, tau1=tau``.
 
-Not ported (ROADMAP): the device mesh, the ingest ring, elastic
-grow/shrink/migrate, and the deprecated method-per-feature shims.
+Analog-fidelity products (``serve.fidelity``) read through the cell
+physics; ``read``, ``read_many`` and ``serve_step`` take the stream's
+``noise_step`` and pass the slots' generations, which key the noise.
+
+Not ported (ROADMAP queue 1 item 11): the device mesh and the fleet
+features (``grow`` / ``shrink`` / ``migrate``); they raise
+``NotImplementedError``.  The deprecated method-per-feature shims are not
+ported either.
 """
 from __future__ import annotations
 
@@ -216,6 +227,118 @@ def ingest_support(state: EngineState, slot_ids: torch.Tensor,
         for i in range(sae_b.shape[0])])
 
 
+#: the fleet features that wait for the multi-GPU slice
+FLEET_NOT_PORTED = (
+    "is not ported to repro_torch yet (ROADMAP queue 1 item 11: the fleet "
+    "features -- elastic grow/shrink, live migration, shard budgets -- "
+    "arrive with multi-GPU sharding); use the JAX package"
+)
+
+#: one raw ingest part: (x, y, t, p) host arrays, equal length <= capacity
+RawPart = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+class IngestRing:
+    """Double-buffered host staging for ``TimeSurfaceEngine.push_staged``.
+
+    ``depth`` staging sets per padded batch size ``b`` (a power of two, so
+    few sizes occur), each whole (b, cap) fields -- pinned host memory
+    when the engine is on the card -- are filled row by row with numpy
+    and copied to the device with one ``non_blocking`` copy per field.
+    On the card the copies run on a side stream, so a deadline's upload
+    overlaps whatever the compute stream still runs; the scatter's
+    stream waits on the copies, and the device buffers are recorded on
+    it for the caching allocator.  A staging set is refilled only after
+    its previous copy finished (its event is waited on in ``acquire``):
+    without that, the DMA and the host would race on the pinned buffer.
+
+    Only ``valid`` (and the slot ids) are zeroed on reuse: the scatter
+    writes nothing for an invalid event, so stale coordinates behind
+    ``valid = False`` never reach a surface, and ring-staged ingest is
+    bitwise the host-staged ``push``.
+    """
+
+    _SPEC = (("sids", torch.int32, False), ("x", torch.int32, True),
+             ("y", torch.int32, True), ("t", torch.float32, True),
+             ("p", torch.int32, True), ("valid", torch.bool, True))
+
+    def __init__(self, capacity: int, device, depth: int = 2):
+        if depth < 2:
+            raise ValueError(f"an ingest ring needs depth >= 2, got {depth}")
+        self.capacity = capacity
+        self.device = torch.device(device)
+        self.depth = depth
+        self._sets: Dict[int, List[dict]] = {}   # padded b -> staging sets
+        self._turn: Dict[int, int] = {}
+        self._copy_stream = None
+
+    def _alloc(self, b: int) -> dict:
+        pin = self.device.type == "cuda"
+        buf = {"event": None}
+        for name, dtype, wide in self._SPEC:
+            shape = (b, self.capacity) if wide else (b,)
+            t = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+            buf[name] = t
+            buf[name + "_np"] = t.numpy()
+        return buf
+
+    def acquire(self, b: int) -> dict:
+        """The next staging set for padded batch size ``b``, its previous
+        upload finished and its ``valid`` and slot ids zeroed."""
+        sets = self._sets.get(b)
+        if sets is None:
+            sets = self._sets[b] = [self._alloc(b) for _ in range(self.depth)]
+            self._turn[b] = 0
+        i = self._turn[b]
+        self._turn[b] = (i + 1) % self.depth
+        buf = sets[i]
+        if buf["event"] is not None:
+            buf["event"].synchronize()
+        buf["valid_np"][:] = False
+        buf["sids_np"][:] = 0
+        return buf
+
+    @staticmethod
+    def fill_row(buf: dict, row: int, slot: int, part: RawPart) -> None:
+        """Stage one (slot, part) into row ``row`` of a staging set."""
+        x, y, t, p = part
+        n = len(x)
+        buf["sids_np"][row] = slot
+        if n:
+            buf["x_np"][row, :n] = x
+            buf["y_np"][row, :n] = y
+            buf["t_np"][row, :n] = t
+            buf["p_np"][row, :n] = p
+            buf["valid_np"][row, :n] = True
+
+    def upload(self, buf: dict):
+        """One copy per field to the ring's device: ``(slot ids,
+        EventBatch)``, ready for the current stream."""
+        names = [name for name, _, _ in self._SPEC]
+        if self.device.type != "cuda":   # the CPU scatter reads them now
+            return buf["sids"], ts.EventBatch(*(buf[n] for n in names[1:]))
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            out = [buf[n].to(self.device, non_blocking=True) for n in names]
+        done = torch.cuda.Event()
+        done.record(self._copy_stream)
+        buf["event"] = done
+        compute.wait_event(done)
+        for t in out:
+            t.record_stream(compute)
+        return out[0], ts.EventBatch(*out[1:])
+
+
+def _pad_batch(n: int) -> int:
+    """The smallest power of two >= n (the ring keeps one set per size)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
 #: an ingest item: (slot id | session, packed AER words | EventStream |
 #: EventBatch)
 IngestItem = Tuple[Union[int, SensorSession],
@@ -259,17 +382,20 @@ class TimeSurfaceEngine:
                                Optional[spec_mod.ReadoutSpec]] = {}
         _, _, tp = cfg.tile_counts()
         self._max_dirty = cfg.max_dirty_tiles or max(16, cfg.n_slots * tp // 4)
+        self._ring = IngestRing(cfg.chunk_capacity, self.device)
 
     # -- sessions ------------------------------------------------------------
-    def attach(self) -> SensorSession:
+    def attach(self, qos=None) -> SensorSession:
         """Claim a free slot (resetting it) and return the session owning
-        it; raises ``RuntimeError`` when the pool is full."""
+        it; raises ``RuntimeError`` when the pool is full.  ``qos`` tags
+        the session with a ``serve.stream.QoSClass`` (the engine itself
+        ignores it; scheduling lives in ``StreamRuntime``)."""
         if not self._free:
             raise RuntimeError(
                 f"no free sensor slots (pool capacity {self.capacity})")
         slot = self._free.pop(0)
         reset_slot(self.state, slot, bump_generation=True)
-        session = SensorSession(self, slot)
+        session = SensorSession(self, slot, qos=qos)
         self._sessions[slot] = session
         return session
 
@@ -351,6 +477,32 @@ class TimeSurfaceEngine:
         ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
         _scatter_chunks(self.state, torch.from_numpy(sids).to(dev), ev)
 
+    def push_staged(self, items: Sequence[Tuple[int, RawPart]]) -> None:
+        """Ring-staged batched ingest: raw ``(slot | session, (x, y, t,
+        p))`` host parts, each at most ``chunk_capacity`` events, staged
+        into the ``IngestRing`` and scattered by one ``chunk_scatter``
+        launch (rows padded to a power of two with invalid rows).  Bitwise
+        the ``push`` of the same parts."""
+        cap = self.cfg.chunk_capacity
+        rows = []
+        for slot, part in items:
+            if isinstance(slot, SensorSession):
+                slot._check()
+                slot = slot.slot
+            self._check_acquired(slot)
+            if len(part[0]) > cap:
+                raise ValueError(
+                    f"part of {len(part[0])} events exceeds the chunk "
+                    f"capacity {cap}; split parts on the host")
+            rows.append((slot, part))
+        if not rows:
+            return
+        buf = self._ring.acquire(_pad_batch(len(rows)))
+        for i, (slot, part) in enumerate(rows):
+            IngestRing.fill_row(buf, i, slot, part)
+        sids, ev = self._ring.upload(buf)
+        _scatter_chunks(self.state, sids, ev)
+
     def _ingest_labeled(self, items: Sequence[IngestItem]) -> list:
         """Scatter payloads *and* label each event with its STCF support
         (the body behind ``SensorSession.push_labeled``).
@@ -415,21 +567,25 @@ class TimeSurfaceEngine:
         return compiled, self._head_cache[spec]
 
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
-             t_now: float = 0.0) -> Dict[str, torch.Tensor]:
+             t_now: float = 0.0, noise_step: int = 0
+             ) -> Dict[str, torch.Tensor]:
         """Every product of ``spec`` over the whole pool at ``t_now``:
         the stage-0 products, then the heads over exactly those tensors.
         Free slots read as never-written.  The ``surface()`` product is
         the same ``ops.ts_decay`` an offline reader
         (``time_surface.surface_read_kernel``) runs, so engine and
-        offline reads of equal SAE state are bitwise equal."""
+        offline reads of equal SAE state are bitwise equal.
+        ``noise_step`` (with each slot's generation) keys the analog
+        products' noise; a spec that draws none ignores it."""
         self._check_spec(spec)
         compiled, head_params = self._resolved(spec)
-        return spec_mod.read_compiled(self.state.surfaces.sae,
-                                      self.state.counts, t_now, compiled,
-                                      self.cfg, head_params)
+        return spec_mod.read_compiled(
+            self.state.surfaces.sae, self.state.counts, t_now, compiled,
+            self.cfg, head_params, noise_step=noise_step,
+            generation=self.state.generation)
 
     def read_many(self, specs: Sequence[spec_mod.ReadoutSpec],
-                  t_now: float = 0.0
+                  t_now: float = 0.0, noise_step: int = 0
                   ) -> Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]]:
         """Serve several specs against the same pool state.  Duplicate
         specs are read once, and specs with equal stage-0 sub-specs share
@@ -443,9 +599,9 @@ class TimeSurfaceEngine:
         out: Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]] = {}
         for stage0, members in groups.items():
             if len(members) == 1:
-                out[members[0]] = self.read(members[0], t_now)
+                out[members[0]] = self.read(members[0], t_now, noise_step)
                 continue
-            base = self.read(stage0, t_now)
+            base = self.read(stage0, t_now, noise_step)
             for sp in members:
                 compiled, head_params = self._resolved(sp)
                 heads = spec_mod.apply_heads(base, head_params, compiled,
@@ -456,19 +612,22 @@ class TimeSurfaceEngine:
 
     def serve_step(self, items: Sequence[IngestItem],
                    spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
-                   t_now: float = 0.0) -> Dict[str, torch.Tensor]:
+                   t_now: float = 0.0, noise_step: int = 0
+                   ) -> Dict[str, torch.Tensor]:
         """Push ``items``, then serve every product of ``spec`` at
         ``t_now`` with its first surface product read through the
         dirty-tile cache (an empty ``items`` is a pure cached read).
         Other products read densely, after the push.  A head-bearing spec
         reads everything densely after the push (the heads need every
-        input current): the same staged read a ``read`` runs."""
+        input current), and so does an analog spec (the cache holds
+        digital tiles; an analog read goes through the cell physics every
+        time): the same staged read a ``read`` runs."""
         self._check_spec(spec)
         surface_products = spec.surface_products()
         if (not surface_products or spec.has_heads
                 or fidelity_mod.spec_fidelity_mode(spec) != "ideal"):
             self.push(items)
-            return self.read(spec, t_now)
+            return self.read(spec, t_now, noise_step)
         self.push(items)
         name0, prod0 = surface_products[0]
         params0 = self._compiled(spec).dynamic[name0]
@@ -497,6 +656,18 @@ class TimeSurfaceEngine:
         if rest_spec is not None:
             out.update(self.read(rest_spec, t_now))
         return {name: out[name] for name in spec.names}
+
+    # -- fleet (not ported) --------------------------------------------------
+    def grow(self, n_slots: int):
+        raise NotImplementedError(f"TimeSurfaceEngine.grow {FLEET_NOT_PORTED}")
+
+    def shrink(self, n_slots: int):
+        raise NotImplementedError(
+            f"TimeSurfaceEngine.shrink {FLEET_NOT_PORTED}")
+
+    def migrate(self, src: int, dst: Optional[int] = None):
+        raise NotImplementedError(
+            f"TimeSurfaceEngine.migrate {FLEET_NOT_PORTED}")
 
     # -- state hand-over -----------------------------------------------------
     def load_state(self, state: EngineState) -> None:

@@ -15,7 +15,11 @@ results and
 sides).  The reduced Mamba-2 LM on the card sits within rtol = 1e-4,
 atol = 1e-4 x max(1, max|CPU|) of the CPU port in float32: the two
 devices sum inside their matrix products in other orders and evaluate
-``exp`` with other routines.
+``exp`` with other routines.  Analog reads on the card sit within 8 ULP
+of the CPU port (the noise is drawn on each device: the same threefry
+bits, CUDA's ``log1p``/``sqrt`` in the normal; 8 is the CPU tests'
+analog_2d band), comparator products equal away from V_tw; the ring push
+and the stream's digests are bitwise.
 """
 import pytest
 import torch
@@ -389,3 +393,150 @@ def test_push_labeled_on_card_matches_cpu(cuda):
         assert torch.equal(g_sig.cpu()[~band], c_sig[~band])
     assert torch.equal(gpu.state.surfaces.sae.cpu().view(torch.int32),
                        cpu.state.surfaces.sae.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# analog fidelity and the stream on the card
+# ---------------------------------------------------------------------------
+
+def _analog_spec():
+    from repro_torch.serve import fidelity as fm
+
+    a3, a2 = rs.surface(fidelity=fm.analog_3d()), rs.surface(
+        fidelity=fm.analog_2d())
+    return rs.ReadoutSpec(surface=a3, mask=rs.mask(decay=a3),
+                          stcf=rs.stcf(decay=a3), labels=rs.denoise(),
+                          s2=a2, st2=rs.stcf(decay=a2))
+
+
+def _analog_engines(duration=0.03):
+    spec = _analog_spec()
+    cfg = eng.TSEngineConfig(h=60, w=100, polarities=2, n_slots=4,
+                             chunk_capacity=256, specs=(spec,))
+    gpu, cpu = eng.TimeSurfaceEngine(cfg), eng.TimeSurfaceEngine(cfg, "cpu")
+    items = [(k, aer.pack(datasets.dnd21_like(
+        ("driving", "hotel_bar")[k % 2], 60, 100, duration, seed=k)))
+        for k in range(cfg.n_slots)]
+    for e in (gpu, cpu):
+        for _ in range(cfg.n_slots):
+            e.attach()
+        e.push(items)
+    return spec, cfg, gpu, cpu
+
+
+@pytest.mark.parametrize("step", [0, 7])
+def test_analog_read_on_card_matches_cpu_port(cuda, step):
+    """The noise drawn on each device (the same threefry bits; CUDA's
+    log1p/sqrt in the normal), the reads through the card's ts_decay and
+    mask-form stcf_support: surfaces within 8 ULP of the CPU port (the
+    analog_2d band), comparator products equal away from V_tw; a repeated
+    read bitwise; sigma = 0 bitwise the digital read."""
+    from repro_torch.serve import fidelity as fm
+
+    spec, cfg, gpu, cpu = _analog_engines()
+    _lib.reset_launches()
+    g = gpu.read(spec, 0.03, noise_step=step)
+    assert _lib.LAUNCHES["ts_decay"] >= 2 and _lib.LAUNCHES["stcf_support"] >= 2
+    c = cpu.read(spec, 0.03, noise_step=step)
+    v_tw = torch.full((), cfg.v_tw())
+    for surf, st in (("surface", "stcf"), ("s2", "st2")):
+        assert int(ref.ulp_distance(g[surf].cpu(), c[surf]).max()) <= 8
+        near = ref.ulp_distance(c[surf], v_tw.expand_as(c[surf])) <= 8
+        near_p = ref.stcf_support_ref(near, cfg.stcf_radius,
+                                      include_self=True) > 0
+        assert torch.equal(g[st].cpu()[~near_p], c[st][~near_p])
+        if surf == "surface":
+            assert torch.equal(g["mask"].cpu()[~near], c["mask"][~near])
+            assert torch.equal(g["labels"].cpu()[~near_p],
+                               c["labels"][~near_p])
+    again = gpu.read(spec, 0.03, noise_step=step)
+    assert all(torch.equal(again[n], g[n]) for n in g)
+    z = rs.surface(fidelity=fm.analog_3d(sigma=0.0))
+    anchor = gpu.read(rs.ReadoutSpec(surface=z), 0.03)["surface"]
+    digital = gpu.read(rs.SURFACE_SPEC, 0.03)["surface"]
+    assert torch.equal(anchor.view(torch.int32), digital.view(torch.int32))
+
+
+def test_stcf_support_mask_form_on_analog_masks(cuda):
+    """The mask form of stcf_support on analog comparator masks (the
+    analog Stcf's path) against its plain version, bitwise."""
+    from repro_torch.kernels.stcf import stcf_support_cuda
+    from repro_torch.serve import fidelity as fm
+
+    spec, cfg, gpu, _ = _analog_engines()
+    eps = fm.cell_eps(fm.analog_3d(), 3, gpu.state.generation,
+                      gpu.state.surfaces.sae.shape[1:])
+    v = ops.ts_analog_read(gpu.state.surfaces.sae, 0.03, cfg.decay_params(),
+                           eps=eps)
+    m = v > cfg.v_tw()
+    for radius in (1, 3, 7):
+        assert torch.equal(stcf_support_cuda(m, radius, False),
+                           ref.stcf_support_ref(m, radius))
+
+
+def test_ring_push_on_card_bitwise_vs_host_push(cuda):
+    """push_staged (pinned ring, side-stream copies) == push of the same
+    parts, bitwise, over several rounds that reuse both staging sets."""
+    cfg = eng.TSEngineConfig(h=60, w=100, polarities=2, n_slots=4,
+                             chunk_capacity=256, specs=(
+                                 rs.ReadoutSpec(count=rs.Count(4)),))
+    a, b = eng.TimeSurfaceEngine(cfg), eng.TimeSurfaceEngine(cfg)
+    for e in (a, b):
+        for _ in range(cfg.n_slots):
+            e.attach()
+    streams = [datasets.dnd21_like(("driving", "hotel_bar")[k % 2], 60, 100,
+                                   0.04, seed=k) for k in range(cfg.n_slots)]
+    for r in range(5):
+        lo, hi = r * 0.008, (r + 1) * 0.008
+        wins = [s.window(lo, hi) for s in streams]
+        a.push([(k, w) for k, w in enumerate(wins)])
+        b.push_staged([(k, tuple(f[i:i + 256] for f in (w.x, w.y, w.t, w.p)))
+                       for k, w in enumerate(wins)
+                       for i in range(0, w.n, 256)])
+    torch.cuda.synchronize()
+    for x, y in zip((a.state.surfaces.sae, a.state.surfaces.t_last,
+                     a.state.surfaces.n_events, a.state.counts,
+                     a.state.cache.dirty),
+                    (b.state.surfaces.sae, b.state.surfaces.t_last,
+                     b.state.surfaces.n_events, b.state.counts,
+                     b.state.cache.dirty)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("device_ring", [True, False])
+def test_stream_oracle_gate_on_card(cuda, device_ring):
+    """A tiered, churned, overloaded stream with an analog gesture tier
+    replays bitwise through the synchronous oracle on the card, ring on
+    and off giving the same digests."""
+    import dataclasses
+
+    from repro_torch.events import replay as rp
+    from repro_torch.serve import fidelity as fm
+    from repro_torch.serve.stream import StreamConfig
+
+    head = rs.ReadoutSpec(
+        surface=rs.surface(fidelity=fm.analog_3d()),
+        stcf=rs.stcf(decay=rs.surface(fidelity=fm.analog_3d())),
+        labels=rs.denoise(input="stcf"))
+    primary = rs.ReadoutSpec(surface=rs.surface())
+    cfg = eng.TSEngineConfig(h=60, w=100, polarities=2, n_slots=6,
+                             chunk_capacity=1 << 11, specs=(primary,))
+
+    def feeds():
+        fs = rp.mixed_scene_feeds(60, 100, 0.06, 5, seed=7, noise_hz=20.0,
+                                  churn=True, tiered=True)
+        return [dataclasses.replace(f, qos=dataclasses.replace(f.qos,
+                                                               spec=head))
+                if f.qos.tier == "gesture" else f for f in fs]
+
+    scfg = StreamConfig(policy="drop_oldest", queue_capacity=1 << 12,
+                        deadline_s=0.005, step_chunk_budget=3,
+                        device_ring=device_ring)
+    report = rp.replay(eng.TimeSurfaceEngine(cfg), feeds(), scfg, primary,
+                       arrival_substeps=2)
+    n = rp.check_oracle(report, lambda: eng.TimeSurfaceEngine(cfg), primary)
+    assert n == report.n_steps > 0
+    other = rp.replay(eng.TimeSurfaceEngine(cfg), feeds(),
+                      dataclasses.replace(scfg, device_ring=not device_ring),
+                      primary, arrival_substeps=2)
+    assert other.digests == report.digests

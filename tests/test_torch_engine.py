@@ -233,6 +233,10 @@ def _planes():
 
 def _entry_points():
     from repro_torch.configs import get_config
+    from repro_torch.core import isc_array, prng
+    from repro_torch.events import replay
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.stream import StreamRuntime
     from repro_torch.core import time_surface as tts
     from repro_torch.events import pipeline as tpipe
     from repro_torch.models import module, transformer
@@ -258,6 +262,19 @@ def _entry_points():
         "head_params_from_numpy": lambda: convert.head_params_from_numpy(
             convert.head_params_to_numpy(heads.resolve_head_params(
                 head, ecfg, "cpu")), head, ecfg),
+        "StreamRuntime": lambda: StreamRuntime(teng.TimeSurfaceEngine(ecfg)),
+        "replay": lambda: replay.replay(
+            teng.TimeSurfaceEngine(ecfg),
+            replay.mixed_scene_feeds(8, 8, 0.01, 1)),
+        "stream_cli": lambda: launch_serve.main(
+            ["stream", "--hw", "8x8", "--sensors", "1", "--duration", "0.01"]),
+        "sweep_cli": lambda: launch_serve.main(
+            ["sweep", "--hw", "8x8", "--sensors", "1", "--duration", "0.01",
+             "--cmem", "20", "--retention", "24"]),
+        "ISCArray": lambda: isc_array.ISCArray(4, 5),
+        "isc_state_from_numpy": lambda: convert.isc_state_from_numpy(
+            convert.isc_state_to_numpy(isc_array.ISCArray(
+                4, 5, device="cpu").init(prng.PRNGKey(0)))),
     }
 
 
@@ -266,7 +283,9 @@ def _entry_points():
                                    "to_event_batch", "window_chunks",
                                    "decay_params_from_numpy",
                                    "resolve_head_params",
-                                   "head_params_from_numpy"])
+                                   "head_params_from_numpy", "StreamRuntime",
+                                   "replay", "stream_cli", "sweep_cli",
+                                   "ISCArray", "isc_state_from_numpy"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point allocates on the CUDA device
     and raises when there is none (it never falls back to the CPU)."""
@@ -313,13 +332,18 @@ def test_offline_sae_update_out_of_range_matches_reference():
 
 
 def test_unported_products_raise():
-    """Analog-fidelity reads are not ported: asking for one raises.  (The
-    quantized and head products are served now; their construction is
-    tested in ``test_torch_heads.py``.)"""
+    """What is still not ported raises, naming its ROADMAP item: the
+    fleet features (elastic pools, live migration) of the engine.  The
+    analog-fidelity reads that raised here before are served now
+    (``tests/test_torch_fidelity.py`` holds them against the reference);
+    an analog read returns a surface."""
     from repro_torch.serve import fidelity
 
     _, te = _engines("edram")
     analog = tspec.ReadoutSpec(surface=tspec.Surface(
         fidelity=fidelity.FidelityModel("analog_3d")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.read(analog, 0.01)
+    assert te.read(analog, 0.01)["surface"].shape == (S, 2, H, W)
+    for call in (lambda: te.grow(2 * S), lambda: te.shrink(1),
+                 lambda: te.migrate(0, 1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
