@@ -43,7 +43,7 @@ analog-fidelity reads, the streaming runtime and the ``sweep`` CLI):
 3. **LM** -- the Mamba-2 token-serving path: ``ServeEngine`` on
    mamba2-2.7b at full width and depth (d_model 2560, 80 SSD heads x 64,
    state 128, vocab 50280 padded to 50432, 64 layers, float32 master
-   weights drawn on the card from a seeded generator, bf16 activations)
+   weights drawn on the card from ``PRNGKey(0)``, bf16 activations)
    serves 8 requests with seeded prompt lengths in 1024-2048 (left-padded,
    so at most 16 SSD chunks) and 32 greedy tokens each, after one warm-up
    serve.  The counters are zeroed just before and read just after.
@@ -64,7 +64,7 @@ analog-fidelity reads, the streaming runtime and the ``sweep`` CLI):
    served through ``serve_step`` with the FRAME+heads spec: FRAME, a
    second ``Surface(mode="ideal", tau=5 ms)`` named ``fast``,
    ``logits = Classify(inputs=("surface", "fast"), n_classes=10,
-   width=32)`` on weights drawn on the CPU from a seeded generator and
+   width=32)`` on weights drawn on the CPU from ``PRNGKey(11)`` and
    registered under a key, and ``labels = Denoise()``; counters zeroed
    just before, read just after.  Prints the step p50/p99 and the
    ``Classify`` head's own time (CUDA events).  Checks: every logit
@@ -805,6 +805,7 @@ def run_lm(dev, card):
     """Phase 3: Mamba-2 token serving at full width and depth, bf16.
     Returns what the decay_scan kernel phase needs."""
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.kernels import _lib
     from repro_torch.models import module as M
     from repro_torch.models import ssm as SSM
@@ -822,13 +823,16 @@ def run_lm(dev, card):
           f"{h} heads x {p}, state {n}, vocab {cfg.vocab} padded to "
           f"{T.padded_vocab(cfg)}, {cfg.n_layers} layers, "
           f"{cfg.activation_dtype}")
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = M.init_params(T.param_defs(cfg),
-                           torch.Generator(device=dev).manual_seed(0), dev)
+    params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), dev)
     torch.cuda.synchronize()
     n_params = sum(v.numel() for v in M.flatten(params).values())
-    log(f"lm: {n_params} float32 parameters ({n_params * 4 / 1e9:.2f} GB) "
-        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    log(f"lm on {card}: {n_params} float32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) drawn on the card from PRNGKey(0) "
+        f"(the reference's key; prng threefry, one split per leaf) in "
+        f"{time.perf_counter() - t0:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     engine = ServeEngine(cfg, params, max_len=LM_PROMPT[1] + LM_NEW_TOKENS)
     reqs = lm_requests(cfg, Request)
 
@@ -917,20 +921,19 @@ def run_lm(dev, card):
         f"of prefill time")
     del engine, params
     torch.cuda.empty_cache()
-    lm_checks(dev, cfg, M, T)
+    lm_checks(dev, cfg, M, T, prng)
     return dict(launches=launches, b=LM_REQUESTS,
                 nc=-(-s_max // cfg.ssm_chunk), c=h * p * n,
                 prefill_ms=pf_s * 1e3)
 
 
-def lm_checks(dev, cfg, M, T):
+def lm_checks(dev, cfg, M, T, prng):
     """The full-width model at CHECK_LAYERS layers in float32: the card
     against the CPU port on the same weights, and, on the card, the
     chunked prefill against prefill of all but the last token followed by
     one recurrent decode step."""
     cfg = dataclasses.replace(cfg, n_layers=CHECK_LAYERS, dtype="float32")
-    card = M.init_params(T.param_defs(cfg),
-                         torch.Generator(device=dev).manual_seed(1), dev)
+    card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
     cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
     g = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_PROMPT),
@@ -1045,7 +1048,7 @@ def run_heads(dev, mods, words, card, timer):
     """Phase 5: the vision heads and labeled ingest.  Returns the heads
     path's kernel launches and what the phase measured."""
     _lib, ops, ts, aer, pipeline, rs, eng = mods
-    from repro_torch.core import edram
+    from repro_torch.core import edram, prng
     from repro_torch.core import stcf as stcf_mod
     from repro_torch.events import datasets
     from repro_torch.kernels import ref
@@ -1065,7 +1068,7 @@ def run_heads(dev, mods, words, card, timer):
                              chunk_capacity=CAP, mode="edram",
                              specs=(spec, frame))
     params = M.init_params(heads.head_param_defs(spec["logits"], cfg),
-                           torch.Generator().manual_seed(11), "cpu")
+                           prng.PRNGKey(11), "cpu")
     heads.register_head_params(HEADS_KEY, params)
     engine = eng.TimeSurfaceEngine(cfg, device=dev)
     sessions = [engine.attach() for _ in range(S)]

@@ -6,8 +6,8 @@ PRNGKey(seed), step), generation)``, then ``normal``).  This module
 reproduces that stream so that the port draws the same noise from the
 same (seed, step, generation):
 
-  * ``PRNGKey``, ``fold_in`` and ``random_bits`` give jax's bits
-    **bitwise**, and ``uniform`` (on [0, 1)) its floats bitwise;
+  * ``PRNGKey``, ``fold_in``, ``split`` and ``random_bits`` give jax's
+    keys and bits **bitwise**, and ``uniform`` (on [0, 1)) its floats bitwise;
   * ``normal`` is ``sqrt(2) * erf_inv(u)`` on jax's uniform ``u`` in
     (-1, 1), with ``erf_inv`` written out as the float32 polynomial XLA
     lowers ``chlo.erf_inv`` to (M. Giles, "Approximating the erfinv
@@ -40,8 +40,8 @@ import torch
 
 from repro_torch.device import f32
 
-__all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "erf_inv"]
+__all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
+           "uniform", "normal", "normal_at", "erf_inv"]
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -96,20 +96,38 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack((y0, y1), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of one key into ``num`` keys ((num, 2)): key
+    ``i`` is the two threefry output words of the count pair (high,
+    low) of ``i`` under ``key``, not xored."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None], idx >> 32,
+                          idx & _MASK)
+    return torch.stack((y0, y1), dim=-1)
+
+
+def _bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits of the elements at flat indices ``idx`` (int64,
+    any shape) of an array drawn under each key: output shape
+    ``key.shape[:-1] + idx.shape``.  Each element hashes its flat index's
+    (high, low) words; the two output words are xored."""
+    lead = key.shape[:-1]
+    k1 = key[..., 0].reshape(lead + (1,) * idx.dim())
+    k2 = key[..., 1].reshape(lead + (1,) * idx.dim())
+    y0, y1 = threefry2x32(k1, k2, idx >> 32, idx & _MASK)
+    return y0.bitwise_xor_(y1)
+
+
+def _flat_indices(shape: Sequence[int], device) -> torch.Tensor:
+    shape = tuple(int(n) for n in shape)
+    return torch.arange(math.prod(shape), dtype=torch.int64,
+                        device=device).reshape(shape)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element of ``shape`` (values in [0, 2^32), as
-    int64), for each key: output shape ``key.shape[:-1] + shape``.  Each
-    element hashes its flat index's (high, low) words; the two output
-    words are xored."""
-    shape = tuple(int(n) for n in shape)
-    size = math.prod(shape)
-    idx = torch.arange(size, dtype=torch.int64, device=key.device)
-    lo, hi = (idx & _MASK).reshape(shape), (idx >> 32).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,) * len(shape))
-    k2 = key[..., 1].reshape(lead + (1,) * len(shape))
-    y0, y1 = threefry2x32(k1, k2, hi, lo)
-    return y0.bitwise_xor_(y1)
+    int64), for each key: output shape ``key.shape[:-1] + shape``."""
+    return _bits_at(key, _flat_indices(shape, key.device))
 
 
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
@@ -119,14 +137,18 @@ def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
     return mant.to(torch.int32).view(torch.float32) - f32(1.0, bits.device)
 
 
+def _uniform_bits(bits: torch.Tensor, minval: float,
+                  maxval: float) -> torch.Tensor:
+    dev = bits.device
+    lo, hi = f32(minval, dev), f32(maxval, dev)
+    return torch.maximum(lo, _unit_floats(bits) * (hi - lo) + lo)
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: ``max(minval, floats *
     (maxval - minval) + minval)`` (bitwise jax's on [0, 1))."""
-    dev = key.device
-    lo, hi = f32(minval, dev), f32(maxval, dev)
-    u = _unit_floats(random_bits(key, shape)) * (hi - lo) + lo
-    return torch.maximum(lo, u)
+    return _uniform_bits(random_bits(key, shape), minval, maxval)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -146,9 +168,15 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == f32(1.0, dev), x * f32(math.inf, dev), out)
 
 
+def normal_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The normals at flat indices ``idx`` of ``normal(key, shape)``: a
+    large array can be drawn slice by slice, with the same numbers."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = _uniform_bits(_bits_at(key, idx), lo, 1.0)
+    return f32(np.float32(np.sqrt(2)), key.device) * erf_inv(u)
+
+
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)``, ``u``
     uniform on [nextafter(-1, 0), 1)."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, shape, lo, 1.0)
-    return f32(np.float32(np.sqrt(2)), key.device) * erf_inv(u)
+    return normal_at(key, _flat_indices(shape, key.device))

@@ -2,7 +2,8 @@
 ``sweep``.
 
   * ``tokens``  -- batched LM prefill + greedy decode on an arch config,
-                   with weights drawn from a seeded ``torch.Generator``;
+                   with weights drawn from ``prng.PRNGKey(0)``, the
+                   reference's key;
   * ``sensors`` -- the multi-sensor time-surface engine: seeded
                    DND21-like AER streams in, surfaces, comparator masks,
                    STCF support and counts out; ``--classify C`` adds the
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.events import aer, datasets
 from repro_torch.models import module as M
@@ -63,8 +65,7 @@ def run_tokens(args) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = M.init_params(T.param_defs(cfg), gen, device)
+    params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), device)
     engine = ServeEngine(cfg, params, max_len=args.max_len, device=device)
 
     rng = np.random.default_rng(0)

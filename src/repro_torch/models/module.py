@@ -7,9 +7,10 @@ keys, so a parameter's leaf path (``layers.ssm.z_proj``) is the
 reference's.  The reference's mesh-only ``partition_specs`` and dry-run
 ``abstract_params`` are not ported.
 
-``init_params`` draws from an explicit ``torch.Generator``.  Its numbers
-are not ``jax.random``'s: to compare with the reference, carry the
-reference's weights across with ``repro_torch.convert``.
+``init_params`` draws from a ``core.prng`` key as the reference draws
+from a ``jax.random`` key: one ``split`` per leaf in jax's leaf order,
+then ``normal`` per leaf.  Keys and bits are bitwise the reference's on
+any device, and each weight within ``prng.normal``'s few-ULP band.
 """
 from __future__ import annotations
 
@@ -19,7 +20,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
+
+#: flat elements drawn at once: a leaf is drawn in slices of this many,
+#: so the int64 threefry temporaries stay ~1 GB whatever the leaf's size
+_DRAW_SLICE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +42,7 @@ class ParamDef:
                              "in rank")
 
 
-def _initialize(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
+def _initialize(key: torch.Tensor, d: ParamDef, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
@@ -49,8 +55,14 @@ def _initialize(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
         std = d.scale / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(d.init)
-    x = torch.randn(d.shape, generator=gen, device=gen.device)
-    return x.mul_(std).to(device=device, dtype=d.dtype)
+    # prng.normal(key, shape) * std, drawn slice by slice: each element's
+    # normal depends only on its flat index
+    out = torch.empty(d.shape, dtype=d.dtype, device=device).view(-1)
+    for lo in range(0, out.numel(), _DRAW_SLICE):
+        idx = torch.arange(lo, min(lo + _DRAW_SLICE, out.numel()),
+                           dtype=torch.int64, device=device)
+        out[lo:lo + idx.numel()] = prng.normal_at(key, idx) * std
+    return out.view(d.shape)
 
 
 def flatten(tree, sep: str = ".", prefix: str = "") -> Dict[str, Any]:
@@ -84,13 +96,17 @@ def _map(fn, tree):
             for k, v in tree.items()}
 
 
-def init_params(defs, generator: torch.Generator, device=None):
+def init_params(defs, key: torch.Tensor, device=None):
     """Materialize a nested dict of ``ParamDef`` into tensors on ``device``
-    (default: the CUDA device; raises when there is none), drawing the
-    leaves in sorted path order from ``generator`` on its own device."""
+    (default: the CUDA device; raises when there is none): ``key`` (a
+    ``prng.PRNGKey``) is split once per leaf in sorted path order, as the
+    reference's ``init_params(defs, key)`` splits it, and each leaf is
+    drawn on ``device`` from its own key."""
     device = resolve_device(device)
-    return unflatten({path: _initialize(generator, d, device)
-                      for path, d in flatten(defs).items()})
+    flat = flatten(defs)
+    keys = prng.split(key.to(device), len(flat))
+    return unflatten({path: _initialize(k, d, device)
+                      for k, (path, d) in zip(keys, flat.items())})
 
 
 def stack_layer_defs(defs, n_layers: int):

@@ -15,12 +15,10 @@ Resolution order for ``Classify(weights=key)``:
      device), never by the raw key: a relative key survives a ``chdir``,
      two geometries never share an entry, and a newly saved step is
      served at the next resolve;
-  3. the ``"default"`` key initializes deterministically from a CPU
-     ``torch.Generator`` seeded with ``zlib.crc32`` of the head geometry,
-     the reference's seed.  The draws are not ``jax.random``'s: the port's
-     ``"default"`` has the reference's shapes and scales but not its bits.
-     To serve the reference's weights, register them
-     (``convert.head_params_from_numpy``) or pass a checkpoint directory.
+  3. the ``"default"`` key initializes deterministically from
+     ``prng.PRNGKey(zlib.crc32(head geometry))``, the reference's key:
+     its key stream is the reference's bitwise and each weight is within
+     ``prng.normal``'s few-ULP band of the reference's.
 
 Any other key raises ``KeyError`` at resolution (the first read).
 """
@@ -33,6 +31,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn
 from repro_torch.models import module as M
@@ -102,8 +101,8 @@ def resolve_head_params(head, cfg, device=None) -> dict:
     if head.weights == "default":
         seed = zlib.crc32(f"{len(head.inputs)}:{cfg.polarities}:"
                           f"{head.n_classes}:{head.width}".encode())
-        return M.init_params(head_param_defs(head, cfg),
-                             torch.Generator().manual_seed(seed), device)
+        return M.init_params(head_param_defs(head, cfg), prng.PRNGKey(seed),
+                             device)
     raise KeyError(
         f"Classify weights key {head.weights!r} is neither registered "
         "(serve.heads.register_head_params) nor a checkpoint directory "

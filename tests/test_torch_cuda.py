@@ -24,7 +24,7 @@ and the stream's digests are bitwise.
 import pytest
 import torch
 
-from repro_torch.core import edram
+from repro_torch.core import edram, prng
 from repro_torch.core import time_surface as ts
 from repro_torch.events import aer, datasets
 from repro_torch.kernels import _lib, ops, ref
@@ -274,6 +274,24 @@ def test_decay_scan_matches_plain(cuda, c, with_s0, offset):
     assert torch.equal(fin, st[:, -1])
 
 
+def test_init_params_on_card_matches_cpu(cuda):
+    """The reduced LM's weights drawn on the card: the per-leaf keys are
+    the CPU's bitwise, every weight within prng.normal's 4 ULP (CUDA's
+    ``log1p``/``sqrt``), drawn in slices or whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+
+    defs = T.param_defs(get_config("mamba2-2.7b").reduced())
+    cpu = M.flatten(M.init_params(defs, prng.PRNGKey(3), "cpu"))
+    card = M.flatten(M.init_params(defs, prng.PRNGKey(3), cuda))
+    assert torch.equal(prng.split(prng.PRNGKey(3, cuda), len(cpu)).cpu(),
+                       prng.split(prng.PRNGKey(3), len(cpu)))
+    for k, v in cpu.items():
+        assert card[k].device.type == "cuda"
+        assert int(ref.ulp_distance(card[k].cpu(), v).max()) <= 4, k
+
+
 def test_reduced_lm_on_card_matches_cpu_port(cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import module as M
@@ -282,8 +300,7 @@ def test_reduced_lm_on_card_matches_cpu_port(cuda):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("mamba2-2.7b").reduced()
-    cpu = M.init_params(T.param_defs(cfg), torch.Generator().manual_seed(0),
-                        "cpu")
+    cpu = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), "cpu")
     card = M.unflatten({k: v.to(cuda) for k, v in M.flatten(cpu).items()})
     g = torch.Generator().manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (3, 45), generator=g)

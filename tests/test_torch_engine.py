@@ -249,7 +249,7 @@ def _entry_points():
         "empty_sae": lambda: tts.empty_sae(4, 5, 2),
         "surface_init": lambda: tts.surface_init(4, 5, 2),
         "init_params": lambda: module.init_params(
-            transformer.param_defs(cfg), torch.Generator()),
+            transformer.param_defs(cfg), prng.PRNGKey(0)),
         "init_decode_caches": lambda: transformer.init_decode_caches(
             cfg, 1, 8),
         "ServeEngine": lambda: engine.ServeEngine(cfg, {}),

@@ -16,8 +16,9 @@ The same seeded numpy inputs go through both packages.  Bands:
 
 The reference's weights are carried across through the head registry,
 through ``convert.head_params_from_numpy`` and through a checkpoint
-directory; the two packages' ``"default"`` weights are never compared
-(torch cannot redraw ``jax.random``).  Inside the port the staged
+directory; the two packages' ``"default"`` weights (and ``init_params``
+on a head's defs) are held within ``prng.normal``'s 4 ULP of each other,
+their per-leaf keys bitwise.  Inside the port the staged
 contracts hold bitwise: a head-bearing ``read`` == ``read_many`` with its
 stage-0 read shared, ``Classify`` == ``ref.classify_ref`` on the served
 surfaces, ``Denoise`` == ``stcf >= threshold``, and the offline
@@ -41,6 +42,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import cnn as jcnn
 from repro.models import frontends as jfront
+from repro.models import module as jmodule
 from repro.serve import heads as jheads
 from repro.serve import spec as jspec
 from repro.serve import ts_engine as jeng
@@ -48,6 +50,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config as tget_config
 from repro_torch.core import edram as tedram
+from repro_torch.core import prng as tprng
 from repro_torch.core import representations as trep
 from repro_torch.core import time_surface as tts
 from repro_torch.events import aer as taer
@@ -494,6 +497,41 @@ def test_head_weights_registry_checkpoint_and_default(tmp_path):
             dataclasses.replace(head, weights=str(empty)), cfg, "cpu")
 
 
+NORMAL_ULP = 4   # prng.normal's band (tests/test_torch_fidelity.py)
+
+
+@pytest.mark.parametrize("how", ["init_params", "default"])
+def test_head_weights_match_reference(how):
+    """``init_params`` on a ``Classify`` head's defs, and the
+    ``"default"`` weights (``init_params`` on ``PRNGKey(crc32(geometry))``
+    in both packages), within 4 ULP of the reference's on every leaf, the
+    per-leaf keys bitwise."""
+    cfg = _cfg(polarities=2)
+    jcfg = jeng.TSEngineConfig(h=H, w=W, n_slots=3, chunk_capacity=256,
+                               polarities=2)
+    head = tspec.classify(n_classes=3, width=8)
+    jhead = jspec.classify(n_classes=3, width=8)
+    if how == "default":
+        seed = zlib.crc32(b"1:2:3:8")
+        got = theads.resolve_head_params(head, cfg, "cpu")
+        want = jheads.resolve_head_params(jhead, jcfg)
+    else:
+        seed = 5
+        got = tmodule.init_params(theads.head_param_defs(head, cfg),
+                                  tprng.PRNGKey(seed), "cpu")
+        want = jmodule.init_params(jheads.head_param_defs(jhead, jcfg),
+                                   jax.random.PRNGKey(seed))
+    got, want = convert.head_params_to_numpy(got), _np_tree(want)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(
+        tprng.split(tprng.PRNGKey(seed), len(want)).numpy(),
+        np.asarray(jax.random.key_data(jax.random.split(
+            jax.random.PRNGKey(seed), len(want)))).astype(np.int64))
+    for k, v in got.items():
+        assert v.shape == want[k].shape, k
+        assert int(_ulp(v, want[k]).max()) <= NORMAL_ULP, k
+
+
 def test_head_params_from_numpy_checks_leaves():
     cfg = _cfg()
     head = tspec.classify(n_classes=3, width=8)
@@ -516,7 +554,7 @@ def test_checkpoint_cache_not_poisoned_across_geometries(tmp_path):
     cfg = _cfg()
     head3 = tspec.classify(weights=str(tmp_path), n_classes=3, width=8)
     p3 = tmodule.init_params(theads.head_param_defs(head3, cfg),
-                             torch.Generator().manual_seed(1), "cpu")
+                             tprng.PRNGKey(1), "cpu")
     Checkpointer(str(tmp_path)).save(1, p3)
     want = tmodule.flatten(p3)
     got = theads.resolve_head_params(head3, cfg, "cpu")
@@ -536,8 +574,8 @@ def test_checkpoint_cache_tracks_new_steps(tmp_path):
     cfg = _cfg()
     head = tspec.classify(weights=str(tmp_path), n_classes=3, width=8)
     defs = theads.head_param_defs(head, cfg)
-    p1, p2 = (tmodule.init_params(defs, torch.Generator().manual_seed(s),
-                                  "cpu") for s in (10, 11))
+    p1, p2 = (tmodule.init_params(defs, tprng.PRNGKey(s), "cpu")
+              for s in (10, 11))
     ck = Checkpointer(str(tmp_path))
     ck.save(1, p1)
     first = theads.resolve_head_params(head, cfg, "cpu")

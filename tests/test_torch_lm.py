@@ -4,9 +4,10 @@ The reduced ``mamba2-2.7b`` (2 layers, d_model 64, 8 SSD heads x 16,
 state 16, chunk 16, vocab 256, float32) in both packages.  Inputs and
 weights are drawn with numpy from a seed, the weights in the shapes and
 scales of the reference's initialisers, and cross into the port through
-``repro_torch.convert`` (the two packages' generators draw different
-numbers).  Every zero- or one-initialised leaf is noised so that each of
-them matters; ``dt_bias`` lies in [-6, -2], so that dt = softplus(.)
+``repro_torch.convert``; ``init_params`` itself is held against the
+reference's on the same ``PRNGKey`` (keys bitwise, every leaf within
+``prng.normal``'s 4 ULP).  Every zero- or one-initialised leaf is noised
+so that each of them matters; ``dt_bias`` lies in [-6, -2], so that dt = softplus(.)
 spans Mamba-2's own init range of ~0.001-0.1 and the state remembers
 tens of steps.
 
@@ -34,7 +35,9 @@ from repro.models import transformer as jT
 from repro.serve import engine as jengine
 from repro_torch import convert
 from repro_torch.configs import get_config as tget_config
+from repro_torch.core import prng as tprng
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as tlayers
 from repro_torch.models import module as tmodule
 from repro_torch.models import ssm as tssm
@@ -310,10 +313,10 @@ def test_lm_convert_round_trips(weights):
 
 def test_init_params_initialisers():
     """Zeros, ones, fan-in normal and scaled embed, as the reference's
-    initialisers; the same generator seed gives the same weights."""
+    initialisers; the same key gives the same weights."""
     defs = tT.param_defs(TCFG)
-    p = tmodule.init_params(defs, torch.Generator().manual_seed(0), "cpu")
-    q = tmodule.init_params(defs, torch.Generator().manual_seed(0), "cpu")
+    p = tmodule.init_params(defs, tprng.PRNGKey(0), "cpu")
+    q = tmodule.init_params(defs, tprng.PRNGKey(0), "cpu")
     flat, fdefs = tmodule.flatten(p), tmodule.flatten(defs)
     for k, d in fdefs.items():
         assert flat[k].shape == d.shape and flat[k].dtype == torch.float32
@@ -324,6 +327,58 @@ def test_init_params_initialisers():
     assert abs(float(flat["layers.ssm.conv_x_w"].std()) - 0.25) < 0.03
     half = tmodule.cast_floating(p, torch.bfloat16)
     assert half["layers"]["ssm"]["z_proj"].dtype == torch.bfloat16
+
+
+NORMAL_ULP = 4   # prng.normal's band (tests/test_torch_fidelity.py)
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_init_params_matches_reference(seed, monkeypatch):
+    """On the same ``PRNGKey`` the port splits the reference's per-leaf
+    keys bitwise, in the reference's leaf order, and draws every leaf
+    within 4 ULP of the reference's ``init_params``; drawn in slices of
+    fewer elements than the largest leaf, the weights are the same."""
+    jdefs, tdefs = jT.param_defs(JCFG), tT.param_defs(TCFG)
+    want = _flat_jax(jmodule.init_params(jdefs, jax.random.PRNGKey(seed)))
+    got = tmodule.flatten(tmodule.init_params(tdefs, tprng.PRNGKey(seed),
+                                              "cpu"))
+    assert list(got) == list(want)
+    jkeys = jax.random.key_data(jax.random.split(jax.random.PRNGKey(seed),
+                                                 len(want)))
+    np.testing.assert_array_equal(
+        tprng.split(tprng.PRNGKey(seed), len(got)).numpy(),
+        np.asarray(jkeys).astype(np.int64))
+    for k, v in got.items():
+        w = want[k]
+        assert v.shape == w.shape and v.numpy().dtype == w.dtype, k
+        ulp = tref.ulp_distance(v, torch.from_numpy(np.array(w)))
+        assert int(ulp.max()) <= NORMAL_ULP, (k, int(ulp.max()))
+    monkeypatch.setattr(tmodule, "_DRAW_SLICE", 1000)
+    sliced = tmodule.flatten(tmodule.init_params(tdefs, tprng.PRNGKey(seed),
+                                                 "cpu"))
+    assert all(torch.equal(sliced[k], v) for k, v in got.items())
+
+
+def test_launch_tokens_matches_reference(capsys):
+    """The ``tokens`` CLI on the reduced config with ``--device cpu``
+    generates the reference CLI's tokens (both draw their weights from
+    ``PRNGKey(0)``)."""
+    import argparse
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "mamba2-2.7b", "--reduced", "--requests", "3",
+            "--new-tokens", "5"]
+    serve.main(["tokens", *argv, "--device", "cpu"])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("req ")]
+    jserve.run_tokens(argparse.Namespace(arch="mamba2-2.7b", reduced=True,
+                                         requests=3, new_tokens=5,
+                                         max_len=128))
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("req ")]
+    assert len(got) == 3 and got == want
 
 
 def test_launch_tokens_on_cpu(capsys):
