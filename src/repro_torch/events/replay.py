@@ -39,12 +39,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.events import synthetic as syn
+from repro_torch.serve import fidelity as fidelity_mod
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.stream import (
     DEFAULT_QOS, GESTURE_TIER, TELEMETRY_TIER, QoSClass, StepRecord,
     StreamConfig, StreamRuntime, digest_step,
 )
-from repro_torch.serve.ts_engine import FLEET_NOT_PORTED
 
 __all__ = [
     "SensorFeed", "ReplayReport", "replay", "oracle_digests",
@@ -63,8 +63,10 @@ class SensorFeed:
     optionally re-tiers it mid-run at a virtual time --
     ``(t, new_qos)`` applies ``runtime.set_tier`` at the first arrival
     granule past ``t`` (the churn+tier-migration schedule the oracle
-    gate exercises).  ``move`` (live slot migration) is not ported: a
-    feed that sets it raises when the replay reaches it.
+    gate exercises).  ``move`` optionally *slot*-migrates it live:
+    ``(t, dst)`` applies ``runtime.migrate`` at the first arrival
+    granule past ``t`` (``dst=None`` lets the engine pick the lowest
+    free slot).
     """
 
     stream: syn.EventStream
@@ -305,6 +307,29 @@ def oracle_digests(
             pass   # scheduling metadata: changes *when* work happens, not what
         elif kind == "detach":
             sessions.pop(entry).detach()
+        elif kind == "grow":
+            # entry is the new capacity; the oracle must land on it
+            got = engine.grow(entry)
+            if got != entry:
+                raise AssertionError(f"oracle capacity diverged: grew to "
+                                     f"{got}, log says {entry}")
+        elif kind == "shrink":
+            # entry is (new_capacity, moves); the oracle's compaction is
+            # derived from its own bookkeeping and must reproduce the
+            # recorded (src, dst) moves exactly
+            capacity, moves = entry
+            got = engine.shrink(capacity)
+            if [tuple(m) for m in got] != [tuple(m) for m in moves]:
+                raise AssertionError(f"oracle shrink compaction diverged: "
+                                     f"{got} vs log {moves}")
+            for src, dst in moves:
+                if src in sessions:
+                    sessions[dst] = sessions.pop(src)
+        elif kind == "migrate":
+            # the (src, dst) the runtime performed, replayed verbatim
+            src, dst = entry
+            engine.migrate(src, dst)
+            sessions[dst] = sessions.pop(src)
         elif kind != "step":
             raise ValueError(f"unknown action-log entry {kind!r}")
         else:
@@ -418,7 +443,60 @@ def mixed_scene_feeds(
     return feeds
 
 
-def fleet_scene_feeds(*args, **kwargs) -> List[SensorFeed]:
-    """The fleet churn traffic (elastic waves, live migrations) is not
-    ported: it exercises the fleet features (ROADMAP queue 1 item 11)."""
-    raise NotImplementedError(f"replay.fleet_scene_feeds {FLEET_NOT_PORTED}")
+def fleet_scene_feeds(
+    h: int,
+    w: int,
+    duration: float,
+    n_sensors: int,
+    seed: int = 0,
+    *,
+    noise_hz: float = 5.0,
+    n_moves: int = 3,
+) -> List[SensorFeed]:
+    """Fleet churn traffic for the elastic + migration gate.
+
+    Sensors attach in three staggered waves (t = 0, 0.3 and 0.45 of the
+    duration) so an elastic runtime over a small pool grows at least
+    twice; late-wave non-moving sensors detach at 0.7 duration so
+    occupancy falls back under the shrink watermark (one auto-shrink
+    with live-slot compaction).  The first ``n_moves`` sensors
+    slot-migrate live at 0.6 duration (engine-picked destinations);
+    sparse glyph sensors ride an **analog, head-bearing** gesture tier
+    (analog_3d surface + stcf + denoise head), so at least one migration
+    moves a slot with a non-zero noise generation and stage-1 head
+    products.  Requires a ``mode="edram"`` engine.
+    """
+    if not 3 <= n_moves <= n_sensors:
+        raise ValueError(f"n_moves must be in [3, n_sensors = {n_sensors}], "
+                         f"got {n_moves}")
+    analog_head = spec_mod.ReadoutSpec(
+        surface=spec_mod.surface(fidelity=fidelity_mod.analog_3d()),
+        stcf=spec_mod.stcf(
+            decay=spec_mod.surface(fidelity=fidelity_mod.analog_3d())),
+        labels=spec_mod.denoise(input="stcf"),
+    )
+    gesture = dataclasses.replace(GESTURE_TIER, spec=analog_head)
+    feeds: List[SensorFeed] = []
+    for i in range(n_sensors):
+        rng = np.random.default_rng((seed, i))
+        kind = ("driving", "hotel_bar", "glyph")[i % 3]
+        if kind == "driving":
+            scene = syn.driving_scene(h, w, rng)
+        elif kind == "hotel_bar":
+            scene = syn.hotel_bar_scene(h, w, rng)
+        else:
+            scene = syn.moving_glyph_scene(h, w, i % 10, rng)
+        stream = syn.dvs_from_intensity(
+            scene, h, w, duration, rng, noise_hz=noise_hz, fps=500.0
+        )
+        wave = i % 3
+        attach_t = (0.0, duration * 0.3, duration * 0.45)[wave]
+        detach_t = duration * 0.7 if wave == 2 and i >= n_moves else None
+        if attach_t:
+            stream = stream.window(attach_t, np.inf)
+        qos = gesture if kind == "glyph" else TELEMETRY_TIER
+        move = (duration * 0.6, None) if i < n_moves else None
+        feeds.append(SensorFeed(stream=stream, attach_t=attach_t,
+                                detach_t=detach_t, name=f"fleet-{kind}-{i}",
+                                qos=qos, move=move))
+    return feeds

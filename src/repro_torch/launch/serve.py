@@ -13,7 +13,11 @@
                    through bounded ingress queues with deadline-coalesced,
                    pipelined dispatch; reports throughput, p50/p95/p99
                    readout latency and drops, then gates the whole replay
-                   bitwise against the synchronous oracle;
+                   bitwise against the synchronous oracle.  ``--elastic``
+                   starts the pool at one bucket and grows / shrinks it
+                   with the traffic; ``--migrate-demo`` replays the fleet
+                   churn traffic (attach waves, a batch detach, live slot
+                   migrations) and prints the fleet log;
   * ``sweep``   -- accuracy against energy: digital and analog-fidelity
                    serving (ideal / analog_3d / analog_2d) across a cmem x
                    retention grid on mixed-scene traffic; writes the
@@ -29,15 +33,16 @@
         --hw 48x64 --duration 0.05 --classify 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve stream --sensors 6 \\
         --tiers --budget 5 --deadline 0.005 --queue 8192 --churn
+    PYTHONPATH=src python -m repro_torch.launch.serve stream --migrate-demo \\
+        --hw 48x64 --duration 0.06 --deadline 0.005
     PYTHONPATH=src python -m repro_torch.launch.serve sweep --hw 24x32 \\
         --sensors 2 --duration 0.02 --chunk 512 --cmem 20 --retention 24 \\
         --classes 2 --device cpu
 
 Every mode runs on the CUDA device unless ``--device`` names another.
-Not ported yet (ROADMAP.md, queue 1 item 11): the device mesh and the
-fleet features; the stream's ``--mesh``, ``--elastic``,
-``--migrate-demo``, ``--shard-budget`` and ``--barrier-every`` raise
-``NotImplementedError``, and ``sensors`` has no ``--mesh``.  The
+Not ported yet (ROADMAP.md, queue 1 item 2): the device mesh; the
+stream's ``--mesh N`` with N > 1 raises ``NotImplementedError``, and
+``sensors`` has no ``--mesh``.  The
 reference's ``--backend`` has no counterpart: the tensors' device picks
 the kernels.
 """
@@ -183,33 +188,46 @@ def _hw(arg: str):
     return h, w
 
 
-#: the reference's stream flags that wait for multi-GPU (ROADMAP item 11)
-_FLEET_FLAGS = ("mesh", "elastic", "migrate_demo", "shard_budget",
-                "barrier_every")
-
-
 def run_stream(args) -> None:
     import dataclasses
 
     from repro_torch.events import replay as rp
     from repro_torch.serve.stream import StreamConfig
+    from repro_torch.serve.ts_engine import MESH_NOT_PORTED
 
-    fleet = [f"--{k.replace('_', '-')}" for k in _FLEET_FLAGS
-             if getattr(args, k)]
-    if fleet:
-        raise NotImplementedError(
-            f"{', '.join(fleet)}: the device mesh and the fleet features are "
-            "not ported to repro_torch yet (ROADMAP queue 1 item 11)")
+    if args.mesh > 1:
+        raise NotImplementedError(f"--mesh {args.mesh} {MESH_NOT_PORTED}")
     h, w = _hw(args.hw)
     device = resolve_device(args.device)
-    cfg = TSEngineConfig(h=h, w=w, n_slots=max(args.slots, args.sensors),
-                         chunk_capacity=args.chunk, mode=args.mode)
+    elastic = args.elastic or args.migrate_demo
+    n_slots = max(args.slots, args.sensors)
+    slot_bucket = None
+    if elastic:
+        # start small on purpose: the elastic policy grows the pool in
+        # buckets as the attach waves arrive
+        slot_bucket = n_slots = max(2, args.sensors // 3)
+    cfg = TSEngineConfig(h=h, w=w, n_slots=n_slots,
+                         chunk_capacity=args.chunk, mode=args.mode,
+                         slot_bucket=slot_bucket)
     scfg = StreamConfig(policy=args.policy, queue_capacity=args.queue,
                         deadline_s=args.deadline,
-                        step_chunk_budget=args.budget or None)
-    feeds = rp.mixed_scene_feeds(h, w, args.duration, args.sensors,
-                                 seed=args.seed, churn=args.churn,
-                                 tiered=args.tiers)
+                        step_chunk_budget=args.budget or None,
+                        elastic=elastic,
+                        shrink_watermark=0.9 if elastic else 0.0,
+                        shard_budget=args.shard_budget or None,
+                        shard_barrier_every=args.barrier_every)
+    if args.migrate_demo:
+        if args.mode != "edram":
+            raise SystemExit("--migrate-demo needs --mode edram (the "
+                             "gesture tier serves analog-fidelity specs)")
+        # attach waves + a batch detach + live slot migrations, one on an
+        # analog head-bearing tier: the fleet traffic
+        feeds = rp.fleet_scene_feeds(h, w, args.duration, args.sensors,
+                                     seed=args.seed)
+    else:
+        feeds = rp.mixed_scene_feeds(h, w, args.duration, args.sensors,
+                                     seed=args.seed, churn=args.churn,
+                                     tiered=args.tiers)
     spec = rs.SURFACE_SPEC
     if args.classify:
         head_spec = rs.ReadoutSpec(
@@ -228,8 +246,9 @@ def run_stream(args) -> None:
         tier = f" [{f.qos.tier} p{f.qos.priority}]" if args.tiers else ""
         mig = (f" ->{f.migrate[1].tier}@{f.migrate[0] * 1e3:.0f}ms"
                if f.migrate else "")
+        mov = f" move@{f.move[0] * 1e3:.0f}ms" if f.move else ""
         print(f"feed {i}: {f.name:>12s} {f.stream.n:7d} events, "
-              f"attach {f.attach_t * 1e3:.0f}ms -> {detach}{tier}{mig}")
+              f"attach {f.attach_t * 1e3:.0f}ms -> {detach}{tier}{mig}{mov}")
 
     def make_engine():
         return TimeSurfaceEngine(cfg, device=device)
@@ -245,6 +264,17 @@ def run_stream(args) -> None:
                        arrival_substeps=args.substeps)
     print(f"stream on {_device_name(device)} ({device}):")
     print(report.summary())
+    if elastic:
+        fleet = [(k, e) for k, e in report.log
+                 if k in ("grow", "shrink", "migrate")]
+        desc = ", ".join(
+            f"grow->{e}" if k == "grow"
+            else f"shrink->{e[0]} moves={e[1]}" if k == "shrink"
+            else f"migrate {e[0]}->{e[1]}"
+            for k, e in fleet)
+        print(f"fleet ops: {desc or 'none'}")
+        print(f"final capacity {eng.capacity}, "
+              f"migrated events {report.migrated}")
     if args.classify:
         # the engine retains the final deadline's state: sample the
         # served logits (per-tier spec under --tiers, default otherwise)
@@ -492,14 +522,28 @@ def main(argv=None) -> None:
                     help="stream C-class CNN logits: with --tiers the "
                          "gesture tier carries the head-bearing spec, "
                          "otherwise every deadline serves it (0 disables)")
+    st.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard the slot pool over N devices: N > 1 is not "
+                         "ported yet (ROADMAP queue 1 item 2) and raises")
+    st.add_argument("--elastic", action="store_true",
+                    help="elastic slot pool: start at one bucket of "
+                         "max(2, sensors // 3) slots and let connect() grow "
+                         "it (auto-shrink when occupancy falls)")
+    st.add_argument("--migrate-demo", action="store_true",
+                    help="fleet demo (implies --elastic): staggered attach "
+                         "waves grow the pool, a batch detach shrinks it "
+                         "with live-slot compaction, and three sensors "
+                         "slot-migrate live (one on an analog head-bearing "
+                         "tier), all bitwise through the replay oracle")
+    st.add_argument("--shard-budget", type=int, default=0, metavar="N",
+                    help=">0 caps engine chunks per pool shard per deadline "
+                         "(the port's pool is one shard), priority first "
+                         "(0 = unlimited)")
+    st.add_argument("--barrier-every", type=int, default=0, metavar="K",
+                    help=">0 makes every Kth deadline a barrier step: shard "
+                         "budgets lift and the shard clocks re-sync "
+                         "(0 disables)")
     st.add_argument("--seed", type=int, default=0)
-    for flag, kw in (("--mesh", dict(type=int, default=0)),
-                     ("--elastic", dict(action="store_true")),
-                     ("--migrate-demo", dict(action="store_true")),
-                     ("--shard-budget", dict(type=int, default=0)),
-                     ("--barrier-every", dict(type=int, default=0))):
-        st.add_argument(flag, **kw, help="not ported yet (ROADMAP queue 1 "
-                        "item 11): raises NotImplementedError")
     st.add_argument("--no-oracle", action="store_true",
                     help="skip the synchronous bitwise oracle gate")
     st.add_argument("--device", default=None,

@@ -117,9 +117,31 @@ at an hour would have collapsed microsecond stamps.  Scheduling (the
 deadline grids) stays in absolute time; the action log records rebased
 times, so the replay oracle consumes it verbatim.
 
-**Not ported** (ROADMAP queue 1 item 11): the fleet knobs -- elastic
-pools, live ``migrate``, per-shard budgets and barrier steps.  Setting
-any of them raises ``NotImplementedError``.
+**Fleet elasticity + live migration** -- with ``StreamConfig.elastic``,
+``connect()`` grows the engine's slot pool by one bucket
+(``TSEngineConfig.slot_bucket``) instead of failing when occupancy
+would cross ``grow_watermark`` (clamped to ``max_slots``), and each
+deadline may release one bucket -- compacting live slots downward --
+once occupancy falls to ``shrink_watermark`` of the shrunken capacity.
+``migrate(sensor, dst)`` moves a live session between slots at a
+deadline boundary: surface rows, dirty tiles, counter plane and the
+analog noise generation move bitwise (the noise key folds the
+generation *value*, never the slot index), and the sensor's queued
+events are re-attributed exactly (``migrated`` per-tier counter --
+telemetry alongside the conservation identity, like ``deferrals``).
+Every grow / shrink / migrate lands in the action log, so churn
+schedules replay bitwise through the synchronous oracle.  A move writes
+the pool in place while the previous step's products may still be
+pending; those products are tensors of their own (see Pipelining), so
+the move cannot change what their digest reads.
+
+**Shard budget** -- ``StreamConfig.shard_budget`` caps the chunks a step
+dispatches per shard of the slot pool, priority first, overflow deferred
+all-or-nothing per sensor; every ``shard_barrier_every`` deadlines the
+step is a **barrier**: the budget lifts, every ready sensor is served and
+the per-shard virtual clocks re-sync.  The port's engine is one shard
+(the multi-device pool is ROADMAP queue 1 item 2), so the budget caps the
+whole pool and there is one clock.
 
 Determinism contract: which events are accepted, dropped, scheduled,
 deferred, and coalesced into which chunk of which step is a pure
@@ -146,7 +168,6 @@ from repro_torch.events import synthetic as syn
 from repro_torch.hw import energy_model
 from repro_torch.serve import fidelity as fidelity_mod
 from repro_torch.serve import spec as spec_mod
-from repro_torch.serve.ts_engine import FLEET_NOT_PORTED
 
 __all__ = [
     "POLICIES", "QoSClass", "DEFAULT_QOS", "GESTURE_TIER", "TELEMETRY_TIER",
@@ -257,10 +278,18 @@ class StreamConfig:
     action log (timing-only runs -- the oracle replay then has nothing
     to consume).
 
-    The fleet knobs (``elastic``, ``max_slots``, ``grow_watermark``,
-    ``shrink_watermark``, ``shard_budget``, ``shard_barrier_every``) are
-    not ported (ROADMAP queue 1 item 11): any value but the default
-    raises ``NotImplementedError``.
+    Fleet knobs: ``elastic=True`` lets ``connect()`` grow the engine's
+    slot pool by buckets instead of failing, up to ``max_slots`` (``None``
+    = unbounded); growth triggers when one more sensor would push
+    occupancy past ``grow_watermark`` of capacity (1.0 = grow only when
+    full).  ``shrink_watermark`` > 0 enables auto-shrink: at a deadline
+    boundary, if occupancy is at or below that fraction of the *shrunken*
+    capacity, one bucket is released (live tail slots compact downward;
+    never below the capacity the engine started with).  ``shard_budget``
+    caps the chunks one step may dispatch per shard (priority claims the
+    budget first; overflow defers); ``shard_barrier_every`` = N makes
+    every Nth deadline a barrier step that lifts the shard budgets and
+    re-syncs the per-shard virtual clocks (0 disables barriers).
     """
 
     policy: str = "drop_oldest"
@@ -299,21 +328,16 @@ class StreamConfig:
              or self.capacity_eps > 0),
             ("max_record_steps", self.max_record_steps is None
              or self.max_record_steps >= 1),
+            ("max_slots", self.max_slots is None or self.max_slots >= 1),
+            ("grow_watermark", 0.0 < self.grow_watermark <= 1.0),
+            ("shrink_watermark", 0.0 <= self.shrink_watermark <= 1.0),
+            ("shard_budget", self.shard_budget is None
+             or self.shard_budget >= 1),
+            ("shard_barrier_every", self.shard_barrier_every >= 0),
         ):
             if not ok:
                 raise ValueError(f"StreamConfig.{name} out of range: "
                                  f"{getattr(self, name)!r}")
-        fleet = {f.name for f in dataclasses.fields(self)
-                 if f.name in _FLEET_KNOBS
-                 and getattr(self, f.name) != f.default}
-        if fleet:
-            raise NotImplementedError(
-                f"StreamConfig {sorted(fleet)} {FLEET_NOT_PORTED}")
-
-
-#: StreamConfig's fleet knobs (ROADMAP queue 1 item 11, not ported)
-_FLEET_KNOBS = ("elastic", "max_slots", "grow_watermark", "shrink_watermark",
-                "shard_budget", "shard_barrier_every")
 
 #: one queued segment: (x, y, t, p) host arrays, equal length
 _Segment = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
@@ -609,6 +633,7 @@ class StepRecord:
     overload: bool = False
     specs: Tuple[spec_mod.ReadoutSpec, ...] = ()
     noise_step: int = 0      # analog-fidelity noise key (the step index)
+    barrier: bool = False    # shard-clock barrier step (budgets lifted)
     latency_s: float = float("nan")
     digest: str = ""
 
@@ -616,6 +641,8 @@ class StepRecord:
 #: action-log entries:
 #:   ("attach", (slot, QoSClass)) | ("set_tier", (slot, QoSClass))
 #:   | ("detach", slot) | ("step", rec)
+#:   | ("grow", new_capacity) | ("shrink", (new_capacity, moves))
+#:   | ("migrate", (src_slot, dst_slot))
 LogEntry = Tuple[str, Union[int, Tuple, StepRecord]]
 
 
@@ -690,6 +717,11 @@ class StreamRuntime:
             k: 0 for k in ("offered", "accepted", "dropped", "refused",
                            "ingested", "discarded", "migrated")
         }
+        # elastic floor: never auto-shrink below the starting capacity
+        self._min_capacity = engine.capacity
+        # per-shard virtual clocks: the last deadline each shard served
+        # work at; barriers re-sync all of them
+        self._shard_clocks: Dict[int, float] = {}
         self._tier_retired: Dict[str, Dict[str, int]] = {}
         self._tier_slo: Dict[str, float] = {}
         # -- modeled-energy metering (hw.energy_model; host-float only) ---
@@ -748,12 +780,33 @@ class StreamRuntime:
                 f"{demand:.0f} of {cap:.0f} ev/s capacity ({detail or 'none'})"
             )
 
+    def _grow_bucket(self) -> None:
+        """Grow the pool by one bucket (clamped to ``max_slots``), logged
+        so the oracle replays the same capacity trajectory."""
+        eng = self.engine
+        target = eng.capacity + eng.slot_bucket
+        if self.cfg.max_slots is not None:
+            target = min(target, self.cfg.max_slots)
+        self.log.append(("grow", eng.grow(target)))
+
+    def _may_grow(self) -> bool:
+        return (self.cfg.max_slots is None
+                or self.engine.capacity < self.cfg.max_slots)
+
     def connect(self, qos: QoSClass = DEFAULT_QOS) -> StreamSensor:
         """Admit + attach a session under ``qos`` (raises
         ``AdmissionError`` when the declared rate does not fit,
-        ``RuntimeError`` when the pool is full) and return its
-        queue-fronted sensor handle."""
+        ``RuntimeError`` when the pool is full and cannot grow) and
+        return its queue-fronted sensor handle.  With
+        ``StreamConfig.elastic``, a pool whose occupancy would cross
+        ``grow_watermark`` grows by buckets (up to ``max_slots``)
+        instead of refusing."""
         self._admit(qos)
+        if self.cfg.elastic:
+            eng = self.engine
+            while (eng.n_live + 1 > self.cfg.grow_watermark * eng.capacity
+                   and self._may_grow()):
+                self._grow_bucket()
         session = self.engine.attach(qos=qos)
         sensor = StreamSensor(self, session, qos)
         self.sensors[session.slot] = sensor
@@ -779,8 +832,50 @@ class StreamRuntime:
         self.log.append(("set_tier", (sensor.slot, qos)))
 
     def migrate(self, sensor: StreamSensor, dst: Optional[int] = None) -> int:
-        """Live slot migration is not ported (ROADMAP queue 1 item 11)."""
-        raise NotImplementedError(f"StreamRuntime.migrate {FLEET_NOT_PORTED}")
+        """Move a live sensor to another slot (``dst=None``: the lowest
+        free slot; a full elastic pool grows a bucket first).  The slot's
+        whole device state -- surface rows, dirty tiles, counter plane and
+        the analog noise *generation* -- moves bitwise, so later analog
+        reads draw the noise they would have drawn in the source slot.
+        The queued events follow the sensor (counted per tier in
+        ``migrated``); its deadline stream, QoS class and counters are
+        untouched.  The (src, dst) pair is logged for the oracle."""
+        if sensor.session is None:
+            raise RuntimeError("sensor is disconnected")
+        src = sensor.slot
+        eng = self.engine
+        if (dst is None and self.cfg.elastic
+                and eng.n_live >= eng.capacity and self._may_grow()):
+            self._grow_bucket()
+        dst = eng.migrate(src, dst)
+        self.sensors[dst] = self.sensors.pop(src)
+        sensor.migrated += sensor.queued
+        self.log.append(("migrate", (src, dst)))
+        return dst
+
+    def _maybe_shrink(self) -> None:
+        """Release one bucket at this deadline boundary when the elastic
+        policy says so: occupancy at or below ``shrink_watermark`` of the
+        *shrunken* capacity, and never below the starting capacity.  Live
+        tail slots compact downward (each a bitwise slot move); the
+        (capacity, moves) pair is logged so the oracle reproduces the
+        same compaction."""
+        cfg = self.cfg
+        if not cfg.elastic or cfg.shrink_watermark <= 0.0:
+            return
+        eng = self.engine
+        target = eng.capacity - eng.slot_bucket
+        if target < max(self._min_capacity, 1):
+            return
+        if eng.n_live > cfg.shrink_watermark * target:
+            return
+        moves = eng.shrink(target)
+        for src, dst in moves:
+            moved = self.sensors.pop(src, None)
+            if moved is not None:
+                self.sensors[dst] = moved
+                moved.migrated += moved.queued
+        self.log.append(("shrink", (target, moves)))
 
     def disconnect(self, sensor: StreamSensor) -> None:
         """Detach: the sensor's queued events are discarded (counted in
@@ -830,21 +925,35 @@ class StreamRuntime:
             s.energy_read_j += self.meter.read_energy_j(mode)
 
     # -- the deadline loop ----------------------------------------------------
+    def _shard_of(self, slot: int) -> int:
+        """The shard a slot lives on: 0, the port's pool being one."""
+        return 0
+
+    def _n_shards(self) -> int:
+        return 1
+
     def _schedule(self, t: float):
         """Pick this step's sensors: every sensor whose next deadline
         has arrived, EDF order (deadline, then priority, then slot).
         With a ``step_chunk_budget`` and more ready chunks than budget,
         the step is *overloaded*: order switches to priority-first and
         the overflow defers (deadline unmoved, so deferred sensors lead
-        the next EDF pass).  Pure virtual-time scheduling -- the replay
-        oracle re-derives nothing, it replays the recorded schedule.
+        the next EDF pass).  With ``shard_budget`` a second, per-shard
+        cap applies the same way -- priority claims a shard's budget
+        first, deferral stays all-or-nothing per sensor -- except on
+        *barrier* steps (every ``shard_barrier_every`` deadlines), where
+        the shard budgets lift.  Pure virtual-time scheduling -- the
+        replay oracle re-derives nothing, it replays the recorded
+        schedule.
 
-        Returns ``(take, defer, overload)``."""
+        Returns ``(take, defer, overload, barrier)``."""
         ready = [
             s for _, s in sorted(self.sensors.items())
             if s.next_deadline <= t + _EPS
         ]
         ready.sort(key=lambda s: (s.next_deadline, s.qos.priority, s.slot))
+        barrier = (self.cfg.shard_barrier_every > 0
+                   and (self.n_steps + 1) % self.cfg.shard_barrier_every == 0)
         take, defer, overload = ready, [], False
         budget = self.cfg.step_chunk_budget
         cap = self.engine.cfg.chunk_capacity
@@ -866,7 +975,23 @@ class StreamRuntime:
                         take.append(s)
                         used += need[s.slot]
                 overload = True
-        return take, defer, overload
+        sbudget = self.cfg.shard_budget
+        if sbudget is not None and not barrier and take:
+            by_priority = sorted(
+                take, key=lambda s: (s.qos.priority, s.next_deadline, s.slot))
+            used_by_shard: Dict[int, int] = {}
+            kept, over = [], []
+            for s in by_priority:
+                nd = -(-s.queued // cap)
+                shard = self._shard_of(s.slot)
+                if nd and used_by_shard.get(shard, 0) + nd > sbudget:
+                    over.append(s)
+                else:
+                    kept.append(s)
+                    used_by_shard[shard] = used_by_shard.get(shard, 0) + nd
+            if over:
+                take, defer, overload = kept, defer + over, True
+        return take, defer, overload, barrier
 
     def _coalesce(self, scheduled: Sequence[StreamSensor], t: float):
         """Drain the scheduled sensors' queues into capacity-sized
@@ -936,7 +1061,8 @@ class StreamRuntime:
         sync the *previous* read (one host sync).  Returns this step's
         record (its ``latency_s``/``digest`` fill at the next sync).
         With ``pipeline=False`` the sync is this step's own read."""
-        scheduled, deferred, overload = self._schedule(t_deadline)
+        self._maybe_shrink()
+        scheduled, deferred, overload, barrier = self._schedule(t_deadline)
         for s in deferred:
             s.deferrals += s.queued
         groups, copies, n_events, order = self._coalesce(
@@ -972,7 +1098,16 @@ class StreamRuntime:
             overload=overload,
             specs=specs,
             noise_step=noise_step,
+            barrier=barrier,
         )
+        # per-shard virtual clocks: shards that served work advance to
+        # this deadline; a barrier re-syncs every shard (virtual time only)
+        if barrier:
+            for k in range(self._n_shards()):
+                self._shard_clocks[k] = t_deadline
+        else:
+            for s in scheduled:
+                self._shard_clocks[self._shard_of(s.slot)] = t_deadline
         self.log.append(("step", record))
         self.n_steps += 1
         cap = self.cfg.max_record_steps
@@ -1121,6 +1256,9 @@ class StreamRuntime:
             "step_chunk_budget": self.cfg.step_chunk_budget,
             "capacity_eps": self.cfg.capacity_eps,
             "capacity": self.engine.capacity,
+            "elastic": self.cfg.elastic,
+            "shard_budget": self.cfg.shard_budget,
+            "shard_clocks": dict(self._shard_clocks),
             "drop_rate": c["dropped"] / c["offered"] if c["offered"] else 0.0,
             "tiers": self.tier_counters(),
             "tier_latencies_us": self.tier_latencies_us(),

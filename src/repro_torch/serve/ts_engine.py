@@ -44,10 +44,25 @@ Analog-fidelity products (``serve.fidelity``) read through the cell
 physics; ``read``, ``read_many`` and ``serve_step`` take the stream's
 ``noise_step`` and pass the slots' generations, which key the noise.
 
-Not ported (ROADMAP queue 1 item 11): the device mesh and the fleet
-features (``grow`` / ``shrink`` / ``migrate``); they raise
-``NotImplementedError``.  The deprecated method-per-feature shims are not
-ported either.
+**Elastic slot pools + live migration** -- the pool is not fixed:
+``grow()`` adds acquirable capacity in ``slot_bucket`` increments (new
+rows are never-written state: every pool leaf is reallocated with the
+fresh rows appended), ``shrink()`` compacts live slots out of the tail
+(live tail slots in increasing order move into the lowest free head
+slots) and then cuts the tail off every leaf with a real copy, and
+``migrate(src, dst)`` moves one live session's whole per-slot state --
+SAE plane, ``t_last``/``n_events``, dirty-tile cache row and marks,
+counter plane and the ``generation`` *value*, which keys the analog
+noise -- onto a free slot (the lowest one by default), re-binding its
+``SensorSession`` in place.  Every move keeps the dirty-tile cache epoch
+coherent: a moved cache row holds the source's last read, and fresh or
+wiped rows are zeros, the read of a never-written surface at any
+``t_now``.  A resize replaces the state's tensors, so products read
+before it never alias the new pool; a migration writes the pool in
+place, and products are never views of it.
+
+Not ported (ROADMAP queue 1 item 2): the device mesh.  The deprecated
+method-per-feature shims are not ported either (queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -88,6 +103,8 @@ class TSEngineConfig:
     stcf_radius: int = 3
     stcf_threshold: int = 2
     block: Tuple[int, int] = (8, 128)    # dirty-tile size
+    slot_bucket: Optional[int] = None    # slots per ``grow()`` call
+    # (``None`` = the initial ``n_slots``)
     max_dirty_tiles: int = 0             # incremental-read gather cap;
     # 0 = auto (a quarter of the pool's tiles, at least 16).  Overflow
     # falls back to one dense pass: correctness never depends on it.
@@ -99,6 +116,9 @@ class TSEngineConfig:
         if self.mode not in ("edram", "ideal"):
             raise ValueError(f"mode must be 'edram' or 'ideal', "
                              f"got {self.mode!r}")
+        if self.slot_bucket is not None and self.slot_bucket < 1:
+            raise ValueError(f"slot_bucket must be >= 1 or None, "
+                             f"got {self.slot_bucket}")
         for s in self.specs:
             if not isinstance(s, spec_mod.ReadoutSpec):
                 raise TypeError(f"specs must be ReadoutSpecs, got {s!r}")
@@ -158,9 +178,12 @@ class EngineState(NamedTuple):
     counts: Optional[torch.Tensor] = None  # (S, H, W) int32
 
 
-def init_state(cfg: TSEngineConfig, device=None) -> EngineState:
-    """Fresh pool state on ``device``."""
-    s, p, h, w = cfg.n_slots, cfg.polarities, cfg.h, cfg.w
+def init_state(cfg: TSEngineConfig, device=None,
+               n_slots: Optional[int] = None) -> EngineState:
+    """Fresh pool state on ``device``; ``n_slots`` overrides the config's
+    pool size (an elastic pool's new rows)."""
+    s = cfg.n_slots if n_slots is None else n_slots
+    p, h, w = cfg.polarities, cfg.h, cfg.w
     bh, bw = cfg.block
     _, _, tp = cfg.tile_counts()
     z = dict(device=device)
@@ -198,6 +221,27 @@ def reset_slot(state: EngineState, slot: int,
     return state
 
 
+def migrate_slot(state: EngineState, src: int, dst: int) -> EngineState:
+    """Move slot ``src``'s rows onto slot ``dst`` and wipe ``src``, in
+    place.  Every per-slot leaf moves: the SAE plane, ``t_last`` /
+    ``n_events``, the cache tiles and dirty marks (the destination's
+    cached tiles are the source's last valid read, so the pool-wide cache
+    epoch stays coherent), the counter plane and the ``generation``
+    value -- the analog noise key is folded from the value, never the
+    slot index, so an analog slot's noise moves bitwise with it.  ``src``
+    is wiped as ``reset_slot`` wipes it, without a generation bump (its
+    next attach bumps from the carried value).  ``src != dst`` is the
+    caller's contract (``TimeSurfaceEngine.migrate`` enforces it)."""
+    sur, cache = state.surfaces, state.cache
+    rows = [sur.sae, sur.t_last, sur.n_events, cache.tiles, cache.dirty]
+    if state.counts is not None:
+        rows.append(state.counts)
+    for leaf in rows:
+        leaf[dst] = leaf[src]
+    state.generation[dst] = state.generation[src]
+    return reset_slot(state, src, bump_generation=False)
+
+
 def _scatter_chunks(state: EngineState, slot_ids: torch.Tensor,
                     ev: ts.EventBatch) -> EngineState:
     """Write B chunks (``ev`` fields (B, N)) into slots ``slot_ids``, in
@@ -227,11 +271,10 @@ def ingest_support(state: EngineState, slot_ids: torch.Tensor,
         for i in range(sae_b.shape[0])])
 
 
-#: the fleet features that wait for the multi-GPU slice
-FLEET_NOT_PORTED = (
-    "is not ported to repro_torch yet (ROADMAP queue 1 item 11: the fleet "
-    "features -- elastic grow/shrink, live migration, shard budgets -- "
-    "arrive with multi-GPU sharding); use the JAX package"
+#: the device mesh waits for the multi-device slice
+MESH_NOT_PORTED = (
+    "is not ported to repro_torch yet (ROADMAP queue 1 item 2: the slot "
+    "pool over several devices); use the JAX package"
 )
 
 #: one raw ingest part: (x, y, t, p) host arrays, equal length <= capacity
@@ -380,8 +423,7 @@ class TimeSurfaceEngine:
         self._head_cache: Dict[spec_mod.ReadoutSpec, Optional[dict]] = {}
         self._rest_cache: Dict[spec_mod.ReadoutSpec,
                                Optional[spec_mod.ReadoutSpec]] = {}
-        _, _, tp = cfg.tile_counts()
-        self._max_dirty = cfg.max_dirty_tiles or max(16, cfg.n_slots * tp // 4)
+        self._recompute_max_dirty()
         self._ring = IngestRing(cfg.chunk_capacity, self.device)
 
     # -- sessions ------------------------------------------------------------
@@ -657,17 +699,110 @@ class TimeSurfaceEngine:
             out.update(self.read(rest_spec, t_now))
         return {name: out[name] for name in spec.names}
 
-    # -- fleet (not ported) --------------------------------------------------
-    def grow(self, n_slots: int):
-        raise NotImplementedError(f"TimeSurfaceEngine.grow {FLEET_NOT_PORTED}")
+    # -- elastic capacity + live migration ------------------------------------
+    @property
+    def slot_bucket(self) -> int:
+        """The growth increment (``cfg.slot_bucket`` or the initial pool
+        size)."""
+        return self.cfg.slot_bucket or self.cfg.n_slots
 
-    def shrink(self, n_slots: int):
-        raise NotImplementedError(
-            f"TimeSurfaceEngine.shrink {FLEET_NOT_PORTED}")
+    def _recompute_max_dirty(self) -> None:
+        _, _, tp = self.cfg.tile_counts()
+        self._max_dirty = (self.cfg.max_dirty_tiles
+                           or max(16, self.capacity * tp // 4))
 
-    def migrate(self, src: int, dst: Optional[int] = None):
-        raise NotImplementedError(
-            f"TimeSurfaceEngine.migrate {FLEET_NOT_PORTED}")
+    def _resize_state(self, n_slots: int) -> None:
+        """Reallocate every pool leaf at ``n_slots`` rows: growth appends
+        never-written rows, shrinking copies the head rows (a real copy,
+        so the released tail's storage is freed)."""
+        old = self.state
+        if n_slots > self.capacity:
+            tail = init_state(self.cfg, self.device,
+                              n_slots=n_slots - self.capacity)
+            fit = lambda a, b: torch.cat([a, b])
+        else:
+            tail = old
+            fit = lambda a, _: a[:n_slots].clone()
+        self.state = EngineState(
+            surfaces=ts.SurfaceState(*map(fit, old.surfaces, tail.surfaces)),
+            generation=fit(old.generation, tail.generation),
+            cache=ReadoutCache(*map(fit, old.cache, tail.cache)),
+            counts=(None if old.counts is None
+                    else fit(old.counts, tail.counts)),
+        )
+
+    def grow(self, capacity: Optional[int] = None) -> int:
+        """Grow the pool to ``capacity`` acquirable slots (default: one
+        ``slot_bucket`` more).  The new rows are never-written state;
+        live slots keep their bits.  Returns the new capacity."""
+        if capacity is None:
+            capacity = self.capacity + self.slot_bucket
+        if capacity <= self.capacity:
+            raise ValueError(f"grow target {capacity} <= current capacity "
+                             f"{self.capacity} (use shrink())")
+        self._resize_state(capacity)
+        self._free.extend(range(self.capacity, capacity))
+        self._free.sort()
+        self.capacity = capacity
+        self._recompute_max_dirty()
+        return self.capacity
+
+    def shrink(self, capacity: int) -> List[Tuple[int, int]]:
+        """Shrink the pool to ``capacity`` acquirable slots: live slots in
+        the released tail first move, in increasing order, into the lowest
+        free head slots in increasing order; then the tail is cut off
+        every leaf.  Returns the ``(src, dst)`` moves, so callers re-key
+        their own slot-indexed state and the replay oracle can check it
+        derives the same ones.  Raises when more than ``capacity`` slots
+        are live."""
+        if not 1 <= capacity < self.capacity:
+            raise ValueError(
+                f"shrink target {capacity} not in [1, {self.capacity})")
+        if self.n_live > capacity:
+            raise RuntimeError(
+                f"cannot shrink to {capacity}: {self.n_live} slots live")
+        live_tail = [s for s in range(capacity, self.capacity)
+                     if s not in self._free]
+        free_head = sorted(d for d in self._free if d < capacity)
+        moves = list(zip(live_tail, free_head))
+        for src, dst in moves:
+            self._migrate_slot(src, dst)
+        self._resize_state(capacity)
+        self._free = [d for d in self._free if d < capacity]
+        self.capacity = capacity
+        self._recompute_max_dirty()
+        return moves
+
+    def _migrate_slot(self, src: int, dst: int) -> None:
+        """The state move and the host re-key for one live slot (shared by
+        ``migrate`` and ``shrink``; the caller validates)."""
+        migrate_slot(self.state, src, dst)
+        self._free.remove(dst)
+        session = self._sessions.pop(src, None)
+        if session is not None:
+            session._slot = dst
+            self._sessions[dst] = session
+        self._free.append(src)
+        self._free.sort()
+
+    def migrate(self, src: int, dst: Optional[int] = None) -> int:
+        """Live-migrate the session on slot ``src`` to free slot ``dst``
+        (default: the lowest free slot).  Its whole per-slot state moves
+        (``migrate_slot``), its ``SensorSession`` re-binds in place, and
+        ``src`` is wiped and freed.  Returns the destination slot."""
+        self._check_acquired(src)
+        if dst is None:
+            if not self._free:
+                raise RuntimeError("no free slot to migrate into")
+            dst = self._free[0]
+        if dst == src:
+            raise ValueError(f"migration src == dst ({src})")
+        if not 0 <= dst < self.capacity:
+            raise ValueError(f"slot {dst} out of range [0, {self.capacity})")
+        if dst not in self._free:
+            raise ValueError(f"destination slot {dst} is not free")
+        self._migrate_slot(src, dst)
+        return dst
 
     # -- state hand-over -----------------------------------------------------
     def load_state(self, state: EngineState) -> None:
@@ -675,7 +810,7 @@ class TimeSurfaceEngine:
         the JAX engine, ``convert.engine_state_from_numpy``).  Shapes and
         dtypes must match this engine's; the cache epoch goes cold, so the
         next ``serve_step`` refills densely."""
-        want = init_state(self.cfg, "meta")
+        want = init_state(self.cfg, "meta", n_slots=self.capacity)
         for name, got, ref in (
             ("sae", state.surfaces.sae, want.surfaces.sae),
             ("t_last", state.surfaces.t_last, want.surfaces.t_last),
@@ -712,6 +847,7 @@ class TimeSurfaceEngine:
         return {
             "device": str(self.device),
             "capacity": n,
+            "slot_bucket": self.slot_bucket,
             "live": [i not in self._free for i in range(n)],
             "generation": s.generation.tolist(),
             "n_events": s.surfaces.n_events.tolist(),

@@ -557,3 +557,101 @@ def test_stream_oracle_gate_on_card(cuda, device_ring):
                       dataclasses.replace(scfg, device_ring=not device_ring),
                       primary, arrival_substeps=2)
     assert other.digests == report.digests
+
+
+# ---------------------------------------------------------------------------
+# elastic pools and live migration on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_cfg(n_slots=3, slot_bucket=2):
+    spec = rs.ReadoutSpec(surface=rs.surface(), count=rs.count(4))
+    return eng.TSEngineConfig(h=60, w=100, polarities=2, n_slots=n_slots,
+                              slot_bucket=slot_bucket, chunk_capacity=1024,
+                              max_dirty_tiles=1 << 20, specs=(spec,))
+
+
+def _fleet_words(seed, lo, hi):
+    s = datasets.dnd21_like(("driving", "hotel_bar")[seed % 2], 60, 100,
+                            0.06, seed=seed)
+    return aer.pack(s.window(lo, hi))
+
+
+def test_grow_shrink_migrate_on_card_match_cpu(cuda):
+    """The same pushes, a grow, detaches, a migration and a compacting
+    shrink on a card engine and a CPU engine: every pool leaf bitwise
+    equal after each move, the same moves; on the card the cached
+    ``serve_step`` equals the dense read bitwise after each move."""
+    cfg = _fleet_cfg()
+    gpu, cpu = eng.TimeSurfaceEngine(cfg), eng.TimeSurfaceEngine(cfg, "cpu")
+
+    def leaves(e):
+        st = e.state
+        return [*st.surfaces, st.generation, *st.cache, st.counts]
+
+    def check_equal():
+        for a, b in zip(leaves(gpu), leaves(cpu)):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), b)
+
+    def serve(items):
+        for e in (gpu, cpu):
+            got = e.serve_step(items, rs.SURFACE_SPEC, 0.06)["surface"]
+        got = gpu.serve_step([], rs.SURFACE_SPEC, 0.06)["surface"]
+        dense = gpu.read(rs.SURFACE_SPEC, 0.06)["surface"]
+        assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
+        check_equal()
+
+    for e in (gpu, cpu):
+        for _ in range(3):
+            e.attach()
+    serve([(s, _fleet_words(s, 0.0, 0.02)) for s in range(3)])
+    assert gpu.grow() == cpu.grow() == 5
+    for e in (gpu, cpu):
+        e.attach(), e.attach()
+    check_equal()
+    serve([(s, _fleet_words(10 + s, 0.02, 0.04)) for s in range(5)])
+    for e in (gpu, cpu):
+        e._sessions[0].detach()
+        e._sessions[1].detach()
+    assert gpu.migrate(4) == cpu.migrate(4) == 0
+    check_equal()
+    serve([(0, _fleet_words(20, 0.04, 0.06))])
+    assert gpu.shrink(3) == cpu.shrink(3) == [(3, 1)]
+    check_equal()
+    serve([(1, _fleet_words(21, 0.04, 0.06))])
+
+
+def test_grow_keeps_pending_products(cuda):
+    """A pipelined step's products, still pending when an elastic connect
+    grows the pool and a migration writes it in place, keep the bytes they
+    had when the step was dispatched; the run replays bitwise through the
+    oracle on the card."""
+    from repro_torch.events import replay as rp
+    from repro_torch.serve.stream import StreamConfig, StreamRuntime
+
+    cfg = _fleet_cfg(n_slots=2, slot_bucket=2)
+    rt = StreamRuntime(eng.TimeSurfaceEngine(cfg),
+                       StreamConfig(elastic=True, pipeline=True,
+                                    deadline_s=0.01), rs.SURFACE_SPEC)
+    cams = [rt.connect(), rt.connect()]
+    for k, cam in enumerate(cams):
+        s = aer.unpack(_fleet_words(k, 0.0, 0.01), 60, 100)
+        cam.offer((s.x, s.y, s.t, s.p))
+    rt.step(0.01)
+    pending = rt._inflight
+    snap = [{k: v.clone() for k, v in p.items()}
+            for p in pending.products_list]
+    late = rt.connect()                          # grows the pool to 4
+    assert rt.engine.capacity == 4 and late.slot == 2
+    rt.migrate(cams[0])                          # in place, onto slot 3
+    s = aer.unpack(_fleet_words(5, 0.01, 0.02), 60, 100)
+    cams[1].offer((s.x, s.y, s.t, s.p))
+    rt.step(0.02)                                # syncs the pending step
+    assert pending.record.digest
+    for got, want in zip(pending.products_list, snap):
+        for k in want:
+            assert torch.equal(got[k].view(torch.int32),
+                               want[k].view(torch.int32)), k
+    rt.flush()
+    assert rp.oracle_digests(eng.TimeSurfaceEngine(cfg), rt.log) == [
+        e.digest for k, e in rt.log if k == "step"]

@@ -332,18 +332,94 @@ def test_offline_sae_update_out_of_range_matches_reference():
 
 
 def test_unported_products_raise():
-    """What is still not ported raises, naming its ROADMAP item: the
-    fleet features (elastic pools, live migration) of the engine.  The
-    analog-fidelity reads that raised here before are served now
-    (``tests/test_torch_fidelity.py`` holds them against the reference);
-    an analog read returns a surface."""
+    """The products that raised here in earlier slices are served now:
+    the analog-fidelity reads (``tests/test_torch_fidelity.py`` holds
+    them against the reference) and the fleet moves (the cases below); an
+    analog read returns a surface."""
     from repro_torch.serve import fidelity
 
     _, te = _engines("edram")
     analog = tspec.ReadoutSpec(surface=tspec.Surface(
         fidelity=fidelity.FidelityModel("analog_3d")))
     assert te.read(analog, 0.01)["surface"].shape == (S, 2, H, W)
-    for call in (lambda: te.grow(2 * S), lambda: te.shrink(1),
-                 lambda: te.migrate(0, 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+
+
+# ---------------------------------------------------------------------------
+# elastic pools and live migration, against the reference
+# ---------------------------------------------------------------------------
+
+def _serve_both(je, te, items, t_now):
+    """One cached ``serve_step`` on each engine (their dirty-tile caches
+    stay in lockstep); the port's cached surface must equal its dense
+    read bitwise."""
+    je.serve_step(items, jspec.SURFACE_SPEC, t_now)
+    got = te.serve_step(items, tspec.SURFACE_SPEC, t_now)["surface"]
+    dense = te.read(tspec.SURFACE_SPEC, t_now)["surface"]
+    assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
+
+
+def test_grow_shrink_migrate_match_reference(monkeypatch):
+    """The same pushes, a grow, detaches, two migrations and a compacting
+    shrink on both engines: the SAE, ``t_last``, ``n_events``, counts,
+    dirty marks and generation bitwise after every move, the same
+    capacities, destinations and shrink moves, sessions re-bound in
+    place; the port's cached ``serve_step`` equals its dense read after
+    each move, on the incremental path."""
+    je, te = _engines("edram", slot_bucket=2, max_dirty_tiles=1 << 20)
+    calls = []
+    real = teng.ops.ts_fused_dirty
+    monkeypatch.setattr(teng.ops, "ts_fused_dirty", lambda *a, **k: (
+        calls.append(k["force_dense"]), real(*a, **k))[1])
+    t_now = 0.06
+    _serve_both(je, te, [(s, _words(50 + s, 0.0, 0.02)) for s in range(S)],
+                t_now)
+    assert je.grow() == te.grow() == S + 2
+    assert te.stats()["capacity"] == S + 2 and te.stats()["slot_bucket"] == 2
+    _assert_state_equal(je, te)
+    new = [(je.attach(), te.attach()) for _ in range(2)]
+    assert [t.slot for _, t in new] == [j.slot for j, _ in new] == [3, 4]
+    _serve_both(je, te, [(s, _words(60 + s, 0.02, 0.04))
+                         for s in range(S + 2)], t_now)
+    _assert_state_equal(je, te)
+    for slot in (0, 1):
+        je._sessions[slot].detach()
+        te._sessions[slot].detach()
+    moved = te._sessions[4]
+    assert je.migrate(4) == te.migrate(4) == 0 and moved.slot == 0
+    _assert_state_equal(je, te)
+    assert not bool(torch.isfinite(te.state.surfaces.sae[4]).any())
+    _serve_both(je, te, [(0, _words(70, 0.04, 0.06))], t_now)
+    assert je.shrink(3) == te.shrink(3) == [(3, 1)]
+    assert te.capacity == 3 and te._sessions[1].slot == 1
+    assert te.state.surfaces.sae.shape[0] == 3
+    _assert_state_equal(je, te)
+    _serve_both(je, te, [(1, _words(71, 0.04, 0.06))], t_now)
+    _assert_state_equal(je, te)
+    assert calls == [True, False, False, False]
+    with pytest.raises(RuntimeError, match="slots live"):
+        te.shrink(2)
+    with pytest.raises(ValueError, match="not free"):
+        te.migrate(0, 2)
+
+
+def test_migrate_slot_keeps_analog_read():
+    """An analog read of a migrated slot is bitwise the read before the
+    move (its generation value, which keys the noise, moves with it), and
+    the vacated slot reads as never written."""
+    from repro_torch.serve import fidelity
+
+    _, te = _engines("edram")
+    te.push([(s, _words(80 + s)) for s in range(S)])
+    te._sessions[2].detach()
+    te.attach()                               # generation 2 on slot 2
+    te.push([(2, _words(83))])
+    te._sessions[0].detach()
+    analog = tspec.ReadoutSpec(surface=tspec.Surface(
+        fidelity=fidelity.FidelityModel("analog_3d")))
+    before = te.read(analog, 0.06, noise_step=3)["surface"]
+    gen = int(te.state.generation[2])
+    assert gen == 2 and te.migrate(2) == 0
+    after = te.read(analog, 0.06, noise_step=3)["surface"]
+    assert int(te.state.generation[0]) == gen
+    assert torch.equal(after[0].view(torch.int32), before[2].view(torch.int32))
+    assert torch.equal(after[1], before[1]) and not after[2].any()

@@ -10,8 +10,11 @@ churned, overloaded feeds with an analog gesture tier, the port's counters,
 tier counters, step records and modeled energy equal the JAX runtime's
 exactly, while digests are held against the port's own synchronous
 oracle (float decays differ across packages by ULPs, so digests never
-cross).  The fleet tests (elastic pools, migration, shard budgets, meshes)
-wait for the multi-GPU slice; here the fleet knobs must raise.
+cross).  The reference's single-device fleet cases (elastic pools, live
+migration, the shard budget at one shard) run on both packages side by
+side: action logs, counters and tier counters (``migrated`` included)
+equal across packages, each package's digests equal to its own oracle's.
+The multi-device pool waits for its slice; there ``--mesh N`` must raise.
 """
 import dataclasses
 
@@ -977,44 +980,438 @@ def test_stream_classify_tier_end_to_end():
 
 
 # ---------------------------------------------------------------------------
-# the fleet knobs wait for the multi-GPU slice
+# the device mesh waits for the multi-device slice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("knob", [
-    dict(elastic=True), dict(max_slots=8), dict(grow_watermark=0.5),
-    dict(shrink_watermark=0.9), dict(shard_budget=2),
-    dict(shard_barrier_every=4),
-])
-def test_fleet_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        StreamConfig(**knob)
-
-
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--elastic"],
-                                  ["--migrate-demo"], ["--shard-budget", "2"],
-                                  ["--barrier-every", "4"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_stream_cli_fleet_flags_raise(flag):
     from repro_torch.launch import serve as launch_serve
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         launch_serve.main(["stream", "--hw", "8x8", "--device", "cpu",
                            *flag])
 
 
-@pytest.mark.parametrize("call", ["runtime.migrate", "engine.grow",
-                                  "engine.shrink", "engine.migrate",
-                                  "fleet_scene_feeds"])
-def test_fleet_calls_raise(call):
-    rt = StreamRuntime(make_engine(), StreamConfig())
-    cam = rt.connect()
-    fn = {"runtime.migrate": lambda: rt.migrate(cam),
-          "engine.grow": lambda: rt.engine.grow(8),
-          "engine.shrink": lambda: rt.engine.shrink(2),
-          "engine.migrate": lambda: rt.engine.migrate(cam.slot, 3),
-          "fleet_scene_feeds": lambda: rp.fleet_scene_feeds(H, W, 0.04, 3),
-          }[call]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fn()
+# ---------------------------------------------------------------------------
+# fleet elasticity + live migration on one device, beside the reference
+# ---------------------------------------------------------------------------
+
+class _Pkg:
+    """One package's engine / stream / replay API (the JAX engine on its
+    ``ref`` backend, the port on the CPU), so a scenario runs on both."""
+
+    def __init__(self, name):
+        if name == "jax":
+            from repro.events import replay as mrp
+            from repro.serve import fidelity as mfm
+            from repro.serve import heads as mheads
+            from repro.serve import spec as mrs
+            from repro.serve import stream as mstream
+            from repro.serve import ts_engine as meng
+            self.cfg_kw, self.eng_kw = dict(backend="ref"), {}
+        else:
+            from repro_torch.serve import heads as mheads
+            from repro_torch.serve import ts_engine as meng
+            mrp, mfm, mrs, mstream = rp, fm, rs, stream
+            self.cfg_kw, self.eng_kw = {}, dict(device="cpu")
+        self.name, self.rp, self.fm, self.heads = name, mrp, mfm, mheads
+        self.rs, self.stream, self.eng = mrs, mstream, meng
+
+    def cfg(self, **kw):
+        base = dict(h=H, w=W, chunk_capacity=CAP, block=(8, 16))
+        return self.eng.TSEngineConfig(**{**base, **kw}, **self.cfg_kw)
+
+    def engine(self, cfg):
+        return self.eng.TimeSurfaceEngine(cfg, **self.eng_kw)
+
+    def runtime(self, cfg, **scfg):
+        return self.stream.StreamRuntime(self.engine(cfg),
+                                         self.stream.StreamConfig(**scfg))
+
+
+def _both(scenario):
+    """``scenario(pkg)`` on the reference, then on the port."""
+    return [scenario(_Pkg(name)) for name in ("jax", "torch")]
+
+
+def _ev(rng, n, t_lo=0.0, t_hi=0.06):
+    e = events(rng, n, t_lo, t_hi)
+    return e.x, e.y, e.t, e.p
+
+
+def _log_view(log):
+    """A package-neutral view of an action log: QoS classes by tier,
+    step records by their schedule, flags and chunk contents."""
+    out = []
+    for kind, e in log:
+        if kind in ("attach", "set_tier"):
+            out.append((kind, e[0], e[1].tier))
+        elif kind == "shrink":
+            out.append((kind, e[0], [tuple(m) for m in e[1]]))
+        elif kind == "step":
+            out.append((kind, e.t_read, e.n_events, e.n_chunks, e.order,
+                        e.deferred, e.overload, e.noise_step, e.barrier,
+                        [(slot, [np.asarray(a).tolist() for a in part])
+                         for slot, part in e.chunks]))
+        else:
+            out.append((kind, e))
+    return out
+
+
+def _assert_same_runtime(j, t):
+    assert _log_view(t.log) == _log_view(j.log)
+    assert t.counters() == j.counters()
+    assert t.tier_counters() == j.tier_counters()
+
+
+def _assert_own_oracle(m, rt, cfg):
+    """A runtime's digests equal its own package's synchronous oracle's
+    on a fresh engine (pipelining never changes a bit)."""
+    rt.flush()
+    got = [e.digest for k, e in rt.log if k == "step"]
+    assert got and all(got)
+    assert m.rp.oracle_digests(m.engine(cfg), rt.log) == got
+
+
+def test_elastic_grow_at_exact_bucket_boundary():
+    """connect() grows exactly when the next admission would cross the
+    watermark -- at the bucket boundary, not one early -- and the live
+    surface bits survive the copy into the wider pool; ``max_slots`` caps
+    growth.  Logs, counters and capacities equal across packages."""
+    def scenario(m):
+        cfg = m.cfg(n_slots=2, slot_bucket=2)
+        rt = m.runtime(cfg, elastic=True, deadline_s=0.01)
+        eng = rt.engine
+        a = rt.connect()
+        rt.connect()                     # pool exactly full: no grow yet
+        assert eng.capacity == 2 and [k for k, _ in rt.log] == ["attach"] * 2
+        a.offer(_ev(np.random.default_rng(60), 30))
+        rt.step(0.06)
+        rt.flush()
+        before = np.asarray(
+            eng.read(m.rs.SURFACE_SPEC, 0.06)["surface"])[a.slot].copy()
+        c = rt.connect()                 # boundary crossed: one bucket
+        assert eng.capacity == 4 and c.slot == 2
+        assert [e for k, e in rt.log if k == "grow"] == [4]
+        after = np.asarray(eng.read(m.rs.SURFACE_SPEC, 0.06)["surface"])
+        np.testing.assert_array_equal(after[a.slot], before)
+        rt.step(0.07)
+        _assert_own_oracle(m, rt, cfg)
+        rt2 = m.runtime(m.cfg(n_slots=2, slot_bucket=2), elastic=True,
+                        max_slots=4)
+        for _ in range(4):
+            rt2.connect()
+        with pytest.raises(RuntimeError):
+            rt2.connect()
+        assert rt2.engine.capacity == 4
+        return rt, rt2
+
+    (j, j2), (t, t2) = _both(scenario)
+    _assert_same_runtime(j, t)
+    _assert_same_runtime(j2, t2)
+
+
+def _register_head(m, key, head, cfg, arrays):
+    """Register the same head weights in either package's registry."""
+    if m.name == "torch":
+        from repro_torch import convert
+        m.heads.register_head_params(key, convert.head_params_from_numpy(
+            arrays, head, cfg, "cpu"))
+        return
+    import jax.numpy as jnp
+    tree: dict = {}
+    for path, a in arrays.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(a)
+    m.heads.register_head_params(key, tree)
+
+
+def test_elastic_shrink_compacts_head_bearing_tail():
+    """The shrink watermark releases a bucket with a head-bearing tier
+    sensor resident in the released tail: its slot compacts downward and
+    the surface and the stage-1 logits keep their bits (both packages
+    serve the same registered weights)."""
+    from repro_torch import convert
+    from repro_torch.serve import heads as theads
+
+    head = rs.classify(n_classes=4, width=8, weights="fleet-head")
+    arrays = convert.head_params_to_numpy(theads.resolve_head_params(
+        dataclasses.replace(head, weights="default"), make_cfg(), "cpu"))
+
+    def scenario(m):
+        cfg = m.cfg(n_slots=2, slot_bucket=2)
+        mhead = m.rs.classify(n_classes=4, width=8, weights="fleet-head")
+        _register_head(m, "fleet-head", mhead, cfg, arrays)
+        head_spec = m.rs.ReadoutSpec(surface=m.rs.surface(), logits=mhead)
+        rt = m.runtime(cfg, policy="drop_oldest", queue_capacity=256,
+                       deadline_s=0.01, elastic=True, shrink_watermark=0.9)
+        a, b = rt.connect(), rt.connect()
+        ges = rt.connect(dataclasses.replace(m.stream.GESTURE_TIER,
+                                             spec=head_spec))
+        assert rt.engine.capacity == 4 and ges.slot == 2   # in the tail
+        ges.offer(_ev(np.random.default_rng(61), 50, t_hi=0.01))
+        rt.step(0.01)
+        rt.flush()
+        out = rt.engine.read(head_spec, 0.01)
+        surf = np.asarray(out["surface"])[ges.slot].copy()
+        logits = np.asarray(out["logits"])[ges.slot].copy()
+        rt.disconnect(a)
+        rt.disconnect(b)
+        rt.step(0.02)                    # occupancy 1 <= 0.9 * 2: shrink
+        assert [e for k, e in rt.log if k == "shrink"] == [(2, [(2, 0)])]
+        assert rt.engine.capacity == 2
+        assert ges.slot == 0 and rt.sensors[0] is ges
+        out2 = rt.engine.read(head_spec, 0.01)
+        np.testing.assert_array_equal(np.asarray(out2["surface"])[0], surf)
+        np.testing.assert_array_equal(np.asarray(out2["logits"])[0], logits)
+        _assert_own_oracle(m, rt, cfg)
+        m.heads.clear_registry()
+        return rt
+
+    _assert_same_runtime(*_both(scenario))
+
+
+def test_migrate_preserves_deferred_deadline_and_analog_noise():
+    """migrate() moves a sensor with a deferred deadline (queue intact,
+    deadline unmoved, queued events counted in ``migrated``) and a slot
+    whose analog noise generation is not the first: the generation value
+    travels with the state, so the analog read at the destination is
+    bitwise the source's."""
+    def scenario(m):
+        analog = m.rs.ReadoutSpec(surface=m.rs.surface(
+            fidelity=m.fm.analog_3d()))
+        cfg = m.cfg(n_slots=4, slot_bucket=2, mode="edram")
+        rt = m.runtime(cfg, policy="drop_oldest", queue_capacity=1 << 12,
+                       deadline_s=0.01, step_chunk_budget=1, elastic=True)
+        rt.disconnect(rt.connect())      # bump slot 0's generation
+        ges = rt.connect(dataclasses.replace(m.stream.GESTURE_TIER,
+                                             spec=analog))
+        tel = rt.connect(m.stream.TELEMETRY_TIER)
+        rng = np.random.default_rng(62)
+        ges.offer(_ev(rng, CAP, t_hi=0.01))
+        tel.offer(_ev(rng, CAP, t_hi=0.01))
+        rec = rt.step(0.01)              # budget 1: telemetry defers
+        rt.flush()
+        assert rec.overload and tel.deferrals == CAP and tel.queued == CAP
+        assert tel.next_deadline <= 0.01
+        gen = int(np.asarray(rt.engine.state.generation)[ges.slot])
+        assert gen > 1
+        noise = np.asarray(rt.engine.read(analog, 0.01, noise_step=0)
+                           ["surface"])[ges.slot].copy()
+        src_g, src_t = ges.slot, tel.slot
+        dst_g, dst_t = rt.migrate(ges), rt.migrate(tel)
+        assert dst_g != src_g and dst_t != src_t
+        assert ges.slot == dst_g and rt.sensors[dst_g] is ges
+        assert tel.queued == CAP and tel.next_deadline <= 0.01
+        assert tel.migrated == CAP and ges.migrated == 0
+        assert int(np.asarray(rt.engine.state.generation)[dst_g]) == gen
+        np.testing.assert_array_equal(
+            np.asarray(rt.engine.read(analog, 0.01, noise_step=0)
+                       ["surface"])[dst_g], noise)
+        rt.step(0.02)                    # the deferred queue drains at dst
+        rt.flush()
+        assert tel.queued == 0 and tel.ingested == CAP
+        assert [k for k, _ in rt.log].count("migrate") == 2
+        for row in rt.tier_counters().values():
+            assert row["offered"] == _tier_identity(row)
+        assert rt.tier_counters()["telemetry"]["migrated"] == CAP
+        _assert_own_oracle(m, rt, cfg)
+        return rt
+
+    _assert_same_runtime(*_both(scenario))
+
+
+def test_migrate_then_set_tier_ordering():
+    """A set_tier right after migrate() logs in order and names the
+    sensor's *new* slot; the queued attribution moves tiers while the
+    ``migrated`` count stays with the tier that owned the queue."""
+    def scenario(m):
+        cfg = m.cfg(n_slots=4, slot_bucket=4)
+        rt = m.runtime(cfg, policy="drop_oldest", queue_capacity=256,
+                       deadline_s=0.01, elastic=True)
+        cam = rt.connect(m.stream.TELEMETRY_TIER)
+        cam.offer(_ev(np.random.default_rng(63), 24, t_hi=0.01))
+        src = cam.slot
+        dst = rt.migrate(cam)
+        rt.set_tier(cam, m.stream.GESTURE_TIER)
+        tail = [(k, e) for k, e in rt.log if k in ("migrate", "set_tier")]
+        assert tail[0] == ("migrate", (src, dst))
+        assert tail[1][0] == "set_tier" and tail[1][1][0] == dst
+        tiers = rt.tier_counters()
+        assert tiers["telemetry"]["migrated"] == 24
+        assert (tiers["gesture"]["offered"], tiers["telemetry"]["offered"]) \
+            == (24, 0)
+        rt.step(0.01)
+        rt.flush()
+        tiers = rt.tier_counters()
+        assert tiers["gesture"]["ingested"] == 24
+        for row in tiers.values():
+            assert row["offered"] == _tier_identity(row)
+        _assert_own_oracle(m, rt, cfg)
+        return rt
+
+    _assert_same_runtime(*_both(scenario))
+
+
+def test_shard_budget_and_barrier_single_shard():
+    """``shard_budget`` on a single-device engine caps the one shard:
+    telemetry defers behind gesture on regular steps, and every Nth
+    deadline is a barrier -- the budget lifts, everyone drains, and the
+    shard's virtual clock re-syncs to the deadline."""
+    def scenario(m):
+        cfg = m.cfg(n_slots=4)
+        rt = m.runtime(cfg, deadline_s=0.01, queue_capacity=1 << 12,
+                       shard_budget=1, shard_barrier_every=3)
+        tel = rt.connect(m.stream.TELEMETRY_TIER)
+        ges = rt.connect(m.stream.GESTURE_TIER)
+        rng = np.random.default_rng(64)
+        recs = []
+        for k in range(1, 7):
+            lo, hi = (k - 1) * 0.01, k * 0.01
+            tel.offer(_ev(rng, CAP, t_lo=lo, t_hi=hi))
+            ges.offer(_ev(rng, CAP, t_lo=lo, t_hi=hi))
+            recs.append(rt.step(hi))
+        rt.flush()
+        assert [r.barrier for r in recs] == [False, False, True] * 2
+        for r in recs:
+            served = {t for _, t, _ in r.order}
+            if r.barrier:
+                assert served == {"gesture", "telemetry"}
+            else:
+                assert served == {"gesture"} and r.overload
+        assert tel.queued == 0
+        assert rt.stats()["shard_clocks"] == {0: pytest.approx(0.06)}
+        for row in rt.tier_counters().values():
+            assert row["offered"] == _tier_identity(row)
+        _assert_own_oracle(m, rt, cfg)
+        return rt
+
+    _assert_same_runtime(*_both(scenario))
+
+
+def test_fleet_churn_elastic_migration_replay_oracle():
+    """The fleet gate on one device: attach waves grow the pool >= 2x,
+    three sensors live-migrate mid-run (one on the analog, head-bearing
+    gesture tier), late detaches trigger one compacting shrink -- and the
+    whole schedule replays bitwise through each package's synchronous
+    oracle, with exact per-tier conservation and ``migrated``
+    attribution; reports and logs equal across packages."""
+    def scenario(m):
+        cfg = m.cfg(n_slots=3, slot_bucket=3, chunk_capacity=1 << 10,
+                    mode="edram")
+        scfg = m.stream.StreamConfig(
+            policy="drop_oldest", deadline_s=0.005, elastic=True,
+            shrink_watermark=0.9, step_chunk_budget=6, pipeline=True)
+        feeds = m.rp.fleet_scene_feeds(H, W, 0.06, 9, seed=3, noise_hz=20.0)
+        report = m.rp.replay(m.engine(cfg), feeds, scfg, arrival_substeps=2)
+        assert m.rp.check_oracle(report, lambda: m.engine(cfg)) \
+            == report.n_steps > 0
+        kinds = [k for k, _ in report.log]
+        assert kinds.count("grow") >= 2 and kinds.count("shrink") == 1
+        assert kinds.count("migrate") == 3 and report.migrated > 0
+        assert [m_ for k, e in report.log if k == "shrink" for m_ in e[1]]
+        for row in report.tiers.values():
+            assert row["offered"] == _tier_identity(row)
+        assert sum(r["migrated"] for r in report.tiers.values()) \
+            == report.migrated
+        assert report.tiers["gesture"]["migrated"] > 0   # the analog mover
+        return report
+
+    want, got = _both(scenario)
+    for k in ("n_steps", "offered", "accepted", "ingested", "dropped",
+              "refused", "discarded", "unoffered", "migrated"):
+        assert getattr(got, k) == getattr(want, k), k
+    assert _strip_latency(got.tiers) == _strip_latency(want.tiers)
+    assert _log_view(got.log) == _log_view(want.log)
+
+
+def test_differential_stream_migrate():
+    """The reference's differential walk (``stream_migrate``): a sensor
+    with device state and a live queue migrates, its queue drains at the
+    new slot on the next deadline, the vacated slot reads all-zero, and a
+    second migration ping-pongs back through the freed slot.  SAE and
+    counts bitwise across packages, surfaces within 2 ULP, logs and
+    counters equal."""
+    def scenario(m):
+        spec = m.rs.ReadoutSpec(surface=m.rs.surface(), count=m.rs.count(4))
+        cfg = m.cfg(n_slots=2, mode="edram", specs=(spec,))
+        rt = m.runtime(cfg, policy="drop_oldest", queue_capacity=1 << 12,
+                       deadline_s=0.01)
+        rng = np.random.default_rng(5)
+        cam = rt.connect()
+        cam.offer(_ev(rng, CAP, t_hi=0.03))
+        rt.step(0.03)
+        cam.offer(_ev(rng, CAP // 2, t_lo=0.03, t_hi=0.05))
+        queued, surfaces = cam.queued, []
+        assert rt.migrate(cam) == 1 and cam.migrated == queued
+        rt.step(0.05)
+        assert cam.queued == 0 and cam.ingested == CAP + CAP // 2
+        surfaces.append(np.asarray(rt.flush()["surface"]).copy())
+        assert not surfaces[-1][0].any()          # the vacated slot
+        assert rt.migrate(cam) == 0               # ping-pong back
+        rt.step(0.08)
+        surfaces.append(np.asarray(rt.flush()["surface"]).copy())
+        assert not surfaces[-1][1].any()
+        _assert_own_oracle(m, rt, cfg)
+        st = rt.engine.state
+        return rt, surfaces, np.asarray(st.surfaces.sae), np.asarray(st.counts)
+
+    (j, js, jsae, jc), (t, ts_, tsae, tc) = _both(scenario)
+    _assert_same_runtime(j, t)
+    np.testing.assert_array_equal(tsae.view(np.int32), jsae.view(np.int32))
+    np.testing.assert_array_equal(tc, jc)
+    from repro_torch.kernels import ref as tref
+    for a, b in zip(ts_, js):
+        assert int(tref.ulp_distance(torch.from_numpy(a),
+                                     torch.from_numpy(b)).max()) <= 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_slots=0), dict(grow_watermark=0.0), dict(grow_watermark=1.5),
+    dict(shrink_watermark=-0.1), dict(shrink_watermark=1.1),
+    dict(shard_budget=0), dict(shard_barrier_every=-1),
+])
+def test_fleet_knob_checks_match_reference(kw):
+    """The port's StreamConfig rejects a fleet knob exactly where the
+    reference's asserts fail."""
+    from repro.serve import stream as jstream
+
+    with pytest.raises(AssertionError):
+        jstream.StreamConfig(**kw)
+    with pytest.raises(ValueError, match=next(iter(kw))):
+        StreamConfig(**kw)
+
+
+def test_slot_bucket_check_matches_reference():
+    from repro.serve import ts_engine as jeng
+
+    with pytest.raises(AssertionError):
+        jeng.TSEngineConfig(slot_bucket=0)
+    with pytest.raises(ValueError, match="slot_bucket"):
+        TSEngineConfig(slot_bucket=0)
+    assert TSEngineConfig(n_slots=5).slot_bucket is None
+
+
+@pytest.mark.parametrize("flag", [["--elastic"], ["--migrate-demo"],
+                                  ["--shard-budget", "2"],
+                                  ["--barrier-every", "4"]])
+def test_stream_cli_fleet_flags_run(flag, capsys):
+    """The fleet flags drive the stream CLI on the CPU to its oracle gate;
+    the elastic runs print the fleet log."""
+    from repro_torch.launch import serve as launch_serve
+
+    launch_serve.main(["stream", "--hw", "24x32", "--sensors", "4",
+                       "--duration", "0.03", "--deadline", "0.005",
+                       "--chunk", "512", "--device", "cpu", *flag])
+    out = capsys.readouterr().out
+    assert "bitwise oracle gate: OK" in out
+    assert ("fleet ops: grow->" in out) == (flag[0] in ("--elastic",
+                                                        "--migrate-demo"))
+    if flag == ["--migrate-demo"]:
+        assert out.count(" move@") == 3 and "migrate " in out
 
 
 # ---------------------------------------------------------------------------
