@@ -13,7 +13,8 @@ in turns with this tree's (old, new, new, old) in the kernel phase.
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
 5 the vision heads and labeled ingest on the time-surface path, 6 the
-analog-fidelity reads, the streaming runtime and the ``sweep`` CLI):
+analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
+elastic slot pool and live migration):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -107,6 +108,30 @@ analog-fidelity reads, the streaming runtime and the ``sweep`` CLI):
    sweep --hw 120x160 --sensors 4 --duration 0.06 --cmem 10,20
    --retention 12,24`` in a subprocess on the card: its three verdicts
    must hold.
+7. **Fleet** -- an elastic pool on the card: ``TimeSurfaceEngine`` of
+   240x320, 2 polarities, chunks of 2048, eDRAM, ``slot_bucket = n_slots
+   = 21`` (the ``--migrate-demo`` rule ``max(2, sensors // 3)`` for 64
+   sensors), under ``StreamRuntime`` with ``elastic``, ``shrink_watermark
+   = 0.9``, ``shard_budget = 320``, ``shard_barrier_every = 4``,
+   ``drop_oldest``, pipelined, ring on, telemetry on FRAME.  It replays
+   ``fleet_scene_feeds(240, 320, 0.1, 64, n_moves=4)``: three attach
+   waves grow the pool 21 -> 42 -> 63 -> 84, a batch detach of 20
+   sensors shrinks it to 63 with compaction, and four sensors migrate
+   live (one on the analog, head-bearing gesture tier), over 10
+   deadlines of 10 ms; counters zeroed just before and read just after.
+   Checks: the digests replay bitwise through the synchronous oracle on
+   the card, which derives the logged compaction moves; the log holds
+   >= 2 grows, >= 1 shrink with >= 1 move and >= 4 migrates; each tier
+   conserves its events; the three kernels launched; cached
+   ``serve_step`` == dense read bitwise after a grow, a migrate and a
+   shrink; the same feeds at 60x80 on the card and on a CPU engine give
+   equal action logs, counters, tier counters and final SAE bits and
+   counts.  Times one grow (21 slots), one migrate and one shrink with
+   compaction (CUDA events and the host clock).  Prints events/s and
+   p50/p99 per tier beside phase 6's.  Last, ``python -m
+   repro_torch.launch.serve stream --migrate-demo --hw 48x64 --duration
+   0.06 --deadline 0.005`` in a subprocess on the card: its oracle gate
+   must pass.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -167,6 +192,15 @@ STREAM_SUBSTEPS = 2
 SWEEP_ARGV = ("--hw", "120x160", "--sensors", "4", "--duration", "0.06",
               "--cmem", "10,20", "--retention", "12,24")
 SWEEP_TIMEOUT_S = 400
+
+FLEET_SENSORS = 64
+FLEET_BUCKET = max(2, FLEET_SENSORS // 3)   # the --migrate-demo rule: 21
+FLEET_MOVES = 4
+FLEET_SHARD_BUDGET = 320
+FLEET_BARRIER_EVERY = 4
+FLEET_SMALL_HW = (60, 80)                   # card vs CPU engine
+FLEET_CLI_ARGV = ("--migrate-demo", "--hw", "48x64", "--duration", "0.06",
+                  "--deadline", "0.005")
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -1482,6 +1516,254 @@ def stream_phase(dev, mods, words, card):
                 idle_share=1 - prof["device_ms"] / prof["wall_ms"])
 
 
+def log_view(log):
+    """A device-neutral view of an action log: QoS classes by tier, step
+    records by their schedule, flags and chunk contents."""
+    out = []
+    for kind, e in log:
+        if kind in ("attach", "set_tier"):
+            out.append((kind, e[0], e[1].tier))
+        elif kind == "shrink":
+            out.append((kind, e[0], [tuple(m) for m in e[1]]))
+        elif kind == "step":
+            out.append((kind, e.t_read, e.n_events, e.n_chunks, e.order,
+                        e.deferred, e.overload, e.noise_step, e.barrier,
+                        [(slot, [np.asarray(a).tobytes() for a in part])
+                         for slot, part in e.chunks]))
+        else:
+            out.append((kind, e))
+    return out
+
+
+def migrated_tiers(log):
+    """The tier of each sensor a ``migrate`` moved, in log order (slots
+    followed through attaches, tier changes, detaches and shrinks)."""
+    tier_of, moved = {}, []
+    for kind, e in log:
+        if kind in ("attach", "set_tier"):
+            tier_of[e[0]] = e[1].tier
+        elif kind == "detach":
+            tier_of.pop(e)
+        elif kind == "migrate":
+            tier_of[e[1]] = tier_of.pop(e[0])
+            moved.append(tier_of[e[1]])
+        elif kind == "shrink":
+            for src, dst in e[1]:
+                tier_of[dst] = tier_of.pop(src)
+    return moved
+
+
+def timed_op(fn):
+    """(result, device ms from CUDA events, host ms ending in a
+    synchronize) of one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def fleet_moves(dev, mods, words, card, frame):
+    """Phase 7, part 1: one grow, one migrate and one shrink with
+    compaction of a 21-slot QVGA pool, timed; cached ``serve_step`` ==
+    the dense read bitwise after each."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    cfg = eng.TSEngineConfig(h=H, w=W, polarities=P, n_slots=FLEET_BUCKET,
+                             slot_bucket=FLEET_BUCKET, chunk_capacity=CAP,
+                             mode="edram", specs=(frame,),
+                             max_dirty_tiles=1 << 30)
+    engine = eng.TimeSurfaceEngine(cfg, device=dev)
+    for _ in range(FLEET_BUCKET):
+        engine.attach()
+    t_now = DEADLINES * DEADLINE_S
+    burst = 0
+
+    def serve(what):
+        nonlocal burst
+        live = sorted(engine._sessions)
+        items = [(s, words[s % N_SCENES][burst % (2 * DEADLINES)])
+                 for s in live]
+        burst += 1
+        got = engine.serve_step(items, frame, t_now)["surface"]
+        dense = engine.read(rs.SURFACE_SPEC, t_now)["surface"]
+        check(same(got, dense), f"fleet: cached serve_step == dense read "
+              f"bitwise after {what} ({len(live)} live of "
+              f"{engine.capacity} slots)")
+
+    serve("the first fill")
+    cap, g_dev, g_host = timed_op(engine.grow)
+    serve(f"a grow to {cap}")
+    dst, m_dev, m_host = timed_op(lambda: engine.migrate(5))
+    serve(f"a migrate 5 -> {dst}")
+    moves, s_dev, s_host = timed_op(lambda: engine.shrink(FLEET_BUCKET))
+    check(moves == [(dst, 5)], f"fleet: the shrink compacts {moves}")
+    serve(f"a shrink to {engine.capacity}")
+    ops_ms = {"grow": (g_dev, g_host), "migrate": (m_dev, m_host),
+              "shrink": (s_dev, s_host)}
+    log(f"fleet moves on {card}: grow {FLEET_BUCKET} -> {cap} slots at "
+        f"{P}x{H}x{W} device {g_dev:.4f} ms, host {g_host:.4f} ms; "
+        f"migrate 5 -> {dst} device {m_dev:.4f} ms, host {m_host:.4f} ms; "
+        f"shrink {cap} -> {engine.capacity} with moves {moves} device "
+        f"{s_dev:.4f} ms, host {s_host:.4f} ms")
+    return ops_ms
+
+
+def fleet_cfgs(eng, st, frame, h, w):
+    cfg = eng.TSEngineConfig(h=h, w=w, polarities=P, n_slots=FLEET_BUCKET,
+                             slot_bucket=FLEET_BUCKET, chunk_capacity=CAP,
+                             mode="edram", specs=(frame,))
+    scfg = st.StreamConfig(policy="drop_oldest", deadline_s=DEADLINE_S,
+                           pipeline=True, device_ring=True, elastic=True,
+                           shrink_watermark=0.9,
+                           shard_budget=FLEET_SHARD_BUDGET,
+                           shard_barrier_every=FLEET_BARRIER_EVERY)
+    return cfg, scfg
+
+
+def fleet_phase(dev, mods, words, card, stream6):
+    """Phase 7: the elastic pool and live migration on the card.  Returns
+    the fleet path's kernel launches and what it measured."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.events import replay as rp
+    from repro_torch.serve import stream as st
+
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    ops_ms = fleet_moves(dev, mods, words, card, frame)
+    duration = DEADLINES * DEADLINE_S
+    t0 = time.perf_counter()
+    feeds = rp.fleet_scene_feeds(H, W, duration, FLEET_SENSORS,
+                                 n_moves=FLEET_MOVES)
+    log(f"fleet: {FLEET_SENSORS} feeds, {sum(f.stream.n for f in feeds)} "
+        f"events, made in {time.perf_counter() - t0:.2f} s")
+    cfg, scfg = fleet_cfgs(eng, st, frame, H, W)
+
+    def make():
+        return eng.TimeSurfaceEngine(cfg, device=dev)
+
+    rp.replay(make(), feeds, scfg, frame, arrival_substeps=STREAM_SUBSTEPS,
+              t_end=1.5 * DEADLINE_S)          # first-touch costs
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    report = rp.replay(make(), feeds, scfg, frame,
+                       arrival_substeps=STREAM_SUBSTEPS)
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    fleet_log = [(k, e) for k, e in report.log
+                 if k in ("grow", "shrink", "migrate")]
+    log(f"fleet on {card}: {FLEET_SENSORS} sensors, pool of {FLEET_BUCKET} "
+        f"slots growing by {FLEET_BUCKET}, shard budget "
+        f"{FLEET_SHARD_BUDGET}, a barrier every {FLEET_BARRIER_EVERY}, "
+        f"{report.n_steps} deadlines x {DEADLINE_S * 1e3:.0f} ms:")
+    for line in report.summary().splitlines():
+        log(f"  {line}")
+    log(f"fleet log: {fleet_log}")
+    kinds = [k for k, _ in fleet_log]
+    moves = [m for k, e in fleet_log if k == "shrink" for m in e[1]]
+    check(kinds.count("grow") >= 2 and kinds.count("shrink") >= 1
+          and moves and kinds.count("migrate") >= FLEET_MOVES,
+          f"fleet log: {kinds.count('grow')} grows, {kinds.count('shrink')} "
+          f"shrinks with {len(moves)} moves, {kinds.count('migrate')} "
+          f"migrates (>= 2, >= 1 with >= 1, >= {FLEET_MOVES})")
+    moved_tiers = migrated_tiers(report.log)
+    check("gesture" in moved_tiers,
+          f"fleet: a gesture (analog, head-bearing) slot migrated (tiers "
+          f"of the moved sensors: {moved_tiers})")
+    for tier, row in sorted(report.tiers.items()):
+        check(row["offered"] == row["ingested"] + row["dropped"]
+              + row["refused"] + row["discarded"] + row["deferred"],
+              f"fleet tier {tier} conserves: offered {row['offered']} == "
+              f"ingested + dropped + refused + discarded + deferred "
+              f"(migrated {row['migrated']})")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched on the fleet path ({n})")
+    try:
+        n = rp.check_oracle(report, make, frame)
+        check(n == report.n_steps, f"fleet digests == the synchronous "
+              f"oracle's on the card, bitwise, at all {n} deadlines, its "
+              f"shrink deriving the logged moves {moves}")
+    except AssertionError as err:
+        check(False, f"fleet oracle gate on the card: {err}")
+    for tier in sorted(report.tiers):
+        row = report.tiers[tier]
+        was = stream6["tiers"].get(tier, {})
+        log(f"fleet tier {tier}: ingested {row['ingested']}, migrated "
+            f"{row['migrated']}, readout latency p50 "
+            f"{row['latency_p50_us'] / 1e3:.3f} ms, p99 "
+            f"{row['latency_p99_us'] / 1e3:.3f} ms (phase 6, fixed pool of "
+            f"{S}: p50 {was.get('latency_p50_us', float('nan')) / 1e3:.3f} "
+            f"ms, p99 {was.get('latency_p99_us', float('nan')) / 1e3:.3f} ms)")
+    log(f"fleet: events/s {report.events_per_sec:.1f} (phase 6, fixed "
+        f"pool: {stream6['events_per_s']:.1f}); kernel launches on the "
+        f"fleet path: {launches}")
+    fleet_small(dev, mods, frame)
+    fleet_cli()
+    return dict(launches=launches, events_per_s=report.events_per_sec,
+                tiers={t: {k: report.tiers[t][k] for k in
+                           ("ingested", "dropped", "migrated",
+                            "latency_p50_us", "latency_p99_us")}
+                       for t in report.tiers},
+                log=[(k, e) for k, e in fleet_log], moves_ms=ops_ms)
+
+
+def fleet_small(dev, mods, frame):
+    """Phase 7, part 3: the same fleet feeds at 60x80 on the card and on a
+    CPU engine: equal action logs, counters, tier counters and final
+    integer state (SAE bits, counts)."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.events import replay as rp
+    from repro_torch.serve import stream as st
+
+    h, w = FLEET_SMALL_HW
+    cfg, scfg = fleet_cfgs(eng, st, frame, h, w)
+    feeds = rp.fleet_scene_feeds(h, w, DEADLINES * DEADLINE_S, FLEET_SENSORS,
+                                 n_moves=FLEET_MOVES)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        engine = eng.TimeSurfaceEngine(cfg, device=where)
+        rep = rp.replay(engine, feeds, scfg, frame,
+                        arrival_substeps=STREAM_SUBSTEPS)
+        state = engine.state
+        runs.append((rep, bits(state.surfaces.sae).cpu(), state.counts.cpu()))
+    (g, g_sae, g_cnt), (c, c_sae, c_cnt) = runs
+    keys = ("offered", "accepted", "ingested", "dropped", "refused",
+            "discarded", "migrated")
+    strip = lambda t: {k: {f: v for f, v in r.items() if "latency" not in f}
+                       for k, r in t.items()}
+    check(log_view(g.log) == log_view(c.log)
+          and all(getattr(g, k) == getattr(c, k) for k in keys)
+          and strip(g.tiers) == strip(c.tiers)
+          and torch.equal(g_sae, c_sae) and torch.equal(g_cnt, c_cnt),
+          f"fleet at {h}x{w}: card == CPU engine: action log "
+          f"({len(g.log)} entries), counters, tier counters (migrated "
+          f"{g.migrated}) and final SAE bits and counts")
+
+
+def fleet_cli():
+    """Phase 7, part 4: the ``stream --migrate-demo`` CLI in a subprocess
+    on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "stream",
+         *FLEET_CLI_ARGV], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=SWEEP_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        if not line.startswith("feed "):
+            log(f"  migrate-demo | {line}")
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0
+          and "bitwise oracle gate: OK" in proc.stdout
+          and "fleet ops: grow->" in proc.stdout,
+          f"stream --migrate-demo CLI on the card: exit {proc.returncode}, "
+          f"oracle gate OK, fleet ops printed "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def sweep_phase(card):
     """Phase 6, part 3: the ``sweep`` CLI in a subprocess on the card."""
     out = ROOT / "build" / "smoke_sweep"
@@ -1584,8 +1866,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sw = sweep_phase(card)
     phase_s["sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = fleet_phase(dev, mods, words, card, sm)
+    torch.cuda.synchronize()
+    phase_s["fleet"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
-    log(json.dumps({"analog": an, "stream": sm, "sweep": sw}))
+    log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl},
+                   default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -1596,6 +1883,7 @@ def main() -> int:
                             launches=launches[name],
                             heads_path_launches=hd["launches"].get(name, 0),
                             stream_path_launches=sm["launches"].get(name, 0),
+                            fleet_path_launches=fl["launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:
