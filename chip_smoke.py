@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``--prev DIR`` names another checkout (e.g. the parent commit's tree,
-unpacked with ``git archive``): its ``stcf_support`` and
-``chunk_scatter`` sources are built into a library of their own and timed
-in turns with this tree's (old, new, new, old) in the kernel phase.
+unpacked with ``git archive``): its ``ts_decay``, ``stcf_support`` and
+``chunk_scatter`` sources are built into a library of their own, checked
+against this tree's and timed in turns with them (old, new, new, old) in
+the kernel phase.
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
@@ -30,14 +31,16 @@ elastic slot pool and live migration):
    events, bitwise; every kernel of the path launched.
 2. **Kernels** -- each kernel at the engine's full width on the engine's
    own state and a 10 ms push of ~2 M events, held against its plain
-   PyTorch version on the card (decay within 2 ULP, counts exact away
-   from the comparator threshold, scatter bitwise), and timed with CUDA
-   events (median over launches, L2 flushed before each) beside its plain
-   version, a one-call PyTorch yardstick where one exists (TF32 off), and
-   the least time the card could take (bytes over 3.35 TB/s, operations
-   over 67 TFLOP/s float32, the larger).  Besides: ``ts_decay`` with
-   per-cell (H, W) parameter planes within 2 ULP at the pool's shape;
-   ``chunk_scatter`` bitwise on duplicate-heavy traffic (90 % of the
+   PyTorch version on the card (decay values and masks bitwise, counts
+   exact away from the comparator threshold, scatter bitwise), and timed
+   with CUDA events (median over launches, L2 flushed before each) beside
+   its plain version, a one-call PyTorch yardstick where one exists (TF32
+   off), and the least time the card could take (bytes over 3.35 TB/s,
+   operations over 67 TFLOP/s float32, the larger).  Besides:
+   ``ts_decay`` with per-cell (H, W) parameter planes bitwise at the
+   pool's shape; the division gate (``decay.cuh``'s corrected-reciprocal
+   quotient against ``__fdiv_rn``: 0 mismatches over all 2^32 dividends
+   of each of 9 taus and 2^32 random triples); ``chunk_scatter`` bitwise on duplicate-heavy traffic (90 % of the
    events on 8 cells, rows of 5,000 slots, out-of-range ids) at P = 2
    and at P = 1, its time without the L2 flush and without the dirty
    marks and counter plane, and the atomics per event it issues.
@@ -275,10 +278,12 @@ def in_turns(timer, new, old, reps: int, what: str, **kw):
 
 
 def build_prev(prev_root: Path):
-    """The ``stcf_support`` and ``chunk_scatter`` kernels of another
-    checkout (``--prev``, e.g. the parent commit's tree), compiled with
-    this tree's flags into a library of their own.  Returns a function
-    that calls one of their C entry points on the current stream."""
+    """The ``ts_decay``, ``stcf_support`` and ``chunk_scatter`` kernels of
+    another checkout (``--prev``, e.g. the parent commit's tree; its
+    ``ts_decay.cu`` with the plane entry of PR 11-16), compiled with this
+    tree's flags into a library of their own, each source with the
+    headers beside it.  Returns a function that calls one of their C
+    entry points on the current stream."""
     from repro_torch.kernels import _lib
 
     csrc = prev_root / "src" / "repro_torch" / "kernels" / "csrc"
@@ -287,7 +292,7 @@ def build_prev(prev_root: Path):
     out.mkdir(parents=True)
     nvcc = _lib._nvcc()
     objs, procs = [], []
-    for src in ("stcf.cu", "ts_fused.cu"):
+    for src in ("ts_decay.cu", "stcf.cu", "ts_fused.cu"):
         objs.append(str(out / (src + ".o")))
         procs.append(subprocess.Popen(
             [nvcc, *_lib.NVCC_FLAGS, "-c", str(csrc / src), "-o", objs[-1]],
@@ -300,10 +305,16 @@ def build_prev(prev_root: Path):
     subprocess.run([nvcc, "-shared", "-Xcompiler", "-fPIC", *objs, "-o",
                     str(lib_path)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("stcf_support_mask", "stcf_support_fused", "chunk_scatter"):
+    for name in ("ts_decay_uniform", "stcf_support_mask",
+                 "stcf_support_fused", "chunk_scatter"):
         getattr(lib, name).argtypes = _lib._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    log(f"build: the previous stcf_support and chunk_scatter from "
+    # the plane entry of PR 11's ts_decay.cu: (n, plane), no launch shape
+    lib.ts_decay_planes.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    lib.ts_decay_planes.restype = ctypes.c_int
+    log(f"build: the previous ts_decay, stcf_support and chunk_scatter from "
         f"{csrc} -> {lib_path}")
 
     def call(name, *args):
@@ -311,6 +322,23 @@ def build_prev(prev_root: Path):
         if err:
             raise RuntimeError(f"previous {name}: CUDA error {err}")
     return call
+
+
+def prev_decay(call, sae, t_now, params, v_tw=None):
+    """The previous ``ts_decay`` on ``sae``: ``v``, or ``(v, mask)``."""
+    out = torch.empty_like(sae)
+    mask = (None if v_tw is None else
+            torch.empty(sae.shape, dtype=torch.bool, device=sae.device))
+    mptr = None if mask is None else mask.data_ptr()
+    thr = 0.0 if v_tw is None else float(v_tw)
+    if params.varied:
+        call("ts_decay_planes", sae.data_ptr(), out.data_ptr(), mptr,
+             sae.numel(), params.tau1.numel(), float(t_now),
+             *(x.data_ptr() for x in params), thr)
+    else:
+        call("ts_decay_uniform", sae.data_ptr(), out.data_ptr(), mptr,
+             sae.numel(), float(t_now), *(float(x) for x in params), thr)
+    return out if mask is None else (out, mask)
 
 
 def prev_stcf(call, x, fused=None):
@@ -547,10 +575,43 @@ def split_pass(eng, cfg, frame, words, scene_of):
         f"{np.median(r[0::2, 2]):.3f}, incremental {np.median(r[1::2, 2]):.3f})")
 
 
+def gate_taus():
+    """The taus the division gate runs over every dividend: both time
+    constants of the 20 fF fit and of the sweep's other default cmem (10
+    fF), the ideal 5 ms and 24 ms surfaces (whose second constant is 1.0,
+    a power of two), the 1e-9 s clamp, and a significand of all ones."""
+    from repro_torch.core import edram
+    from repro_torch.core import representations as rep
+
+    fits = [edram.decay_params_for_cmem(c) for c in (20e-15, 10e-15)]
+    taus = [float(t) for p in fits for t in (p.tau1, p.tau2)]
+    taus += [float(rep.edram_ideal_params(t).tau1) for t in (0.005, 0.024)]
+    return taus + [1.0, 1e-9, 1.9999998807907104]
+
+
+def division_gate_phase(dev) -> dict:
+    """decay.cuh's corrected-reciprocal quotient against ``__fdiv_rn`` on
+    the card: every float32 dividend of each of ``gate_taus()``, then
+    2^32 random (dividend, tau1, tau2) triples; 0 mismatches in the decay
+    value or the quotient."""
+    from repro_torch.kernels.ts_decay import division_gate
+
+    t0 = time.perf_counter()
+    found = {f"{tau!r}": division_gate(dev, tau) for tau in gate_taus()}
+    found["random"] = division_gate(dev, seed=17)
+    secs = time.perf_counter() - t0
+    bad = {k: v for k, v in found.items() if v != (0, 0)}
+    check(not bad, f"division gate: 0 decay values and 0 quotients differ "
+          f"from __fdiv_rn over 2^32 dividends x {len(found) - 1} taus and "
+          f"2^32 random triples ({secs:.2f} s; mismatches {bad})")
+    return dict(cells=(len(found)) << 32, seconds=secs, mismatches=bad)
+
+
 def kernel_phase(dev, mods, words, run, prev=None):
     """Phase 2: each kernel vs its plain version, and its times; with
-    ``prev`` (``build_prev``), the previous ``stcf_support`` and
-    ``chunk_scatter`` timed in turns with the current ones."""
+    ``prev`` (``build_prev``), the previous ``ts_decay`` (all three
+    forms), ``stcf_support`` and ``chunk_scatter`` timed in turns with
+    the current ones."""
     _lib, ops, ts, aer, pipeline, rs, eng = mods
     from repro_torch.core import edram
     from repro_torch.kernels import ref
@@ -567,25 +628,18 @@ def kernel_phase(dev, mods, words, run, prev=None):
     cells = sae.numel()
     rows = []
 
-    # -- ts_decay: the Surface product's read of the whole pool
+    # -- ts_decay: the Surface product's read of the whole pool, then the
+    # per-cell-plane entry at the pool's shape (tau1 and tau2 varied per
+    # cell by a seeded 5 % spread); each bitwise its plain version
     v = ts_decay_cuda(sae, t_now, params)
     vr, mr = ref.ts_decay_ref(sae, t_now, params, v_tw)
     _, m = ts_decay_cuda(sae, t_now, params, v_tw)
     ulp = int(ref.ulp_distance(v, vr).max())
     near = ref.ulp_distance(vr, torch.full_like(vr, v_tw)) <= 4
-    check(ulp <= 2, f"ts_decay within 2 ULP of its plain version ({ulp})")
-    check(torch.equal(m[~near], mr[~near]),
-          f"ts_decay mask exact away from v_tw ({int(near.sum())} cells "
-          "within 4 ULP)")
-    ms = timer(lambda _: ts_decay_cuda(sae, t_now, params), 30)
-    ms_mask = timer(lambda _: ts_decay_cuda(sae, t_now, params, v_tw), 30)
-    plain = timer(lambda _: ref.ts_decay_ref(sae, t_now, params), 10)
-    b_ms, b_by = bound_ms(8 * cells, 12 * cells)
-    log(f"ts_decay: {ms:.4f} ms (with mask {ms_mask:.4f} ms, bound "
-        f"{bound_ms(9 * cells, 13 * cells)[0]:.4f} ms), plain {plain:.4f} ms, "
-        f"bound {b_ms:.4f} ms")
-    # the per-cell-plane entry (ts_decay_planes) at the pool's shape: tau1
-    # and tau2 varied per cell by a seeded 5 % spread
+    check(same(v, vr), f"ts_decay bitwise its plain version (max {ulp} "
+          "ULP)")
+    check(torch.equal(m, mr), f"ts_decay mask == its plain version's on "
+          f"every cell ({int(near.sum())} cells within 4 ULP of v_tw)")
     g = torch.Generator(device=dev).manual_seed(4)
     eps = 1.0 + 0.05 * torch.randn((2, H, W), generator=g, device=dev)
     full = lambda x: torch.full((H, W), float(x), device=dev)
@@ -595,16 +649,42 @@ def kernel_phase(dev, mods, words, run, prev=None):
     vp = ts_decay_cuda(sae, t_now, planes)
     ulp_p = int(ref.ulp_distance(vp, ref.ts_decay_ref(sae, t_now, planes))
                 .max())
-    check(ulp_p <= 2, f"ts_decay with (H, W) parameter planes within 2 ULP "
-          f"of its plain version at {tuple(sae.shape)} ({ulp_p})")
-    ms_planes = timer(lambda _: ts_decay_cuda(sae, t_now, planes), 30)
-    log(f"ts_decay with parameter planes: {ms_planes:.4f} ms, bound "
-        f"{bound_ms(8 * cells + 20 * H * W, 12 * cells)[0]:.4f} ms")
+    check(ulp_p == 0, f"ts_decay with (H, W) parameter planes bitwise its "
+          f"plain version at {tuple(sae.shape)} (max {ulp_p} ULP)")
+    old = dict(uniform=None, mask=None, planes=None)
+    if prev is not None:
+        pv, pm = prev_decay(prev, sae, t_now, params, v_tw)
+        check(same(prev_decay(prev, sae, t_now, params), v) and same(pv, v)
+              and torch.equal(pm, m)
+              and same(prev_decay(prev, sae, t_now, planes), vp),
+              "the previous ts_decay gives the same values and mask, "
+              "uniform and planes, bitwise")
+        old = dict(uniform=lambda _: prev_decay(prev, sae, t_now, params),
+                   mask=lambda _: prev_decay(prev, sae, t_now, params, v_tw),
+                   planes=lambda _: prev_decay(prev, sae, t_now, planes))
+    ms, prev_ms = in_turns(timer, lambda _: ts_decay_cuda(
+        sae, t_now, params), old["uniform"], 30, "ts_decay uniform")
+    ms_mask, prev_mask = in_turns(timer, lambda _: ts_decay_cuda(
+        sae, t_now, params, v_tw), old["mask"], 30, "ts_decay with mask")
+    ms_planes, prev_planes = in_turns(timer, lambda _: ts_decay_cuda(
+        sae, t_now, planes), old["planes"], 30, "ts_decay planes")
+    plain = timer(lambda _: ref.ts_decay_ref(sae, t_now, params), 10)
+    b_ms, b_by = bound_ms(8 * cells, 12 * cells)
+    rnd = lambda x: x if x is None else round(x, 4)
+    log(f"ts_decay: {ms:.4f} ms (previous kernel {rnd(prev_ms)} ms), plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms; with mask {ms_mask:.4f} ms "
+        f"(previous {rnd(prev_mask)} ms, bound "
+        f"{bound_ms(9 * cells, 13 * cells)[0]:.4f} ms); with parameter "
+        f"planes {ms_planes:.4f} ms (previous {rnd(prev_planes)} ms, bound "
+        f"{bound_ms(8 * cells + 20 * H * W, 12 * cells)[0]:.4f} ms)")
+    gate = division_gate_phase(dev)
     rows.append(dict(name="ts_decay", max_abs_err=float((v - vr).abs().max()),
                      max_ulp=ulp, near_threshold_cells=int(near.sum()),
                      ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, ms_with_mask=ms_mask,
-                     planes_ms=ms_planes, planes_max_ulp=ulp_p))
+                     library_ms=None, prev_kernel_ms=prev_ms,
+                     ms_with_mask=ms_mask, mask_prev_ms=prev_mask,
+                     planes_ms=ms_planes, planes_prev_ms=prev_planes,
+                     planes_max_ulp=ulp_p, division_gate=gate))
 
     # -- stcf_support: the Stcf product (fused decay + compare + count)
     s = stcf_support_cuda(sae, RADIUS, False, fused=(params, v_tw, t_now))

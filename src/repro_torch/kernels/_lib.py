@@ -44,9 +44,12 @@ LAUNCHES: Dict[str, int] = {"ts_decay": 0, "stcf_support": 0,
                             "chunk_scatter": 0, "decay_scan": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "ts_decay_uniform": [_P, _P, _P, _LL] + [_F] * 7 + [_P],
-    "ts_decay_planes": [_P, _P, _P, _LL, _LL, _F] + [_P] * 5 + [_F, _P],
+    "ts_decay_planes": [_P, _P, _P, _LL, _LL, _F] + [_P] * 5
+    + [_F] + [_I] * 4 + [_P],
+    "decay_division_gate": [_I] + [_F] * 5 + [_ULL] * 3 + [_P, _P],
     "stcf_support_mask": [_P, _P] + [_I] * 5 + [_P],
     "stcf_support_fused": [_P, _P] + [_I] * 5 + [_F] * 7 + [_P],
     "chunk_scatter": [_P] + [_I] * 4 + [_P] * 6 + [_I, _I, _P, _I, _I]

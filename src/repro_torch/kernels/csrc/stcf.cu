@@ -11,8 +11,10 @@
 //
 // Bound: device-memory bytes.  The fused form reads 4 B and writes 4 B per
 // pixel (the mask form 1 B and 4 B); the patch count is integer work on
-// bits.  The fused form also pays two expf and two IEEE divisions per cell
-// it loads, so every cell is loaded and decayed as few times as possible:
+// bits.  The fused form also pays two expf and two divisions per cell it
+// loads (decay.cuh's corrected-reciprocal quotients, the reciprocals
+// taken once by the launcher), so every cell is loaded and decayed as few
+// times as possible:
 //   * One block owns one band of kBandRows output rows of one plane across
 //     a span of up to kMaxWarps 32-column words (the whole width of a
 //     plane up to 32 * kMaxWarps pixels; wider planes split into spans).
@@ -245,7 +247,7 @@ int stcf_max_radius() { return kMaxRadius; }
 int stcf_support_mask(const uint8_t* mask, int* out, int planes, int h, int w,
                       int r, int include_self, void* stream) {
   return launch<false>(mask, out, planes, h, w, r, include_self, 0.0f,
-                       DecayConsts{0, 1, 0, 1, 0}, 0.0f, stream);
+                       decay_consts(0, 1, 0, 1, 0), 0.0f, stream);
 }
 
 // Fused: (planes, h, w) float32 SAE -> decay -> v > v_tw -> support count.
@@ -254,7 +256,7 @@ int stcf_support_fused(const float* sae, int* out, int planes, int h, int w,
                        float tau1, float a2, float tau2, float b, float v_tw,
                        void* stream) {
   return launch<true>(sae, out, planes, h, w, r, include_self, t_now,
-                      DecayConsts{a1, tau1, a2, tau2, b}, v_tw, stream);
+                      decay_consts(a1, tau1, a2, tau2, b), v_tw, stream);
 }
 
 }  // extern "C"

@@ -1,20 +1,37 @@
 // ts_decay: the time-surface decay read over a whole slot pool, with the
 // STCF comparator optionally fused.
 //
-// Replaces the TPU kernel in src/repro/kernels/ts_decay.py
-// (_uniform_kernel, _varied_kernel, driven by ts_decay_pallas), which the
-// reference vmaps over the leading slot/polarity dims.  Here the slot and
-// polarity axes are simply part of one flat cell range: one launch reads
-// every cell of an (S, P, H, W) pool, or of a (K, bh, bw) stack of
-// gathered dirty tiles.
+// Replaces the TPU kernel in src/repro/kernels/ts_decay.py: the uniform
+// form replaces _uniform_kernel, the (H, W) parameter-plane form
+// _varied_kernel (both driven by ts_decay_pallas, which vmaps them over
+// the leading slot/polarity dims).  Here the leading dims are part of one
+// launch: every cell of an (S, P, H, W) pool, or of a (K, bh, bw) stack
+// of gathered dirty tiles.
 //
-// Bound: device-memory bytes.  Per cell it reads 4 B and writes 4 B (one
-// more byte with the mask) against ~12 float operations, far below the
-// card's operations-per-byte balance.  So the design only has to stream:
-// a grid-stride loop of 16-byte float4 loads and stores (neighbouring
-// threads on neighbouring addresses), with a scalar loop for an unaligned
-// pointer and for the ragged tail.  The decay arithmetic is
-// decay.cuh's, op for op the plain PyTorch version.
+// Bound: device-memory bytes.  A cell reads 4 B and writes 4 B (one more
+// byte with the mask) against ~12 float operations, far below the card's
+// operations-per-byte balance.  The first version launched 16 blocks of
+// 256 threads per SM (twice what is resident) with one 16-byte load in
+// flight per thread, two __fdiv_rn per cell, and, for planes, a 64-bit
+// `i % plane` and five scalar parameter loads per cell.  What bound each
+// form on the H100 is in PERF.md (PR 17: a copy kernel of the same
+// pattern, the old arithmetic on the new launch shape, SASS counts).
+// The design:
+//   * Uniform form: a grid of exactly the resident blocks
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, once), each thread
+//     issuing kUnroll streaming 16-byte loads (__ldcs) before it computes,
+//     then streaming stores (__stcs) of the values and of 4 mask bytes.
+//     An unaligned tensor, and the last n % 4 cells, take a scalar loop.
+//   * Plane form: a 2-D grid.  blockIdx.x runs over the plane in float4
+//     columns (single cells where the wrapper found the plane length not
+//     a multiple of 4 or a pointer misaligned), blockIdx.y over groups of
+//     `group` leading planes.  A thread loads its columns' five
+//     parameters once, clamps each tau once and takes its reciprocals
+//     once, then walks its group's planes kUnroll at a time.  No 64-bit
+//     division anywhere; the wrapper picks the shape (ts_decay.py:
+//     planes_launch).
+//   * Both: decay.cuh's corrected-reciprocal quotient instead of two
+//     __fdiv_rn per cell, bitwise equal (decay_division_gate below).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -24,8 +41,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 1;         // 16-byte loads a thread issues at once
+constexpr int kPrefetch = 1;       // 1: the next loads in flight while it
+                                   // computes (0: after it stores)
+constexpr int kStreaming = 1;      // 1: __ldcs / __stcs (0: plain)
+constexpr int kWaves = 2;          // grid cap in waves of resident blocks
+                                   // (0: no cap, one float4 batch a thread)
+constexpr int kPlaneUnroll = 2;    // leading planes in flight per thread
+constexpr int kPlaneMinBlocks = 0; // __launch_bounds__ minimum (0: none)
 
-int grid_for(int64_t work) {
+int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -33,10 +58,55 @@ int grid_for(int64_t work) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(sms) * 16;
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : int(blocks);
+  return sms;
+}
+
+// Blocks of kThreads of `kernel` resident on the whole card.
+template <typename K>
+int resident_blocks(K kernel) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    0) != cudaSuccess ||
+      per_sm <= 0) {
+    per_sm = 1;
+  }
+  return per_sm * sm_count();
+}
+
+template <typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kStreaming) return __ldcs(p);
+  return *p;
+}
+
+template <typename T>
+__device__ __forceinline__ void store(T* p, T v) {
+  if constexpr (kStreaming) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+__device__ __forceinline__ float4 decay4(float4 s, float t_now,
+                                         const DecayConsts& c) {
+  return make_float4(decay_cell(s.x, t_now, c), decay_cell(s.y, t_now, c),
+                     decay_cell(s.z, t_now, c), decay_cell(s.w, t_now, c));
+}
+
+__device__ __forceinline__ uint32_t mask4(float4 v, float v_tw) {
+  return uint32_t(v.x > v_tw) | uint32_t(v.y > v_tw) << 8 |
+         uint32_t(v.z > v_tw) << 16 | uint32_t(v.w > v_tw) << 24;
+}
+
+// float4s i0, i0 + stride, ... (kUnroll of them, those below n4) of s4.
+__device__ __forceinline__ void load_batch(const float4* s4, int64_t i0,
+                                           int64_t stride, int64_t n4,
+                                           float4 (&s)[kUnroll]) {
+#pragma unroll
+  for (int j = 0; j < kUnroll; ++j) {
+    if (i0 + j * stride < n4) s[j] = load(s4 + i0 + j * stride);
+  }
 }
 
 template <bool kMask>
@@ -44,25 +114,32 @@ __global__ void __launch_bounds__(kThreads)
     decay_uniform_kernel(const float* __restrict__ sae, float* __restrict__ out,
                          uint8_t* __restrict__ mask, int64_t n, float t_now,
                          DecayConsts c, float v_tw, bool vec4) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  const int64_t first = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   int64_t tail = 0;
   if (vec4) {
     const int64_t n4 = n >> 2;
+    const int64_t step = kUnroll * stride;
     const float4* s4 = reinterpret_cast<const float4*>(sae);
     float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = first; i < n4; i += stride) {
-      const float4 s = s4[i];
-      float4 v;
-      v.x = decay_cell(s.x, t_now, c);
-      v.y = decay_cell(s.y, t_now, c);
-      v.z = decay_cell(s.z, t_now, c);
-      v.w = decay_cell(s.w, t_now, c);
-      o4[i] = v;
-      if (kMask) {
-        reinterpret_cast<uchar4*>(mask)[i] =
-            make_uchar4(v.x > v_tw, v.y > v_tw, v.z > v_tw, v.w > v_tw);
+    uint32_t* m4 = reinterpret_cast<uint32_t*>(mask);
+    float4 next[kUnroll];
+    load_batch(s4, first, stride, n4, next);
+    for (int64_t i0 = first; i0 < n4; i0 += step) {
+      float4 s[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) s[j] = next[j];
+      if (kPrefetch) load_batch(s4, i0 + step, stride, n4, next);
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const int64_t i = i0 + j * stride;
+        if (i < n4) {
+          const float4 v = decay4(s[j], t_now, c);
+          store(o4 + i, v);
+          if (kMask) store(m4 + i, mask4(v, v_tw));
+        }
       }
+      if (!kPrefetch) load_batch(s4, i0 + step, stride, n4, next);
     }
     tail = n4 << 2;
   }
@@ -73,26 +150,152 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Per-cell parameter planes of size `plane` (= H*W), broadcast over the
-// leading dims; time constants are clamped at 1e-9 s as the TPU kernel's
-// driver clamps them.
-template <bool kMask>
-__global__ void __launch_bounds__(kThreads)
+// Per-cell parameter planes of `plane` cells, broadcast over `lead`
+// leading planes; time constants clamped at 1e-9 s, as the TPU kernel's
+// driver clamps them.  kVec: a thread owns 4 neighbouring cells of the
+// plane (plane % 4 == 0, every pointer aligned), else one.
+template <bool kMask, bool kVec>
+__global__ void __launch_bounds__(kThreads,
+                                  kPlaneMinBlocks > 0 ? kPlaneMinBlocks : 1)
     decay_planes_kernel(const float* __restrict__ sae, float* __restrict__ out,
-                        uint8_t* __restrict__ mask, int64_t n, int64_t plane,
-                        float t_now, const float* __restrict__ a1,
+                        uint8_t* __restrict__ mask, int64_t lead,
+                        int64_t plane, int group, float t_now,
+                        const float* __restrict__ a1,
                         const float* __restrict__ tau1,
                         const float* __restrict__ a2,
                         const float* __restrict__ tau2,
                         const float* __restrict__ b, float v_tw) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+  constexpr int kW = kVec ? 4 : 1;
+  const int64_t k = (int64_t(blockIdx.x) * kThreads + threadIdx.x) * kW;
+  if (k >= plane) return;
+  DecayConsts c[kW];
+#pragma unroll
+  for (int e = 0; e < kW; ++e) {
+    c[e] = decay_consts(a1[k + e], fmaxf(tau1[k + e], 1e-9f), a2[k + e],
+                        fmaxf(tau2[k + e], 1e-9f), b[k + e]);
+  }
+  const int64_t p0 = int64_t(blockIdx.y) * group;
+  const int64_t p1 = p0 + group < lead ? p0 + group : lead;
+  // the cells of planes p .. p + kPlaneUnroll - 1 (those below p1)
+  auto load_planes = [&](int64_t p, float (&s)[kPlaneUnroll][kW]) {
+#pragma unroll
+    for (int j = 0; j < kPlaneUnroll; ++j) {
+      if (p + j < p1) {
+        const float* src = sae + (p + j) * plane + k;
+        if constexpr (kVec) {
+          const float4 q = load(reinterpret_cast<const float4*>(src));
+          s[j][0] = q.x;
+          s[j][1] = q.y;
+          s[j][2] = q.z;
+          s[j][3] = q.w;
+        } else {
+          s[j][0] = load(src);
+        }
+      }
+    }
+  };
+  float next[kPlaneUnroll][kW];
+  load_planes(p0, next);
+  for (int64_t p = p0; p < p1; p += kPlaneUnroll) {
+    float s[kPlaneUnroll][kW];
+#pragma unroll
+    for (int j = 0; j < kPlaneUnroll; ++j) {
+#pragma unroll
+      for (int e = 0; e < kW; ++e) s[j][e] = next[j][e];
+    }
+    if (kPrefetch) load_planes(p + kPlaneUnroll, next);
+#pragma unroll
+    for (int j = 0; j < kPlaneUnroll; ++j) {
+      if (p + j < p1) {
+        const int64_t at = (p + j) * plane + k;
+        float v[kW];
+#pragma unroll
+        for (int e = 0; e < kW; ++e) v[e] = decay_cell(s[j][e], t_now, c[e]);
+        if constexpr (kVec) {
+          const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
+          store(reinterpret_cast<float4*>(out + at), v4);
+          if (kMask) store(reinterpret_cast<uint32_t*>(mask + at),
+                           mask4(v4, v_tw));
+        } else {
+          store(out + at, v[0]);
+          if (kMask) mask[at] = v[0] > v_tw;
+        }
+      }
+    }
+    if (!kPrefetch) load_planes(p + kPlaneUnroll, next);
+  }
+}
+
+template <bool kMask, bool kVec>
+void launch_planes(const float* sae, float* out, uint8_t* mask, int64_t lead,
+                   int64_t plane, int group, int grid_x, int grid_y,
+                   float t_now, const float* a1, const float* tau1,
+                   const float* a2, const float* tau2, const float* b,
+                   float v_tw, cudaStream_t s) {
+  decay_planes_kernel<kMask, kVec>
+      <<<dim3(grid_x, grid_y), kThreads, 0, s>>>(sae, out, mask, lead, plane,
+                                                 group, t_now, a1, tau1, a2,
+                                                 tau2, b, v_tw);
+}
+
+// splitmix64: the gate's counter-based source of random bits.
+__device__ __forceinline__ uint64_t mix64(uint64_t z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ bool same_quotient(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b) || (a == 0.0f && b == 0.0f);
+}
+
+// mode 0: the dividends of cells first .. first + count - 1 are the float
+// bit patterns of those indices (mod 2^32), every one against the launch's
+// uniform constants `u`.  mode 1: each cell draws a dividend and two
+// positive time constants from `seed` and takes the plane form's
+// constants (clamp, reciprocals on the card).  Counts the cells whose
+// decay value (counts[0]) or either quotient (counts[1], +0 == -0)
+// differs between decay_cell and the __fdiv_rn arithmetic.
+__global__ void __launch_bounds__(kThreads)
+    division_gate_kernel(int mode, DecayConsts u, uint64_t seed,
+                         uint64_t first, uint64_t count,
+                         unsigned long long* counts) {
+  unsigned long long bad_v = 0, bad_q = 0;
+  const uint64_t stride = uint64_t(gridDim.x) * kThreads;
+  for (uint64_t i = uint64_t(blockIdx.x) * kThreads + threadIdx.x; i < count;
        i += stride) {
-    const int64_t k = i % plane;
-    const float v = decay_cell(sae[i], t_now, a1[k], fmaxf(tau1[k], 1e-9f),
-                               a2[k], fmaxf(tau2[k], 1e-9f), b[k]);
-    out[i] = v;
-    if (kMask) mask[i] = v > v_tw;
+    float x;
+    DecayConsts c = u;
+    if (mode == 0) {
+      x = __uint_as_float(uint32_t(first + i));
+    } else {
+      const uint64_t r1 = mix64(seed ^ ((first + i) << 1));
+      const uint64_t r2 = mix64(seed ^ ((first + i) << 1 | 1));
+      x = __uint_as_float(uint32_t(r1));
+      c = decay_consts(u.a1, fmaxf(__uint_as_float(uint32_t(r1 >> 32) >> 1),
+                                   1e-9f),
+                       u.a2, fmaxf(__uint_as_float(uint32_t(r2) >> 1), 1e-9f),
+                       u.b);
+    }
+    // t_now = 0: the cell's dividend -(0 - sae) is sae itself (-0 at 0)
+    bad_v += __float_as_uint(decay_cell(x, 0.0f, c)) !=
+             __float_as_uint(decay_cell_ieee(x, 0.0f, c));
+    if (isfinite(x)) {
+      const float xd = -__fsub_rn(0.0f, x);
+      float q1, q2;
+      decay_quotients(xd, c, q1, q2);
+      bad_q += !same_quotient(q1, __fdiv_rn(xd, c.tau1)) ||
+               !same_quotient(q2, __fdiv_rn(xd, c.tau2));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    bad_v += __shfl_xor_sync(0xffffffffu, bad_v, o);
+    bad_q += __shfl_xor_sync(0xffffffffu, bad_q, o);
+  }
+  if ((threadIdx.x & 31) == 0 && (bad_v | bad_q)) {
+    atomicAdd(counts, bad_v);
+    atomicAdd(counts + 1, bad_q);
   }
 }
 
@@ -108,35 +311,63 @@ const char* repro_cuda_error_string(int err) {
 int ts_decay_uniform(const float* sae, float* out, uint8_t* mask, long long n,
                      float t_now, float a1, float tau1, float a2, float tau2,
                      float b, float v_tw, void* stream) {
-  const DecayConsts c{a1, tau1, a2, tau2, b};
+  const DecayConsts c = decay_consts(a1, tau1, a2, tau2, b);
   const bool vec4 = (reinterpret_cast<uintptr_t>(sae) % 16 == 0) &&
                     (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
                     (reinterpret_cast<uintptr_t>(mask) % 4 == 0);
-  const int grid = grid_for(vec4 ? (n >> 2) : n);
+  static const int cap[2] = {
+      kWaves * resident_blocks(decay_uniform_kernel<false>),
+      kWaves * resident_blocks(decay_uniform_kernel<true>)};
+  const int64_t per_block = int64_t(kThreads) * (vec4 ? 4 * kUnroll : 1);
+  int64_t grid = (n + per_block - 1) / per_block;
+  if (kWaves > 0 && grid > cap[mask != nullptr]) grid = cap[mask != nullptr];
+  if (grid < 1) grid = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask) {
-    decay_uniform_kernel<true><<<grid, kThreads, 0, s>>>(sae, out, mask, n,
-                                                         t_now, c, v_tw, vec4);
+    decay_uniform_kernel<true><<<int(grid), kThreads, 0, s>>>(
+        sae, out, mask, n, t_now, c, v_tw, vec4);
   } else {
-    decay_uniform_kernel<false><<<grid, kThreads, 0, s>>>(
+    decay_uniform_kernel<false><<<int(grid), kThreads, 0, s>>>(
         sae, out, mask, n, t_now, c, v_tw, vec4);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int ts_decay_planes(const float* sae, float* out, uint8_t* mask, long long n,
-                    long long plane, float t_now, const float* a1,
-                    const float* tau1, const float* a2, const float* tau2,
-                    const float* b, float v_tw, void* stream) {
-  const int grid = grid_for(n);
+// `lead` planes of `plane` cells; the launch shape (vec4, group, grid)
+// comes from the wrapper (ts_decay.py: planes_launch).
+int ts_decay_planes(const float* sae, float* out, uint8_t* mask,
+                    long long lead, long long plane, float t_now,
+                    const float* a1, const float* tau1, const float* a2,
+                    const float* tau2, const float* b, float v_tw, int vec4,
+                    int group, int grid_x, int grid_y, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask) {
-    decay_planes_kernel<true><<<grid, kThreads, 0, s>>>(
-        sae, out, mask, n, plane, t_now, a1, tau1, a2, tau2, b, v_tw);
+  if (mask && vec4) {
+    launch_planes<true, true>(sae, out, mask, lead, plane, group, grid_x,
+                              grid_y, t_now, a1, tau1, a2, tau2, b, v_tw, s);
+  } else if (mask) {
+    launch_planes<true, false>(sae, out, mask, lead, plane, group, grid_x,
+                               grid_y, t_now, a1, tau1, a2, tau2, b, v_tw, s);
+  } else if (vec4) {
+    launch_planes<false, true>(sae, out, mask, lead, plane, group, grid_x,
+                               grid_y, t_now, a1, tau1, a2, tau2, b, v_tw, s);
   } else {
-    decay_planes_kernel<false><<<grid, kThreads, 0, s>>>(
-        sae, out, mask, n, plane, t_now, a1, tau1, a2, tau2, b, v_tw);
+    launch_planes<false, false>(sae, out, mask, lead, plane, group, grid_x,
+                                grid_y, t_now, a1, tau1, a2, tau2, b, v_tw, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The card check of decay.cuh's corrected quotient (division_gate_kernel):
+// adds the mismatches of cells first .. first + count - 1 to counts[0]
+// (decay values) and counts[1] (quotients), device memory.
+int decay_division_gate(int mode, float a1, float tau1, float a2, float tau2,
+                        float b, unsigned long long seed,
+                        unsigned long long first, unsigned long long count,
+                        unsigned long long* counts, void* stream) {
+  const DecayConsts c = decay_consts(a1, tau1, a2, tau2, b);
+  division_gate_kernel<<<sm_count() * 8, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      mode, c, seed, first, count, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,15 +4,49 @@ The time-surface decay read of every cell of an SAE tensor of any shape
 (an (S, P, H, W) pool, or a (K, bh, bw) stack of dirty tiles), with the
 comparator mask ``v > v_tw`` optionally written in the same pass.
 Uniform parameters go to the kernel by value; per-cell (H, W) planes by
-pointer, broadcast over the leading dims.
+pointer, broadcast over the leading dims, on a launch shape chosen here
+(``planes_launch``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _lib
+
+THREADS = 256          # csrc/ts_decay.cu kThreads
+PLANE_GROUP = 8        # leading planes a block walks, at most
+TARGET_BLOCKS = 1024   # about one wave of resident blocks on an H100
+MAX_GRID_Y = 65535
+
+
+class PlanesLaunch(NamedTuple):
+    vec4: bool     # a thread owns 4 neighbouring cells (16-byte accesses)
+    group: int     # leading planes per block
+    grid: tuple    # (columns of THREADS threads, groups of leading planes)
+
+
+def planes_launch(lead: int, plane: int, aligned: bool) -> PlanesLaunch:
+    """The plane form's launch for ``lead`` leading planes of ``plane``
+    cells.  Four cells a thread where the plane length is a multiple of 4
+    and every pointer ``aligned`` (16 bytes for the floats, 4 for the
+    mask), else one; ``grid[0]`` blocks cover the plane, the last one
+    ragged.  Each block walks ``group`` leading planes with its threads'
+    parameters held in registers: up to ``PLANE_GROUP``, fewer where that
+    would leave fewer than ``TARGET_BLOCKS`` blocks, more where the
+    groups would outnumber the grid's y limit."""
+    vec4 = aligned and plane % 4 == 0
+    cols = plane // 4 if vec4 else plane
+    gx = max(1, -(-cols // THREADS))
+    group = max(1, min(PLANE_GROUP, lead * gx // TARGET_BLOCKS),
+                -(-lead // MAX_GRID_Y))
+    return PlanesLaunch(vec4, group, (gx, max(1, -(-lead // group))))
+
+
+def _aligned(ptrs, mask_ptr) -> bool:
+    return all(p % 16 == 0 for p in ptrs) and (mask_ptr is None
+                                               or mask_ptr % 4 == 0)
 
 
 def ts_decay_cuda(sae: torch.Tensor, t_now, params,
@@ -38,11 +72,40 @@ def ts_decay_cuda(sae: torch.Tensor, t_now, params,
                 if x.shape != plane:
                     raise ValueError(f"{name}: shape {tuple(x.shape)} != "
                                      f"{tuple(plane)}")
+            cells = params.tau1.numel()
+            ptrs = [sae.data_ptr(), out.data_ptr()] + [x.data_ptr()
+                                                       for x in params]
+            shape = planes_launch(n // cells, cells,
+                                  _aligned(ptrs, _lib.ptr(mask)))
             _lib.launch("ts_decay", "ts_decay_planes", dev, sae.data_ptr(),
-                        out.data_ptr(), _lib.ptr(mask), n, params.tau1.numel(),
-                        float(t_now), *(x.data_ptr() for x in params), thr)
+                        out.data_ptr(), _lib.ptr(mask), n // cells, cells,
+                        float(t_now), *(x.data_ptr() for x in params), thr,
+                        int(shape.vec4), shape.group, *shape.grid)
         else:
             _lib.launch("ts_decay", "ts_decay_uniform", dev, sae.data_ptr(),
                         out.data_ptr(), _lib.ptr(mask), n, float(t_now),
                         *(float(x) for x in params), thr)
     return out if mask is None else (out, mask)
+
+
+def division_gate(device, tau=None, count: int = 1 << 32, seed: int = 0):
+    """The card check of the decay's corrected-reciprocal quotient
+    (``csrc/decay.cuh``) against the ``__fdiv_rn`` arithmetic, on
+    ``v = e^(x/tau1) + e^(x/tau2)``.  With ``tau``: the first ``count``
+    float bit patterns (all 2^32 by default) as the dividend ``x``, the
+    uniform form's constants with ``tau`` as both time constants (its
+    reciprocal taken on the host); without: ``count`` dividends and
+    pairs of positive time constants drawn from ``seed``, the plane
+    form's constants (clamped, reciprocals taken on the card).  Returns
+    (decay values that differ bitwise, quotients that differ).  Not a
+    path kernel: counts no launch."""
+    lib, _ = _lib.library()
+    mode, tau = (1, 1.0) if tau is None else (0, float(tau))
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = lib.decay_division_gate(
+            mode, 1.0, tau, 1.0, tau, 0.0, seed, 0, count,
+            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decay_division_gate: CUDA error {err}")
+    return tuple(int(x) for x in counts.cpu())

@@ -6,11 +6,12 @@ is no card.  Run them on the card with::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 
-Bands: decay reads <= 2 ULP from the plain version on the same device (0
-expected: both are IEEE float32 with the same ``expf``), comparator masks
-and support counts exact away from the threshold (and the fused support
-bitwise equal to the mask form's on the kernel's own mask), scatter
-results and
+Bands: ``ts_decay`` reads and masks bitwise the plain version's on the
+same device (both IEEE float32 with the same ``expf``; the kernel's
+corrected-reciprocal division is gated bitwise against ``__fdiv_rn`` over
+every dividend of the repo's taus and 2^32 random triples), support
+counts exact away from the threshold (and the fused support bitwise
+equal to the mask form's on the kernel's own mask), scatter results and
 ``decay_scan`` bitwise (one IEEE product and one IEEE sum per step on both
 sides).  The reduced Mamba-2 LM on the card sits within rtol = 1e-4,
 atol = 1e-4 x max(1, max|CPU|) of the CPU port in float32: the two
@@ -51,6 +52,10 @@ def _sae(device, seed=0, shape=SHAPE):
     return sae.to(device)
 
 
+def _same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _near(v, v_tw, radius):
     near = ref.ulp_distance(v, torch.full_like(v, v_tw)) <= 4
     return ref.stcf_support_ref(near, radius, include_self=True) > 0
@@ -65,9 +70,8 @@ def test_ts_decay_matches_plain(cuda, offset):
     v, m = ops.ts_decay_with_mask(sae, T_NOW, p, v_tw)
     vr, mr = ref.ts_decay_ref(sae, T_NOW, p, v_tw)
     assert _lib.LAUNCHES["ts_decay"] == before + 1
-    assert int(ref.ulp_distance(v, vr).max()) <= 2
-    far = ref.ulp_distance(vr, torch.full_like(vr, v_tw)) > 4
-    assert torch.equal(m[far], mr[far])
+    assert _same(v, vr)
+    assert torch.equal(m, mr)
     assert torch.equal(ops.ts_decay(sae, T_NOW, p), v)
 
 
@@ -83,8 +87,64 @@ def test_ts_decay_planes_matches_plain(cuda):
     planes = edram.DecayParams(*(x.float().to(cuda) for x in planes))
     sae = _sae(cuda, 2)
     v = ops.ts_decay(sae, T_NOW, planes)
-    assert int(ref.ulp_distance(v, ref.ts_decay_ref(sae, T_NOW, planes))
-               .max()) <= 2
+    assert _same(v, ref.ts_decay_ref(sae, T_NOW, planes))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (37, 61), (5, 1001), (16, 20)])
+@pytest.mark.parametrize("lead", [1, 3, 128])
+@pytest.mark.parametrize("offset", [0, 4])   # aligned, then 16 B off
+def test_ts_decay_planes_ragged_shapes_match_plain(cuda, hw, lead, offset):
+    """The plane form at planes whose length is not a multiple of 4 (1,
+    2257, 5005 cells: the scalar path) and one that is (320: float4
+    columns, or the scalar path where the tensors sit 4 floats off a
+    16-byte boundary), under 1, 3 and 128 leading planes, with and
+    without the comparator: bitwise the plain version."""
+    g = torch.Generator().manual_seed(lead * 7 + hw[0])
+    base = edram.decay_params_for_cmem()
+    v_tw = edram.v_tw_for_window(0.024, base)
+    eps = 1.0 + 0.05 * torch.randn((2,) + hw, generator=g)
+
+    def place(x):   # contiguous, ``offset`` floats into its buffer
+        buf = torch.zeros(x.numel() + offset, dtype=torch.float32)
+        buf[offset:] = x.flatten()
+        return buf.to(cuda)[offset:].view(x.shape)
+
+    planes = edram.DecayParams(*(place(x.float()) for x in (
+        torch.full(hw, float(base.a1)), float(base.tau1) / eps[0],
+        torch.full(hw, float(base.a2)), float(base.tau2) / eps[1],
+        torch.full(hw, float(base.b)))))
+    sae = place(_sae("cpu", 11, (lead,) + hw))
+    v, m = ops.ts_decay_with_mask(sae, T_NOW, planes, v_tw)
+    vr, mr = ref.ts_decay_ref(sae, T_NOW, planes, v_tw)
+    assert _same(v, vr)
+    assert torch.equal(m, mr)
+    assert _same(ops.ts_decay(sae, T_NOW, planes), vr)
+
+
+def _gate_taus():
+    """The taus the division gate runs exhaustively: both time constants
+    of the 20 fF fit and of the sweep's other default cmem (10 fF), the
+    ideal 5 ms and 24 ms surfaces (whose second constant is 1.0, a power
+    of two), the 1e-9 s clamp, and a significand of all ones."""
+    from repro_torch.core import representations as rep
+
+    fits = [edram.decay_params_for_cmem(c) for c in (20e-15, 10e-15)]
+    taus = [float(t) for p in fits for t in (p.tau1, p.tau2)]
+    taus += [float(rep.edram_ideal_params(t).tau1) for t in (0.005, 0.024)]
+    return taus + [1.0, 1e-9, 1.9999998807907104]
+
+
+def test_decay_division_gate(cuda):
+    """decay.cuh's corrected-reciprocal quotient against __fdiv_rn: 0
+    decay values and 0 quotients differ over all 2^32 dividend bit
+    patterns of each gated tau (the uniform form's host reciprocal) and
+    over 2^32 random (dividend, tau1, tau2) triples (the plane form's
+    clamp and card reciprocals)."""
+    from repro_torch.kernels.ts_decay import division_gate
+
+    for tau in _gate_taus():
+        assert division_gate(cuda, tau) == (0, 0), tau
+    assert division_gate(cuda, seed=17) == (0, 0)
 
 
 @pytest.mark.parametrize("radius", [0, 1, 3, 7, 16])

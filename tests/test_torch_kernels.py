@@ -15,6 +15,8 @@ Bands:
     a comparison there); fewer than 0.1% of cells may be excluded;
   * scatter results, counts and masks of equal inputs bitwise.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +108,94 @@ def test_ts_decay_interpret():
                                     block=(8, 128), backend="interpret"))
     got = tops.ts_decay(torch.from_numpy(sae), T_NOW, tp).numpy()
     assert _ulp(got, want).max() <= 2
+
+
+# (lead, plane, aligned): the smoke's pool, a ragged plane, a misaligned
+# pointer, one plane, few planes of a tiny plane, more groups than grid.y
+_LAUNCHES = [(128, 240 * 320, True), (3, 37 * 61, True), (128, 76800, False),
+             (1, 240 * 320, True), (3, 1, True), (1 << 20, 4, True),
+             (128, 5 * 1001, True), (5, 1024, True)]
+
+
+@pytest.mark.parametrize("lead, plane, aligned", _LAUNCHES)
+def test_ts_decay_planes_launch_shape(lead, plane, aligned):
+    """The plane form's launch shape: float4 columns only for an aligned
+    plane of a multiple of 4 cells, the plane covered by grid[0] blocks
+    with the ragged tail in the last one, the leading planes by grid[1]
+    groups of at most PLANE_GROUP (more only past the grid's y limit)."""
+    from repro_torch.kernels import ts_decay as tdk
+
+    vec4, group, (gx, gy) = tdk.planes_launch(lead, plane, aligned)
+    assert vec4 == (aligned and plane % 4 == 0)
+    per_block = tdk.THREADS * (4 if vec4 else 1)
+    assert (gx - 1) * per_block < plane <= gx * per_block
+    assert (gy - 1) * group < lead <= gy * group
+    assert gy <= tdk.MAX_GRID_Y and group >= 1
+    if lead <= tdk.MAX_GRID_Y:
+        assert group <= tdk.PLANE_GROUP
+    if group < tdk.PLANE_GROUP and lead > group:
+        # fewer planes a block only to keep the card's SMs fed
+        assert lead * gx // tdk.TARGET_BLOCKS < tdk.PLANE_GROUP
+
+
+def test_ts_decay_planes_launch_on_the_pool():
+    from repro_torch.kernels import ts_decay as tdk
+
+    assert tdk.planes_launch(128, 76800, True) == (True, 8, (75, 16))
+    assert tdk.planes_launch(128, 76800, False) == (False, 8, (300, 16))
+    assert tdk.planes_launch(3, 2257, True) == (False, 1, (9, 3))
+    assert tdk.planes_launch(1, 1, True) == (False, 1, (1, 1))
+
+
+def _rn32(x: Fraction) -> np.float32:
+    """``x`` rounded to the nearest float32, ties to even."""
+    near = np.float32(float(x))
+    if not np.isfinite(near):
+        return near
+    cands = [near, np.nextafter(near, np.float32(np.inf)),
+             np.nextafter(near, np.float32(-np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(c.view(np.uint32)) & 1))
+
+
+def _repo_taus():
+    fits = [tedram.decay_params_for_cmem(c) for c in (10e-15, 20e-15)]
+    ideal = [trep.edram_ideal_params(t) for t in (0.005, 0.024)]
+    taus = [float(p.tau1) for p in fits + ideal] + [float(p.tau2)
+                                                    for p in fits + ideal]
+    return taus + [1e-9, float(np.uint32(0x3FFFFFFF).view(np.float32)),
+                   2.0 ** -10]
+
+
+def test_corrected_reciprocal_quotient_is_ieee_division():
+    """decay.cuh's quotient of a fixed divisor, q = RN(x * rcp), r =
+    fma(-q, tau, x), q' = fma(r, rcp, q) with rcp = RN(1/tau), emulated
+    exactly with Fractions, against float32 division: the repo's taus
+    (both fits of the sweep's cmem grid, the ideal 5 and 24 ms surfaces,
+    the clamp, an all-ones significand, a power of two) and seeded
+    dividends in the range the kernel takes this path for."""
+    rng = np.random.default_rng(17)
+    ages = np.concatenate([rng.uniform(0.0, 0.2, 150),
+                           10.0 ** rng.uniform(-6, 3, 100)])
+    bits = ((rng.integers(60, 190, 100) << 23)
+            | rng.integers(0, 1 << 23, 100)).astype(np.uint32)
+    xs = np.concatenate([-ages, bits.view(np.float32)]).astype(np.float32)
+    in_range = lambda z: 2.0 ** -96 <= abs(float(z)) < 2.0 ** 126
+    taus = _repo_taus()   # the 10 fF fit takes ~1 s; the check ~0.2 s
+    checked = 0
+    for tau in map(np.float32, taus):
+        rcp = np.float32(1.0) / tau
+        for x in xs:
+            q = _rn32(Fraction(float(x)) * Fraction(float(rcp)))
+            if not (in_range(x) and in_range(q)):
+                continue   # the kernel takes __fdiv_rn there
+            r = _rn32(Fraction(float(x)) - Fraction(float(q)) * Fraction(
+                float(tau)))
+            q1 = _rn32(Fraction(float(r)) * Fraction(float(rcp))
+                       + Fraction(float(q)))
+            assert q1.view(np.uint32) == (x / tau).view(np.uint32), (x, tau)
+            checked += 1
+    assert checked > 0.9 * len(xs) * len(taus)
 
 
 @pytest.mark.parametrize("mode", ["edram", "ideal"])

@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Time variants of the ``stcf_support`` and ``chunk_scatter`` CUDA
-sources against each other on one card, in turns, on the inputs of
-``chip_smoke.py``'s kernel phase.
+"""Time variants of the ``ts_decay``, ``stcf_support`` and
+``chunk_scatter`` CUDA sources against each other on one card, in turns,
+on the inputs of ``chip_smoke.py``'s kernel phase.
 
     python3 tools/kernel_variants.py \\
+        --decay build/parent/src/repro_torch/kernels/csrc/ts_decay.cu \\
+        --decay src/repro_torch/kernels/csrc/ts_decay.cu:arith=copy \\
+        --decay src/repro_torch/kernels/csrc/ts_decay.cu:kUnroll=2 \\
         --stcf src/repro_torch/kernels/csrc/stcf.cu:kBandRows=48 \\
-        --stcf other/stcf.cu \\
-        --scatter src/repro_torch/kernels/csrc/ts_fused.cu \\
-        --scatter other/ts_fused.cu
+        --scatter src/repro_torch/kernels/csrc/ts_fused.cu
 
-Each ``--stcf`` / ``--scatter`` names a source file with the C entry
-points of ``csrc/stcf.cu`` / ``csrc/ts_fused.cu``, optionally followed by
-``:NAME=VALUE,...`` overrides of its ``constexpr int NAME = ...;``
-constants (a band height, a batch, a thread count).  Each variant is
-compiled with the port's ``nvcc`` flags into a library of its own, checked
-against the plain PyTorch version (both support forms at r = 3; all five
-scatter outputs bitwise), and timed with ``chip_smoke.Timer`` (median over
-launches, L2 flushed before each) in the order given and then in reverse,
-so every variant runs early and late.  Inputs: the smoke's engine (64
-slots of 2 x 240 x 320) after 9 deadlines of its seeded scenes; the
-support read of its SAE at t = 0.1 s; the scatter of its next 10 ms push
-and of the smoke's duplicate-heavy push.  Runs on the card only.
+Each ``--decay`` / ``--stcf`` / ``--scatter`` names a source file with the
+C entry points of ``csrc/ts_decay.cu`` / ``csrc/stcf.cu`` /
+``csrc/ts_fused.cu``, optionally followed by ``:NAME=VALUE,...``
+overrides of its ``constexpr int NAME = ...;`` constants (a band height,
+a batch, loads in flight).  A ``--decay`` variant also takes
+``arith=copy`` (every ``decay_cell`` call returns its input: the same
+loads and stores with no arithmetic, the bandwidth ceiling of that
+pattern) or ``arith=ieee`` (every ``decay_cell`` call becomes
+``decay_cell_ieee``: two ``__fdiv_rn`` a cell, the first version's
+arithmetic) and ``group=N`` (the plane form's leading planes per block,
+instead of ``planes_launch``'s).  Headers are taken from the source's own directory, so the
+parent tree's ``ts_decay.cu`` builds with its own ``decay.cuh``.  Each
+variant is compiled with the port's ``nvcc`` flags into a library of its
+own, checked against the plain PyTorch version (decay values bitwise,
+both support forms at r = 3, all five scatter outputs bitwise), and
+timed with ``chip_smoke.Timer`` (median over launches, L2 flushed before
+each) in the order given and then in reverse, so every variant runs
+early and late.  For each ``--decay`` variant it also prints each
+kernel's SASS instruction count and that of its longest loop, from
+``cuobjdump -sass``.  Inputs: the smoke's engine (64 slots of 2 x 240 x
+320) after 9 deadlines of its seeded scenes; the decay read of its SAE
+(uniform, with the comparator, and with (H, W) parameter planes of a
+seeded 5 % tau spread) and the support read at t = 0.1 s; the scatter of
+its next 10 ms push and of the smoke's duplicate-heavy push.  Runs on
+the card only.
 """
 from __future__ import annotations
 
@@ -50,6 +64,11 @@ def build(spec: str, out_dir: Path, names):
     text = Path(path).read_text()
     for kv in filter(None, over.split(",")):
         name, value = kv.split("=")
+        if name == "arith":
+            text = decay_arith(text, value)
+            continue
+        if name == "group":   # a launch argument, read by decay_variants
+            continue
         text, n = re.subn(rf"\b{name} = \d+;", f"{name} = {value};", text)
         if n != 1:
             raise ValueError(f"{spec}: {name} is not one constexpr of {path}")
@@ -57,7 +76,8 @@ def build(spec: str, out_dir: Path, names):
     cu = out_dir / f"{tag}.cu"
     cu.write_text(text)
     so = out_dir / f"{tag}.so"
-    r = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(_lib.CSRC),
+    r = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-I",
+                        str(Path(path).resolve().parent),
                         "-shared", str(cu), "-o", str(so)],
                        capture_output=True, text=True)
     if r.returncode:
@@ -69,7 +89,67 @@ def build(spec: str, out_dir: Path, names):
     for name in names:
         getattr(lib, name).argtypes = _lib._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
+    lib.so_path = so
     return lib
+
+
+def decay_arith(text: str, arith: str) -> str:
+    """``arith=copy`` / ``arith=ieee`` of a ``ts_decay.cu`` variant."""
+    if arith == "ieee":
+        return re.sub(r"\bdecay_cell\(", "decay_cell_ieee(", text)
+    if arith != "copy":
+        raise ValueError(f"arith={arith}: expected copy or ieee")
+    text = re.sub(r"\bdecay_cell\(", "decay_copy(", text)
+    return text.replace(
+        '#include "decay.cuh"\n', '#include "decay.cuh"\n\n'
+        "template <typename... A>\n__device__ __forceinline__ float "
+        "decay_copy(float s, A&&...) { return s; }\n", 1)
+
+
+def sass_report(so: Path) -> list:
+    """(kernel, SASS instructions, instructions of its longest loop,
+    MUFU / FCHK / CALL in that loop) for every kernel of a library, from
+    ``cuobjdump -sass``: a loop is the span from a backward branch's
+    target to the branch."""
+    from repro_torch.kernels import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+    out, name, ins, labels = [], None, [], {}
+
+    def close():
+        if name is None:
+            return
+        loop = (0, 0)
+        for at, (addr, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))", op)
+            if not m:
+                continue
+            target = int(m.group(1), 16) if m.group(1) else labels.get(
+                m.group(2), addr + 1)
+            if target <= addr:
+                start = next(i for i, (a, _) in enumerate(ins) if a >= target)
+                loop = max(loop, (at - start + 1, start))
+        body = [op for _, op in ins[loop[1]:loop[1] + loop[0]]]
+        kinds = {k: sum(bool(re.search(rf"\b{k}\b", op)) for op in body)
+                 for k in ("MUFU", "FCHK", "CALL")}
+        out.append((name, len(ins), loop[0], kinds))
+
+    for line in text.splitlines():
+        if "Function :" in line:
+            close()
+            name, ins, labels = line.split("Function :")[1].strip(), [], {}
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab and name is not None:
+            labels[lab.group(1)] = ins[-1][0] + 16 if ins else 0
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name is not None:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    close()
+    return out
 
 
 def call(lib, name, *args):
@@ -88,6 +168,7 @@ def in_turns(timer, fns: dict, **kw) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--decay", action="append", default=[])
     ap.add_argument("--stcf", action="append", default=[])
     ap.add_argument("--scatter", action="append", default=[])
     args = ap.parse_args()
@@ -120,6 +201,10 @@ def main() -> int:
         engine.push([(k, words[k % cs.N_SCENES][b]) for k in range(cs.S)])
     base = engine.state
     timer = cs.Timer(dev)
+
+    if args.decay:
+        decay_variants(args.decay, out_dir, timer, base.surfaces.sae,
+                       cfg.decay_params(), cfg.v_tw(), dev)
 
     if args.stcf:
         sae, t_now = base.surfaces.sae, 0.1
@@ -200,6 +285,83 @@ def main() -> int:
                 print(f"chunk_scatter {label} {k}: {np.mean(t):.4f} ms "
                       f"(turns {[round(x, 4) for x in t]})", flush=True)
     return 0
+
+
+def decay_variants(specs, out_dir, timer, sae, params, v_tw, dev):
+    """Build, check, time and disassemble the ``--decay`` variants."""
+    from repro_torch.core import edram
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels.ts_decay import planes_launch
+
+    t_now = 0.1
+    cells = sae.numel()
+    g = torch.Generator(device=dev).manual_seed(4)
+    eps = 1.0 + 0.05 * torch.randn((2, cs.H, cs.W), generator=g, device=dev)
+    full = lambda x: torch.full((cs.H, cs.W), float(x), device=dev)
+    planes = edram.DecayParams(full(params.a1), float(params.tau1) / eps[0],
+                               full(params.a2), float(params.tau2) / eps[1],
+                               full(params.b))
+    want = ref.ts_decay_ref(sae, t_now, params, v_tw)
+    want_p = ref.ts_decay_ref(sae, t_now, planes)
+    shape = planes_launch(cells // (cs.H * cs.W), cs.H * cs.W, True)
+    fns = {}
+    for spec in specs:
+        lib = build(spec, out_dir, ("ts_decay_uniform",))
+        # the first version's plane entry takes (n, plane) and no shape
+        new_iface = "int grid_x" in Path(spec.partition(":")[0]).read_text()
+        lib.ts_decay_planes.argtypes = (
+            _lib._SIGNATURES["ts_decay_planes"] if new_iface else
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        lib.ts_decay_planes.restype = ctypes.c_int
+
+        def uniform(_, lib=lib, with_mask=False):
+            out = torch.empty_like(sae)
+            mask = (torch.empty(sae.shape, dtype=torch.bool, device=dev)
+                    if with_mask else None)
+            call(lib, "ts_decay_uniform", sae.data_ptr(), out.data_ptr(),
+                 None if mask is None else mask.data_ptr(), cells, t_now,
+                 *(float(x) for x in params), float(v_tw))
+            return out, mask
+
+        over = dict(kv.split("=") for kv in spec.partition(":")[2].split(",")
+                    if kv)
+        lead = cells // (cs.H * cs.W)
+        grp = int(over.get("group", shape.group))
+        tail = ((int(shape.vec4), grp, shape.grid[0], -(-lead // grp))
+                if new_iface else ())
+
+        def plane_form(_, lib=lib, new_iface=new_iface, tail=tail):
+            out = torch.empty_like(sae)
+            plane = cs.H * cs.W
+            call(lib, "ts_decay_planes", sae.data_ptr(), out.data_ptr(), None,
+                 lead if new_iface else cells, plane, t_now,
+                 *(x.data_ptr() for x in planes), 0.0, *tail)
+            return out
+
+        v, _ = uniform(None)
+        _, m = uniform(None, with_mask=True)
+        print(f"ts_decay {spec}: uniform == plain version bitwise: "
+              f"{cs.same(v, want[0])}; mask == plain: "
+              f"{torch.equal(m, want[1])}; planes == plain bitwise: "
+              f"{cs.same(plane_form(None), want_p)}", flush=True)
+        for name, total, loop, kinds in sass_report(lib.so_path):
+            if "decay" in name:
+                print(f"  sass {name}: {total} instructions, longest loop "
+                      f"{loop} ({kinds})", flush=True)
+        fns[spec] = (uniform, lambda _, u=uniform: u(_, with_mask=True),
+                     plane_form)
+    dst = torch.empty_like(sae)
+    t = timer(lambda _: dst.copy_(sae), 30)
+    print(f"torch copy_ of the SAE (the library's device-to-device copy, "
+          f"8 B a cell): {t:.4f} ms, {8 * cells / (t * 1e-3) / 1e9:.0f} "
+          f"GB/s", flush=True)
+    for i, form in enumerate(("uniform", "with mask", "planes")):
+        times = in_turns(timer, {k: v[i] for k, v in fns.items()})
+        for k, t in times.items():
+            gbs = (8 + (i == 1)) * cells / (np.mean(t) * 1e-3) / 1e9
+            print(f"ts_decay {form} {k}: {np.mean(t):.4f} ms, {gbs:.0f} GB/s "
+                  f"(turns {[round(x, 4) for x in t]})", flush=True)
 
 
 if __name__ == "__main__":
