@@ -41,14 +41,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 1;         // 16-byte loads a thread issues at once
-constexpr int kPrefetch = 1;       // 1: the next loads in flight while it
-                                   // computes (0: after it stores)
-constexpr int kStreaming = 1;      // 1: __ldcs / __stcs (0: plain)
-constexpr int kWaves = 2;          // grid cap in waves of resident blocks
-                                   // (0: no cap, one float4 batch a thread)
-constexpr int kPlaneUnroll = 2;    // leading planes in flight per thread
-constexpr int kPlaneMinBlocks = 0; // __launch_bounds__ minimum (0: none)
+constexpr int kPlaneUnroll = 1;    // leading planes in flight per thread
 
 int sm_count() {
   static int sms = 0;
@@ -59,33 +52,6 @@ int sm_count() {
     if (sms <= 0) sms = 132;
   }
   return sms;
-}
-
-// Blocks of kThreads of `kernel` resident on the whole card.
-template <typename K>
-int resident_blocks(K kernel) {
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    0) != cudaSuccess ||
-      per_sm <= 0) {
-    per_sm = 1;
-  }
-  return per_sm * sm_count();
-}
-
-template <typename T>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (kStreaming) return __ldcs(p);
-  return *p;
-}
-
-template <typename T>
-__device__ __forceinline__ void store(T* p, T v) {
-  if constexpr (kStreaming) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
 }
 
 __device__ __forceinline__ float4 decay4(float4 s, float t_now,
@@ -99,54 +65,27 @@ __device__ __forceinline__ uint32_t mask4(float4 v, float v_tw) {
          uint32_t(v.z > v_tw) << 16 | uint32_t(v.w > v_tw) << 24;
 }
 
-// float4s i0, i0 + stride, ... (kUnroll of them, those below n4) of s4.
-__device__ __forceinline__ void load_batch(const float4* s4, int64_t i0,
-                                           int64_t stride, int64_t n4,
-                                           float4 (&s)[kUnroll]) {
-#pragma unroll
-  for (int j = 0; j < kUnroll; ++j) {
-    if (i0 + j * stride < n4) s[j] = load(s4 + i0 + j * stride);
-  }
-}
-
+// One pass: thread i < n4 reads float4 i (vec4), the next n % 4 threads
+// the cells past the last float4; without vec4 (n4 = 0) thread i reads
+// cell i.
 template <bool kMask>
 __global__ void __launch_bounds__(kThreads)
     decay_uniform_kernel(const float* __restrict__ sae, float* __restrict__ out,
-                         uint8_t* __restrict__ mask, int64_t n, float t_now,
-                         DecayConsts c, float v_tw, bool vec4) {
-  const int64_t stride = int64_t(gridDim.x) * kThreads;
-  const int64_t first = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  int64_t tail = 0;
-  if (vec4) {
-    const int64_t n4 = n >> 2;
-    const int64_t step = kUnroll * stride;
-    const float4* s4 = reinterpret_cast<const float4*>(sae);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    uint32_t* m4 = reinterpret_cast<uint32_t*>(mask);
-    float4 next[kUnroll];
-    load_batch(s4, first, stride, n4, next);
-    for (int64_t i0 = first; i0 < n4; i0 += step) {
-      float4 s[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) s[j] = next[j];
-      if (kPrefetch) load_batch(s4, i0 + step, stride, n4, next);
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        const int64_t i = i0 + j * stride;
-        if (i < n4) {
-          const float4 v = decay4(s[j], t_now, c);
-          store(o4 + i, v);
-          if (kMask) store(m4 + i, mask4(v, v_tw));
-        }
-      }
-      if (!kPrefetch) load_batch(s4, i0 + step, stride, n4, next);
-    }
-    tail = n4 << 2;
+                         uint8_t* __restrict__ mask, int64_t n, int64_t n4,
+                         float t_now, DecayConsts c, float v_tw) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n4) {
+    const float4 v =
+        decay4(__ldcs(reinterpret_cast<const float4*>(sae) + i), t_now, c);
+    __stcs(reinterpret_cast<float4*>(out) + i, v);
+    if (kMask) __stcs(reinterpret_cast<uint32_t*>(mask) + i, mask4(v, v_tw));
+    return;
   }
-  for (int64_t i = tail + first; i < n; i += stride) {
-    const float v = decay_cell(sae[i], t_now, c);
-    out[i] = v;
-    if (kMask) mask[i] = v > v_tw;
+  const int64_t k = 4 * n4 + (i - n4);
+  if (k < n) {
+    const float v = decay_cell(__ldcs(sae + k), t_now, c);
+    __stcs(out + k, v);
+    if (kMask) mask[k] = v > v_tw;
   }
 }
 
@@ -155,8 +94,7 @@ __global__ void __launch_bounds__(kThreads)
 // driver clamps them.  kVec: a thread owns 4 neighbouring cells of the
 // plane (plane % 4 == 0, every pointer aligned), else one.
 template <bool kMask, bool kVec>
-__global__ void __launch_bounds__(kThreads,
-                                  kPlaneMinBlocks > 0 ? kPlaneMinBlocks : 1)
+__global__ void __launch_bounds__(kThreads)
     decay_planes_kernel(const float* __restrict__ sae, float* __restrict__ out,
                         uint8_t* __restrict__ mask, int64_t lead,
                         int64_t plane, int group, float t_now,
@@ -168,12 +106,6 @@ __global__ void __launch_bounds__(kThreads,
   constexpr int kW = kVec ? 4 : 1;
   const int64_t k = (int64_t(blockIdx.x) * kThreads + threadIdx.x) * kW;
   if (k >= plane) return;
-  DecayConsts c[kW];
-#pragma unroll
-  for (int e = 0; e < kW; ++e) {
-    c[e] = decay_consts(a1[k + e], fmaxf(tau1[k + e], 1e-9f), a2[k + e],
-                        fmaxf(tau2[k + e], 1e-9f), b[k + e]);
-  }
   const int64_t p0 = int64_t(blockIdx.y) * group;
   const int64_t p1 = p0 + group < lead ? p0 + group : lead;
   // the cells of planes p .. p + kPlaneUnroll - 1 (those below p1)
@@ -183,19 +115,25 @@ __global__ void __launch_bounds__(kThreads,
       if (p + j < p1) {
         const float* src = sae + (p + j) * plane + k;
         if constexpr (kVec) {
-          const float4 q = load(reinterpret_cast<const float4*>(src));
+          const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
           s[j][0] = q.x;
           s[j][1] = q.y;
           s[j][2] = q.z;
           s[j][3] = q.w;
         } else {
-          s[j][0] = load(src);
+          s[j][0] = __ldcs(src);
         }
       }
     }
   };
   float next[kPlaneUnroll][kW];
-  load_planes(p0, next);
+  load_planes(p0, next);   // in flight while the constants are made
+  DecayConsts c[kW];
+#pragma unroll
+  for (int e = 0; e < kW; ++e) {
+    c[e] = decay_consts(a1[k + e], fmaxf(tau1[k + e], 1e-9f), a2[k + e],
+                        fmaxf(tau2[k + e], 1e-9f), b[k + e]);
+  }
   for (int64_t p = p0; p < p1; p += kPlaneUnroll) {
     float s[kPlaneUnroll][kW];
 #pragma unroll
@@ -203,7 +141,7 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int e = 0; e < kW; ++e) s[j][e] = next[j][e];
     }
-    if (kPrefetch) load_planes(p + kPlaneUnroll, next);
+    load_planes(p + kPlaneUnroll, next);   // the next planes in flight
 #pragma unroll
     for (int j = 0; j < kPlaneUnroll; ++j) {
       if (p + j < p1) {
@@ -213,16 +151,16 @@ __global__ void __launch_bounds__(kThreads,
         for (int e = 0; e < kW; ++e) v[e] = decay_cell(s[j][e], t_now, c[e]);
         if constexpr (kVec) {
           const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
-          store(reinterpret_cast<float4*>(out + at), v4);
-          if (kMask) store(reinterpret_cast<uint32_t*>(mask + at),
-                           mask4(v4, v_tw));
+          __stcs(reinterpret_cast<float4*>(out + at), v4);
+          if (kMask) {
+            __stcs(reinterpret_cast<uint32_t*>(mask + at), mask4(v4, v_tw));
+          }
         } else {
-          store(out + at, v[0]);
+          __stcs(out + at, v[0]);
           if (kMask) mask[at] = v[0] > v_tw;
         }
       }
     }
-    if (!kPrefetch) load_planes(p + kPlaneUnroll, next);
   }
 }
 
@@ -315,20 +253,16 @@ int ts_decay_uniform(const float* sae, float* out, uint8_t* mask, long long n,
   const bool vec4 = (reinterpret_cast<uintptr_t>(sae) % 16 == 0) &&
                     (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
                     (reinterpret_cast<uintptr_t>(mask) % 4 == 0);
-  static const int cap[2] = {
-      kWaves * resident_blocks(decay_uniform_kernel<false>),
-      kWaves * resident_blocks(decay_uniform_kernel<true>)};
-  const int64_t per_block = int64_t(kThreads) * (vec4 ? 4 * kUnroll : 1);
-  int64_t grid = (n + per_block - 1) / per_block;
-  if (kWaves > 0 && grid > cap[mask != nullptr]) grid = cap[mask != nullptr];
-  if (grid < 1) grid = 1;
+  const int64_t n4 = vec4 ? n >> 2 : 0;
+  const int64_t threads = n4 + (n - 4 * n4);
+  const int64_t grid = (threads + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask) {
-    decay_uniform_kernel<true><<<int(grid), kThreads, 0, s>>>(
-        sae, out, mask, n, t_now, c, v_tw, vec4);
+    decay_uniform_kernel<true><<<unsigned(grid), kThreads, 0, s>>>(
+        sae, out, mask, n, n4, t_now, c, v_tw);
   } else {
-    decay_uniform_kernel<false><<<int(grid), kThreads, 0, s>>>(
-        sae, out, mask, n, t_now, c, v_tw, vec4);
+    decay_uniform_kernel<false><<<unsigned(grid), kThreads, 0, s>>>(
+        sae, out, mask, n, n4, t_now, c, v_tw);
   }
   return static_cast<int>(cudaGetLastError());
 }
