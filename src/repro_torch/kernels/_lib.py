@@ -49,7 +49,7 @@ _SIGNATURES = {
     "ts_decay_uniform": [_P, _P, _P, _LL] + [_F] * 7 + [_P],
     "ts_decay_planes": [_P, _P, _P, _LL, _LL, _F] + [_P] * 5
     + [_F] + [_I] * 4 + [_P],
-    "decay_division_gate": [_I] + [_F] * 5 + [_ULL] * 3 + [_P, _P],
+    "decay_division_gate": [_I] + [_F] * 5 + [_ULL] * 2 + [_P, _P],
     "stcf_support_mask": [_P, _P] + [_I] * 5 + [_P],
     "stcf_support_fused": [_P, _P] + [_I] * 5 + [_F] * 7 + [_P],
     "chunk_scatter": [_P] + [_I] * 4 + [_P] * 6 + [_I, _I, _P, _I, _I]

@@ -1,7 +1,7 @@
 // ts_decay: the time-surface decay read over a whole slot pool, with the
 // STCF comparator optionally fused.
 //
-// Replaces the TPU kernel in src/repro/kernels/ts_decay.py: the uniform
+// Replaces the TPU kernels in src/repro/kernels/ts_decay.py: the uniform
 // form replaces _uniform_kernel, the (H, W) parameter-plane form
 // _varied_kernel (both driven by ts_decay_pallas, which vmaps them over
 // the leading slot/polarity dims).  Here the leading dims are part of one
@@ -10,28 +10,36 @@
 //
 // Bound: device-memory bytes.  A cell reads 4 B and writes 4 B (one more
 // byte with the mask) against ~12 float operations, far below the card's
-// operations-per-byte balance.  The first version launched 16 blocks of
-// 256 threads per SM (twice what is resident) with one 16-byte load in
-// flight per thread, two __fdiv_rn per cell, and, for planes, a 64-bit
-// `i % plane` and five scalar parameter loads per cell.  What bound each
-// form on the H100 is in PERF.md (PR 17: a copy kernel of the same
-// pattern, the old arithmetic on the new launch shape, SASS counts).
-// The design:
-//   * Uniform form: a grid of exactly the resident blocks
-//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, once), each thread
-//     issuing kUnroll streaming 16-byte loads (__ldcs) before it computes,
-//     then streaming stores (__stcs) of the values and of 4 mask bytes.
-//     An unaligned tensor, and the last n % 4 cells, take a scalar loop.
-//   * Plane form: a 2-D grid.  blockIdx.x runs over the plane in float4
+// operations-per-byte balance.  What bound each form on an H100 was
+// measured with tools/kernel_variants.py --decay (PERF.md, PR 17), where
+// an `arith=copy` variant keeps a kernel's loads and stores and drops its
+// arithmetic:
+//   * Uniform form: bytes, not issue.  The first version (a grid-stride
+//     loop capped at 16 blocks of 256 threads an SM, one 16-byte load in
+//     flight a thread; 936 SASS instructions, 275 in its loop of 4 cells)
+//     ran within 6 % of a copy of its own pattern.  More loads in flight
+//     a thread did not help; the pattern did: one pass of one float4 a
+//     thread, with streaming loads and stores (__ldcs / __stcs: each byte
+//     is touched once), reaches the copy ceiling, as fast as PyTorch's
+//     device-to-device copy of the same bytes.  The mask goes out as 4
+//     bytes a store.  An unaligned tensor takes one cell a thread, and
+//     the last n % 4 cells of an aligned one go to n % 4 extra threads.
+//   * Plane form: the first version's indexing (a 64-bit `i % plane`, five
+//     scalar parameter loads, two clamps a cell) ran at 60 % of its copy
+//     ceiling.  Now a 2-D grid: blockIdx.x runs over the plane in float4
 //     columns (single cells where the wrapper found the plane length not
 //     a multiple of 4 or a pointer misaligned), blockIdx.y over groups of
-//     `group` leading planes.  A thread loads its columns' five
-//     parameters once, clamps each tau once and takes its reciprocals
-//     once, then walks its group's planes kUnroll at a time.  No 64-bit
-//     division anywhere; the wrapper picks the shape (ts_decay.py:
-//     planes_launch).
-//   * Both: decay.cuh's corrected-reciprocal quotient instead of two
-//     __fdiv_rn per cell, bitwise equal (decay_division_gate below).
+//     `group` leading planes.  A thread loads and clamps its columns'
+//     parameters once, then walks its group's planes with the next
+//     plane's load in flight; no division by the plane length anywhere.
+//     The wrapper picks the shape (ts_decay.py: planes_launch).  Holding
+//     five parameters a cell in registers bounds its occupancy; it runs
+//     within 7 % of a copy of its pattern.
+//   * Division: the uniform form uses decay.cuh's corrected-reciprocal
+//     quotient (reciprocals taken once, by the launcher); the plane form
+//     keeps __fdiv_rn, since two more registers a cell cost it more than
+//     the division saves.  Both are bitwise the plain version; the
+//     quotient is gated against __fdiv_rn by decay_division_gate below.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -41,7 +49,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPlaneUnroll = 1;    // leading planes in flight per thread
 
 int sm_count() {
   static int sms = 0;
@@ -92,7 +99,11 @@ __global__ void __launch_bounds__(kThreads)
 // Per-cell parameter planes of `plane` cells, broadcast over `lead`
 // leading planes; time constants clamped at 1e-9 s, as the TPU kernel's
 // driver clamps them.  kVec: a thread owns 4 neighbouring cells of the
-// plane (plane % 4 == 0, every pointer aligned), else one.
+// plane (plane % 4 == 0, every pointer aligned), else one.  It walks
+// leading planes p0 .. p1 - 1 with the next plane's load in flight while
+// it decays the current one, by __fdiv_rn (decay_cell_ieee): the
+// corrected quotient's two reciprocals a cell cost 8 registers a thread
+// here and measured slower (PERF.md).
 template <bool kMask, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     decay_planes_kernel(const float* __restrict__ sae, float* __restrict__ out,
@@ -108,58 +119,43 @@ __global__ void __launch_bounds__(kThreads)
   if (k >= plane) return;
   const int64_t p0 = int64_t(blockIdx.y) * group;
   const int64_t p1 = p0 + group < lead ? p0 + group : lead;
-  // the cells of planes p .. p + kPlaneUnroll - 1 (those below p1)
-  auto load_planes = [&](int64_t p, float (&s)[kPlaneUnroll][kW]) {
-#pragma unroll
-    for (int j = 0; j < kPlaneUnroll; ++j) {
-      if (p + j < p1) {
-        const float* src = sae + (p + j) * plane + k;
-        if constexpr (kVec) {
-          const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
-          s[j][0] = q.x;
-          s[j][1] = q.y;
-          s[j][2] = q.z;
-          s[j][3] = q.w;
-        } else {
-          s[j][0] = __ldcs(src);
-        }
-      }
+  auto load_plane = [&](int64_t p, float (&s)[kW]) {
+    const float* src = sae + p * plane + k;
+    if constexpr (kVec) {
+      const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
+      s[0] = q.x;
+      s[1] = q.y;
+      s[2] = q.z;
+      s[3] = q.w;
+    } else {
+      s[0] = __ldcs(src);
     }
   };
-  float next[kPlaneUnroll][kW];
-  load_planes(p0, next);   // in flight while the constants are made
+  float next[kW];
+  load_plane(p0, next);   // in flight while the constants are made
   DecayConsts c[kW];
 #pragma unroll
   for (int e = 0; e < kW; ++e) {
-    c[e] = decay_consts(a1[k + e], fmaxf(tau1[k + e], 1e-9f), a2[k + e],
-                        fmaxf(tau2[k + e], 1e-9f), b[k + e]);
+    c[e] = DecayConsts{a1[k + e], fmaxf(tau1[k + e], 1e-9f), a2[k + e],
+                       fmaxf(tau2[k + e], 1e-9f), b[k + e], 0.0f, 0.0f};
   }
-  for (int64_t p = p0; p < p1; p += kPlaneUnroll) {
-    float s[kPlaneUnroll][kW];
+  for (int64_t p = p0; p < p1; ++p) {
+    float v[kW];
 #pragma unroll
-    for (int j = 0; j < kPlaneUnroll; ++j) {
+    for (int e = 0; e < kW; ++e) v[e] = next[e];
+    if (p + 1 < p1) load_plane(p + 1, next);
 #pragma unroll
-      for (int e = 0; e < kW; ++e) s[j][e] = next[j][e];
-    }
-    load_planes(p + kPlaneUnroll, next);   // the next planes in flight
-#pragma unroll
-    for (int j = 0; j < kPlaneUnroll; ++j) {
-      if (p + j < p1) {
-        const int64_t at = (p + j) * plane + k;
-        float v[kW];
-#pragma unroll
-        for (int e = 0; e < kW; ++e) v[e] = decay_cell(s[j][e], t_now, c[e]);
-        if constexpr (kVec) {
-          const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
-          __stcs(reinterpret_cast<float4*>(out + at), v4);
-          if (kMask) {
-            __stcs(reinterpret_cast<uint32_t*>(mask + at), mask4(v4, v_tw));
-          }
-        } else {
-          __stcs(out + at, v[0]);
-          if (kMask) mask[at] = v[0] > v_tw;
-        }
+    for (int e = 0; e < kW; ++e) v[e] = decay_cell_ieee(v[e], t_now, c[e]);
+    const int64_t at = p * plane + k;
+    if constexpr (kVec) {
+      const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
+      __stcs(reinterpret_cast<float4*>(out + at), v4);
+      if (kMask) {
+        __stcs(reinterpret_cast<uint32_t*>(mask + at), mask4(v4, v_tw));
       }
+    } else {
+      __stcs(out + at, v[0]);
+      if (kMask) mask[at] = v[0] > v_tw;
     }
   }
 }
@@ -188,17 +184,16 @@ __device__ __forceinline__ bool same_quotient(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b) || (a == 0.0f && b == 0.0f);
 }
 
-// mode 0: the dividends of cells first .. first + count - 1 are the float
-// bit patterns of those indices (mod 2^32), every one against the launch's
-// uniform constants `u`.  mode 1: each cell draws a dividend and two
-// positive time constants from `seed` and takes the plane form's
-// constants (clamp, reciprocals on the card).  Counts the cells whose
-// decay value (counts[0]) or either quotient (counts[1], +0 == -0)
+// mode 0: the dividends of cells 0 .. count - 1 are the float bit
+// patterns of those indices (mod 2^32), every one against the launch's
+// uniform constants `u` (reciprocals taken on the host).  mode 1: each
+// cell draws a dividend and two positive time constants from `seed`
+// (clamped at 1e-9 s, reciprocals taken on the card).  Counts the cells
+// whose decay value (counts[0]) or either quotient (counts[1], +0 == -0)
 // differs between decay_cell and the __fdiv_rn arithmetic.
 __global__ void __launch_bounds__(kThreads)
     division_gate_kernel(int mode, DecayConsts u, uint64_t seed,
-                         uint64_t first, uint64_t count,
-                         unsigned long long* counts) {
+                         uint64_t count, unsigned long long* counts) {
   unsigned long long bad_v = 0, bad_q = 0;
   const uint64_t stride = uint64_t(gridDim.x) * kThreads;
   for (uint64_t i = uint64_t(blockIdx.x) * kThreads + threadIdx.x; i < count;
@@ -206,10 +201,10 @@ __global__ void __launch_bounds__(kThreads)
     float x;
     DecayConsts c = u;
     if (mode == 0) {
-      x = __uint_as_float(uint32_t(first + i));
+      x = __uint_as_float(uint32_t(i));
     } else {
-      const uint64_t r1 = mix64(seed ^ ((first + i) << 1));
-      const uint64_t r2 = mix64(seed ^ ((first + i) << 1 | 1));
+      const uint64_t r1 = mix64(seed ^ (i << 1));
+      const uint64_t r2 = mix64(seed ^ (i << 1 | 1));
       x = __uint_as_float(uint32_t(r1));
       c = decay_consts(u.a1, fmaxf(__uint_as_float(uint32_t(r1 >> 32) >> 1),
                                    1e-9f),
@@ -292,16 +287,16 @@ int ts_decay_planes(const float* sae, float* out, uint8_t* mask,
 }
 
 // The card check of decay.cuh's corrected quotient (division_gate_kernel):
-// adds the mismatches of cells first .. first + count - 1 to counts[0]
-// (decay values) and counts[1] (quotients), device memory.
+// adds the mismatches of cells 0 .. count - 1 to counts[0] (decay values)
+// and counts[1] (quotients), device memory.
 int decay_division_gate(int mode, float a1, float tau1, float a2, float tau2,
                         float b, unsigned long long seed,
-                        unsigned long long first, unsigned long long count,
-                        unsigned long long* counts, void* stream) {
+                        unsigned long long count, unsigned long long* counts,
+                        void* stream) {
   const DecayConsts c = decay_consts(a1, tau1, a2, tau2, b);
   division_gate_kernel<<<sm_count() * 8, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      mode, c, seed, first, count, counts);
+      mode, c, seed, count, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -95,8 +95,8 @@ def division_gate(device, tau=None, count: int = 1 << 32, seed: int = 0):
     float bit patterns (all 2^32 by default) as the dividend ``x``, the
     uniform form's constants with ``tau`` as both time constants (its
     reciprocal taken on the host); without: ``count`` dividends and
-    pairs of positive time constants drawn from ``seed``, the plane
-    form's constants (clamped, reciprocals taken on the card).  Returns
+    pairs of positive time constants drawn from ``seed`` (clamped at
+    1e-9 s, reciprocals taken on the card).  Returns
     (decay values that differ bitwise, quotients that differ).  Not a
     path kernel: counts no launch."""
     lib, _ = _lib.library()
@@ -104,7 +104,7 @@ def division_gate(device, tau=None, count: int = 1 << 32, seed: int = 0):
     counts = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = lib.decay_division_gate(
-            mode, 1.0, tau, 1.0, tau, 0.0, seed, 0, count,
+            mode, 1.0, tau, 1.0, tau, 0.0, seed, count,
             counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"decay_division_gate: CUDA error {err}")

@@ -138,8 +138,8 @@ def test_decay_division_gate(cuda):
     """decay.cuh's corrected-reciprocal quotient against __fdiv_rn: 0
     decay values and 0 quotients differ over all 2^32 dividend bit
     patterns of each gated tau (the uniform form's host reciprocal) and
-    over 2^32 random (dividend, tau1, tau2) triples (the plane form's
-    clamp and card reciprocals)."""
+    over 2^32 random (dividend, tau1, tau2) triples (clamped at 1e-9 s,
+    reciprocals taken on the card)."""
     from repro_torch.kernels.ts_decay import division_gate
 
     for tau in _gate_taus():

@@ -6,7 +6,7 @@ on the inputs of ``chip_smoke.py``'s kernel phase.
     python3 tools/kernel_variants.py \\
         --decay build/parent/src/repro_torch/kernels/csrc/ts_decay.cu \\
         --decay src/repro_torch/kernels/csrc/ts_decay.cu:arith=copy \\
-        --decay src/repro_torch/kernels/csrc/ts_decay.cu:kUnroll=2 \\
+        --decay src/repro_torch/kernels/csrc/ts_decay.cu:arith=ieee \\
         --stcf src/repro_torch/kernels/csrc/stcf.cu:kBandRows=48 \\
         --scatter src/repro_torch/kernels/csrc/ts_fused.cu
 
@@ -15,26 +15,26 @@ C entry points of ``csrc/ts_decay.cu`` / ``csrc/stcf.cu`` /
 ``csrc/ts_fused.cu``, optionally followed by ``:NAME=VALUE,...``
 overrides of its ``constexpr int NAME = ...;`` constants (a band height,
 a batch, loads in flight).  A ``--decay`` variant also takes
-``arith=copy`` (every ``decay_cell`` call returns its input: the same
-loads and stores with no arithmetic, the bandwidth ceiling of that
-pattern) or ``arith=ieee`` (every ``decay_cell`` call becomes
-``decay_cell_ieee``: two ``__fdiv_rn`` a cell, the first version's
-arithmetic) and ``group=N`` (the plane form's leading planes per block,
-instead of ``planes_launch``'s).  Headers are taken from the source's own directory, so the
-parent tree's ``ts_decay.cu`` builds with its own ``decay.cuh``.  Each
-variant is compiled with the port's ``nvcc`` flags into a library of its
-own, checked against the plain PyTorch version (decay values bitwise,
-both support forms at r = 3, all five scatter outputs bitwise), and
-timed with ``chip_smoke.Timer`` (median over launches, L2 flushed before
-each) in the order given and then in reverse, so every variant runs
-early and late.  For each ``--decay`` variant it also prints each
-kernel's SASS instruction count and that of its longest loop, from
-``cuobjdump -sass``.  Inputs: the smoke's engine (64 slots of 2 x 240 x
-320) after 9 deadlines of its seeded scenes; the decay read of its SAE
-(uniform, with the comparator, and with (H, W) parameter planes of a
-seeded 5 % tau spread) and the support read at t = 0.1 s; the scatter of
-its next 10 ms push and of the smoke's duplicate-heavy push.  Runs on
-the card only.
+``arith=copy`` (every ``decay_cell`` and ``decay_cell_ieee`` call returns
+its input: the same loads and stores with no arithmetic, the bandwidth
+ceiling of that pattern), ``arith=ieee`` (every ``decay_cell`` call
+becomes ``decay_cell_ieee``: two ``__fdiv_rn`` a cell, the first
+version's arithmetic) and ``group=N`` (the plane form's leading planes
+per block, instead of ``planes_launch``'s).  Headers are taken from the
+source's own directory, so the parent tree's ``ts_decay.cu`` builds with
+its own ``decay.cuh``.  Each variant is compiled with the port's
+``nvcc`` flags into a library of its own, checked against the plain
+PyTorch version (decay values bitwise, both support forms at r = 3, all
+five scatter outputs bitwise), and timed with ``chip_smoke.Timer``
+(median over launches, L2 flushed before each) in the order given and
+then in reverse, so every variant runs early and late.  For each
+``--decay`` variant it also prints each kernel's SASS instruction count
+and that of its longest loop, from ``cuobjdump -sass``.  Inputs: the
+smoke's engine (64 slots of 2 x 240 x 320) after 9 deadlines of its
+seeded scenes; the decay read of its SAE (uniform, with the comparator,
+and with (H, W) parameter planes of a seeded 5 % tau spread) and the
+support read at t = 0.1 s; the scatter of its next 10 ms push and of the
+smoke's duplicate-heavy push.  Runs on the card only.
 """
 from __future__ import annotations
 
@@ -99,7 +99,7 @@ def decay_arith(text: str, arith: str) -> str:
         return re.sub(r"\bdecay_cell\(", "decay_cell_ieee(", text)
     if arith != "copy":
         raise ValueError(f"arith={arith}: expected copy or ieee")
-    text = re.sub(r"\bdecay_cell\(", "decay_copy(", text)
+    text = re.sub(r"\bdecay_cell(_ieee)?\(", "decay_copy(", text)
     return text.replace(
         '#include "decay.cuh"\n', '#include "decay.cuh"\n\n'
         "template <typename... A>\n__device__ __forceinline__ float "
