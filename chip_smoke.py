@@ -575,26 +575,12 @@ def split_pass(eng, cfg, frame, words, scene_of):
         f"{np.median(r[0::2, 2]):.3f}, incremental {np.median(r[1::2, 2]):.3f})")
 
 
-def gate_taus():
-    """The taus the division gate runs over every dividend: both time
-    constants of the 20 fF fit and of the sweep's other default cmem (10
-    fF), the ideal 5 ms and 24 ms surfaces (whose second constant is 1.0,
-    a power of two), the 1e-9 s clamp, and a significand of all ones."""
-    from repro_torch.core import edram
-    from repro_torch.core import representations as rep
-
-    fits = [edram.decay_params_for_cmem(c) for c in (20e-15, 10e-15)]
-    taus = [float(t) for p in fits for t in (p.tau1, p.tau2)]
-    taus += [float(rep.edram_ideal_params(t).tau1) for t in (0.005, 0.024)]
-    return taus + [1.0, 1e-9, 1.9999998807907104]
-
-
 def division_gate_phase(dev) -> dict:
     """decay.cuh's corrected-reciprocal quotient against ``__fdiv_rn`` on
     the card: every float32 dividend of each of ``gate_taus()``, then
     2^32 random (dividend, tau1, tau2) triples; 0 mismatches in the decay
     value or the quotient."""
-    from repro_torch.kernels.ts_decay import division_gate
+    from repro_torch.kernels.ts_decay import division_gate, gate_taus
 
     t0 = time.perf_counter()
     found = {f"{tau!r}": division_gate(dev, tau) for tau in gate_taus()}

@@ -50,17 +50,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
 __device__ __forceinline__ float4 decay4(float4 s, float t_now,
                                          const DecayConsts& c) {
   return make_float4(decay_cell(s.x, t_now, c), decay_cell(s.y, t_now, c),
@@ -294,7 +283,7 @@ int decay_division_gate(int mode, float a1, float tau1, float a2, float tau2,
                         unsigned long long count, unsigned long long* counts,
                         void* stream) {
   const DecayConsts c = decay_consts(a1, tau1, a2, tau2, b);
-  division_gate_kernel<<<sm_count() * 8, kThreads, 0,
+  division_gate_kernel<<<4096, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       mode, c, seed, count, counts);
   return static_cast<int>(cudaGetLastError());

@@ -88,6 +88,21 @@ def ts_decay_cuda(sae: torch.Tensor, t_now, params,
     return out if mask is None else (out, mask)
 
 
+def gate_taus() -> list:
+    """The time constants the division gate runs over every dividend:
+    both constants of the 20 fF fit and of the sweep's other default
+    cmem (10 fF), the ideal 5 ms and 24 ms surfaces (whose second
+    constant is 1.0, a power of two), the 1e-9 s clamp, and a significand
+    of all ones."""
+    from repro_torch.core import edram, representations
+
+    fits = [edram.decay_params_for_cmem(c) for c in (20e-15, 10e-15)]
+    taus = [float(t) for p in fits for t in (p.tau1, p.tau2)]
+    taus += [float(representations.edram_ideal_params(t).tau1)
+             for t in (0.005, 0.024)]
+    return taus + [1.0, 1e-9, 1.9999998807907104]
+
+
 def division_gate(device, tau=None, count: int = 1 << 32, seed: int = 0):
     """The card check of the decay's corrected-reciprocal quotient
     (``csrc/decay.cuh``) against the ``__fdiv_rn`` arithmetic, on

@@ -121,28 +121,15 @@ def test_ts_decay_planes_ragged_shapes_match_plain(cuda, hw, lead, offset):
     assert _same(ops.ts_decay(sae, T_NOW, planes), vr)
 
 
-def _gate_taus():
-    """The taus the division gate runs exhaustively: both time constants
-    of the 20 fF fit and of the sweep's other default cmem (10 fF), the
-    ideal 5 ms and 24 ms surfaces (whose second constant is 1.0, a power
-    of two), the 1e-9 s clamp, and a significand of all ones."""
-    from repro_torch.core import representations as rep
-
-    fits = [edram.decay_params_for_cmem(c) for c in (20e-15, 10e-15)]
-    taus = [float(t) for p in fits for t in (p.tau1, p.tau2)]
-    taus += [float(rep.edram_ideal_params(t).tau1) for t in (0.005, 0.024)]
-    return taus + [1.0, 1e-9, 1.9999998807907104]
-
-
 def test_decay_division_gate(cuda):
     """decay.cuh's corrected-reciprocal quotient against __fdiv_rn: 0
     decay values and 0 quotients differ over all 2^32 dividend bit
     patterns of each gated tau (the uniform form's host reciprocal) and
     over 2^32 random (dividend, tau1, tau2) triples (clamped at 1e-9 s,
     reciprocals taken on the card)."""
-    from repro_torch.kernels.ts_decay import division_gate
+    from repro_torch.kernels.ts_decay import division_gate, gate_taus
 
-    for tau in _gate_taus():
+    for tau in gate_taus():
         assert division_gate(cuda, tau) == (0, 0), tau
     assert division_gate(cuda, seed=17) == (0, 0)
 

@@ -158,22 +158,14 @@ def _rn32(x: Fraction) -> np.float32:
                                      int(c.view(np.uint32)) & 1))
 
 
-def _repo_taus():
-    fits = [tedram.decay_params_for_cmem(c) for c in (10e-15, 20e-15)]
-    ideal = [trep.edram_ideal_params(t) for t in (0.005, 0.024)]
-    taus = [float(p.tau1) for p in fits + ideal] + [float(p.tau2)
-                                                    for p in fits + ideal]
-    return taus + [1e-9, float(np.uint32(0x3FFFFFFF).view(np.float32)),
-                   2.0 ** -10]
-
-
 def test_corrected_reciprocal_quotient_is_ieee_division():
     """decay.cuh's quotient of a fixed divisor, q = RN(x * rcp), r =
     fma(-q, tau, x), q' = fma(r, rcp, q) with rcp = RN(1/tau), emulated
-    exactly with Fractions, against float32 division: the repo's taus
-    (both fits of the sweep's cmem grid, the ideal 5 and 24 ms surfaces,
-    the clamp, an all-ones significand, a power of two) and seeded
-    dividends in the range the kernel takes this path for."""
+    exactly with Fractions, against float32 division: the division
+    gate's taus (``ts_decay.gate_taus``: both fits of the sweep's cmem
+    grid, the ideal 5 and 24 ms surfaces, 1.0, the clamp, an all-ones
+    significand) and 2^-10, and seeded dividends in the range the kernel
+    takes this path for."""
     rng = np.random.default_rng(17)
     ages = np.concatenate([rng.uniform(0.0, 0.2, 150),
                            10.0 ** rng.uniform(-6, 3, 100)])
@@ -181,7 +173,9 @@ def test_corrected_reciprocal_quotient_is_ieee_division():
             | rng.integers(0, 1 << 23, 100)).astype(np.uint32)
     xs = np.concatenate([-ages, bits.view(np.float32)]).astype(np.float32)
     in_range = lambda z: 2.0 ** -96 <= abs(float(z)) < 2.0 ** 126
-    taus = _repo_taus()   # the 10 fF fit takes ~1 s; the check ~0.2 s
+    from repro_torch.kernels.ts_decay import gate_taus
+
+    taus = gate_taus() + [2.0 ** -10]   # the 10 fF fit ~1 s, the check ~0.2 s
     checked = 0
     for tau in map(np.float32, taus):
         rcp = np.float32(1.0) / tau
