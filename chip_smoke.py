@@ -280,8 +280,8 @@ def in_turns(timer, new, old, reps: int, what: str, **kw):
 def build_prev(prev_root: Path):
     """The ``ts_decay``, ``stcf_support`` and ``chunk_scatter`` kernels of
     another checkout (``--prev``, e.g. the parent commit's tree; its
-    ``ts_decay.cu`` with the plane entry of PR 11-16), compiled with this
-    tree's flags into a library of their own, each source with the
+    ``ts_decay.cu`` with the first version's plane entry), compiled with
+    this tree's flags into a library of their own, each source with the
     headers beside it.  Returns a function that calls one of their C
     entry points on the current stream."""
     from repro_torch.kernels import _lib
@@ -309,7 +309,7 @@ def build_prev(prev_root: Path):
                  "stcf_support_fused", "chunk_scatter"):
         getattr(lib, name).argtypes = _lib._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    # the plane entry of PR 11's ts_decay.cu: (n, plane), no launch shape
+    # the first version's plane entry: (n, plane), no launch shape
     lib.ts_decay_planes.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
         + [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p])

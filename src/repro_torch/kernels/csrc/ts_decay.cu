@@ -11,7 +11,7 @@
 // Bound: device-memory bytes.  A cell reads 4 B and writes 4 B (one more
 // byte with the mask) against ~12 float operations, far below the card's
 // operations-per-byte balance.  What bound each form on an H100 was
-// measured with tools/kernel_variants.py --decay (PERF.md, PR 17), where
+// measured with tools/kernel_variants.py --decay (PERF.md), where
 // an `arith=copy` variant keeps a kernel's loads and stores and drops its
 // arithmetic:
 //   * Uniform form: bytes, not issue.  The first version (a grid-stride
