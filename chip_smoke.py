@@ -15,7 +15,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
 5 the vision heads and labeled ingest on the time-surface path, 6 the
 analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
-elastic slot pool and live migration):
+elastic slot pool and live migration, 8 the slot pool over several
+shards):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -135,6 +136,30 @@ elastic slot pool and live migration):
    repro_torch.launch.serve stream --migrate-demo --hw 48x64 --duration
    0.06 --deadline 0.005`` in a subprocess on the card: its oracle gate
    must pass.
+8. **Shards** -- the slot pool over several shards, every shard on the
+   one card with tensors of its own (``make_host_mesh(n, devices=[card])``,
+   the code a multi-card host runs).  (a) Phase 1's FRAME loop (its
+   configuration, words and bursts) on engines of 1, 2 and 4 shards, in
+   turns (1, 2, 4, 4, 2, 1), counters zeroed just before each loop and
+   read just after, each
+   kernel's launches credited to the shard whose SAE it reads or writes.
+   Checks: every step's products == phase 1's unsharded products,
+   bitwise; incremental == dense read at every deadline; the events
+   ingested equal; every kernel launched on every shard.  Prints each
+   loop's events/s and ``serve_step`` p50/p99 beside phase 1's, and the
+   host time of ``route``.  (b) Phase 7's fleet feeds on a 2-shard engine
+   (21 slots pad to 22) under the same ``StreamConfig`` (``shard_budget
+   = 320``, ``shard_barrier_every = 4``).  Checks: the digests replay
+   bitwise through the oracle on a 2-shard factory; a migration crosses
+   shards; barrier steps fall every 4th deadline; each tier conserves
+   its events; every kernel launched on both shards.  (c) One migration
+   from shard 0 to shard 3 of a 4-shard QVGA pool of 8 slots: every leaf
+   bitwise the unsharded engine's after the same move, and the next
+   ``serve_step`` too; device and host ms of the move beside the same
+   move in one unsharded pool.  (d) ``python -m repro_torch.launch.serve
+   sensors --mesh 2 --hw 48x64 --duration 0.05 --sensors 4`` in a
+   subprocess: the placement printed and the fused surface bitwise the
+   dense read.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -145,8 +170,10 @@ without the repository's sources beside it, it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import importlib
 import json
 import os
 import shutil
@@ -204,6 +231,12 @@ FLEET_BARRIER_EVERY = 4
 FLEET_SMALL_HW = (60, 80)                   # card vs CPU engine
 FLEET_CLI_ARGV = ("--migrate-demo", "--hw", "48x64", "--duration", "0.06",
                   "--deadline", "0.005")
+
+SHARD_COUNTS = (1, 2, 4)      # shards of phase 8's FRAME loop, one card
+SHARD_LOOP_CHECKED = 2        # the loop whose launches the JSON line reports
+SHARD_MIGRATE_SHARDS, SHARD_MIGRATE_SLOTS = 4, 8
+SHARD_CLI_ARGV = ("sensors", "--mesh", "2", "--hw", "48x64",
+                  "--duration", "0.05", "--sensors", "4")
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -469,6 +502,7 @@ def run_engine(dev, mods, words, card):
     torch.cuda.synchronize()
     _lib.reset_launches()
     step_ms, dirty_share, mismatched = [], [], []
+    step_outs = []   # every step's products, for phase 8's shards
     t_wall = 0.0
     for d in range(DEADLINES):
         t_now = (d + 1) * DEADLINE_S
@@ -480,6 +514,7 @@ def run_engine(dev, mods, words, card):
             dt = time.perf_counter() - t0
             t_wall += dt
             step_ms.append(dt * 1e3)
+            step_outs.append(out)
         path_counts = dict(_lib.LAUNCHES)   # the check read is not counted
         dense = engine.read(rs.SURFACE_SPEC, t_now)["surface"]
         _lib.LAUNCHES.update(path_counts)
@@ -539,7 +574,7 @@ def run_engine(dev, mods, words, card):
     split_pass(eng, cfg, frame, words, scene_of)
     return dict(engine=engine, cfg=cfg, t_end=t_end, launches=launches,
                 n_events=n_events, events_per_s=n_events / t_wall,
-                step_ms=step_ms)
+                step_ms=step_ms, step_outs=step_outs, frame=frame)
 
 
 def split_pass(eng, cfg, frame, words, scene_of):
@@ -725,7 +760,7 @@ def kernel_phase(dev, mods, words, run, prev=None):
                      mask_form_library_ms=lib_m))
 
     # -- chunk_scatter: one 10 ms push of every sensor (~2 M events)
-    sids, fields = engine._collect(
+    (_, sids, fields), = engine._collect(
         [(k, np.concatenate(words[k % N_SCENES][2:4])) for k in range(S)])
     ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
     sids = torch.from_numpy(sids).to(dev)
@@ -1619,10 +1654,12 @@ def migrated_tiers(log):
     return moved
 
 
-def timed_op(fn):
-    """(result, device ms from CUDA events, host ms ending in a
-    synchronize) of one call."""
-    torch.cuda.synchronize()
+def timed_op(fn, devices=()):
+    """(result, device ms from CUDA events on the current card, host ms
+    ending in a synchronize of it and of every card in ``devices``) of
+    one call."""
+    for d in (None, *devices):
+        torch.cuda.synchronize(d)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1630,6 +1667,8 @@ def timed_op(fn):
     out = fn()
     end.record()
     end.synchronize()
+    for d in devices:
+        torch.cuda.synchronize(d)
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
@@ -1767,7 +1806,7 @@ def fleet_phase(dev, mods, words, card, stream6):
         f"fleet path: {launches}")
     fleet_small(dev, mods, frame)
     fleet_cli()
-    return dict(launches=launches, events_per_s=report.events_per_sec,
+    return feeds, dict(launches=launches, events_per_s=report.events_per_sec,
                 tiers={t: {k: report.tiers[t][k] for k in
                            ("ingested", "dropped", "migrated",
                             "latency_p50_us", "latency_p99_us")}
@@ -1828,6 +1867,323 @@ def fleet_cli():
           f"stream --migrate-demo CLI on the card: exit {proc.returncode}, "
           f"oracle gate OK, fleet ops printed "
           f"({time.perf_counter() - t0:.1f} s)")
+
+
+class ShardLaunches:
+    """Each kernel's launches per shard of one engine: while active, the
+    three kernels' wrappers (``kernels.ts_decay.ts_decay_cuda``,
+    ``kernels.stcf.stcf_support_cuda``, ``kernels.ts_fused.
+    chunk_scatter_cuda``) are wrapped so that the launches one call adds
+    to ``_lib.LAUNCHES`` are credited to the shard whose SAE the call
+    reads or writes (launches on anything else, such as the gathered
+    dirty tiles, go to ``None``).  ``paused()`` credits nothing, and puts
+    ``_lib.LAUNCHES`` back as it was, around check reads."""
+
+    WRAPPED = (("repro_torch.kernels.ts_decay", "ts_decay_cuda", "ts_decay"),
+               ("repro_torch.kernels.stcf", "stcf_support_cuda",
+                "stcf_support"),
+               ("repro_torch.kernels.ts_fused", "chunk_scatter_cuda",
+                "chunk_scatter"))
+
+    def __init__(self, _lib, engine):
+        self._lib, self.engine = _lib, engine
+        self.counts: dict = {}
+        self._active = True
+        self._saved = []
+
+    def _wrap(self, fn, kernel):
+        def wrapped(x, *args, **kw):
+            before = self._lib.LAUNCHES[kernel]
+            out = fn(x, *args, **kw)
+            if self._active:
+                shard = {st.surfaces.sae.data_ptr(): k for k, st in
+                         enumerate(self.engine._states)}.get(x.data_ptr())
+                key = (shard, kernel)
+                self.counts[key] = (self.counts.get(key, 0)
+                                    + self._lib.LAUNCHES[kernel] - before)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for mod, attr, kernel in self.WRAPPED:
+            m = importlib.import_module(mod)
+            self._saved.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, self._wrap(getattr(m, attr), kernel))
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, fn in self._saved:
+            setattr(m, attr, fn)
+
+    @contextlib.contextmanager
+    def paused(self):
+        snap = dict(self._lib.LAUNCHES)
+        self._active = False
+        try:
+            yield
+        finally:
+            self._active = True
+            self._lib.LAUNCHES.update(snap)
+
+    def per_shard(self, n_shards):
+        return [{k: self.counts.get((shard, k), 0) for k in ENGINE_KERNELS}
+                for shard in range(n_shards)]
+
+
+def shard_loop(dev, mods, words, run, n_shards, card, devices=None):
+    """Phase 8 (a): phase 1's FRAME loop on an ``n_shards`` engine, the
+    shards cycling over ``devices`` (default: all on ``dev``), each with
+    tensors of its own.  Each step's products against phase 1's on the
+    same words, bitwise; incremental == dense at every deadline; launches
+    per shard."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.launch.mesh import make_host_mesh
+
+    frame, cfg = run["frame"], run["cfg"]
+    mesh = make_host_mesh(n_shards, devices=devices or [dev])
+    engine = eng.TimeSurfaceEngine(cfg, mesh=mesh)
+    sessions = [engine.attach() for _ in range(S)]
+    scene_of = [k % N_SCENES for k in range(S)]
+    bursts = [[(sessions[k], words[scene_of[k]][b]) for k in range(S)]
+              for b in range(2 * DEADLINES)]
+    ptrs = {st.surfaces.sae.data_ptr() for st in engine._states}
+    check(engine.n_slots_padded == -(-S // n_shards) * n_shards,
+          f"shards: {S} slots pad to {engine.n_slots_padded} on "
+          f"{n_shards} shards")
+    check(len(ptrs) == n_shards and all(
+        st.surfaces.sae.device == d
+        for st, d in zip(engine._states, mesh.devices)),
+        f"shards: {mesh.placement()}, each with an SAE of its own")
+    step_ms, differ, mismatched = [], [], []
+    t_wall = 0.0
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with ShardLaunches(_lib, engine) as sl:
+        for d in range(DEADLINES):
+            t_now = (d + 1) * DEADLINE_S
+            for half in range(2):
+                b = 2 * d + half
+                t0 = time.perf_counter()
+                out = engine.serve_step(bursts[b], frame, t_now)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                t_wall += dt
+                step_ms.append(dt * 1e3)
+                want = run["step_outs"][b]
+                if not all(same(out[k][:S], want[k])
+                           and not bits(out[k][S:]).any() for k in want):
+                    differ.append(b)
+            with sl.paused():
+                dense = engine.read(rs.SURFACE_SPEC, t_now)["surface"]
+                if not same(out["surface"], dense):
+                    mismatched.append(d)
+        launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    per_shard = sl.per_shard(n_shards)
+    n_events = int(engine.state.surfaces.n_events.sum())
+    steady = step_ms[2:]
+    res = dict(n_shards=n_shards, events_per_s=n_events / t_wall,
+               p50_ms=float(np.percentile(steady, 50)),
+               p99_ms=float(np.percentile(steady, 99)), launches=launches,
+               launches_per_shard=per_shard, n_events=n_events)
+    log(f"shards on {card}: FRAME loop on {n_shards} shard(s) of "
+        f"{engine._plan.slots_per_shard} slots ({mesh.placement()}): "
+        f"{n_events} "
+        f"events in {t_wall:.4f} s -> {res['events_per_s']:.1f} events/s; "
+        f"serve_step p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms "
+        f"over deadlines 2..{DEADLINES} (phase 1, unsharded: "
+        f"{run['events_per_s']:.1f} events/s)")
+    log(f"shards: {n_shards}-shard launches {launches}, per shard "
+        f"{per_shard}")
+    check(not differ, f"{n_shards}-shard FRAME products == phase 1's "
+          f"unsharded products, bitwise, at every step (differ: {differ})")
+    check(not mismatched, f"{n_shards}-shard incremental serve_step == "
+          f"dense read, bitwise, at every deadline ({mismatched})")
+    check(n_events == run["n_events"], f"{n_shards}-shard events ingested "
+          f"{n_events} == phase 1's {run['n_events']}")
+    live = sorted({engine._plan.shard_of(c.slot) for c in sessions})
+    check(all(per_shard[k][name] > 0 for k in live
+              for name in ENGINE_KERNELS),
+          f"every kernel launched on every shard holding sensors "
+          f"({len(live)} of {n_shards})")
+    route_ms = []
+    for b in range(2 * DEADLINES):
+        parts = engine._item_chunks(bursts[b])
+        t0 = time.perf_counter()
+        engine._plan.route(parts)
+        route_ms.append((time.perf_counter() - t0) * 1e3)
+    res["route_ms_p50"] = float(np.percentile(route_ms, 50))
+    log(f"shards: host time of route (grouping by shard, stacking each "
+        f"shard's fields) over {n_shards} shard(s), median of "
+        f"{len(route_ms)} bursts: {res['route_ms_p50']:.4f} ms")
+    return res
+
+
+def shard_fleet(dev, mods, card, feeds, n_shards=2, devices=None):
+    """Phase 8 (b): phase 7's elastic fleet on an ``n_shards`` engine (21
+    slots pad to 22 on 2 shards: a dead tail) under the multi-shard EDF
+    scheduler, the shards cycling over ``devices`` (default: ``dev``)."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.events import replay as rp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import stream as st
+
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    cfg, scfg = fleet_cfgs(eng, st, frame, H, W)
+    mesh = make_host_mesh(n_shards, devices=devices or [dev])
+
+    def make():
+        return eng.TimeSurfaceEngine(cfg, mesh=mesh)
+
+    rp.replay(make(), feeds, scfg, frame, arrival_substeps=STREAM_SUBSTEPS,
+              t_end=1.5 * DEADLINE_S)          # first-touch costs
+    engine = make()
+    check(engine.n_slots_padded == -(-FLEET_BUCKET // n_shards) * n_shards,
+          f"shards: a {FLEET_BUCKET}-slot pool pads to "
+          f"{engine.n_slots_padded} on {n_shards} shards")
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with ShardLaunches(_lib, engine) as sl:
+        report = rp.replay(engine, feeds, scfg, frame,
+                           arrival_substeps=STREAM_SUBSTEPS)
+        launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    per_shard = sl.per_shard(n_shards)
+    fleet_log = [(k, e) for k, e in report.log
+                 if k in ("grow", "shrink", "migrate")]
+    capacity, crossing = FLEET_BUCKET, []
+    for k, e in fleet_log:
+        if k == "grow":
+            capacity = e
+        elif k == "shrink":
+            capacity = e[0]
+        else:
+            sps = -(-capacity // n_shards)
+            crossing.append((e, e[0] // sps, e[1] // sps))
+    log(f"shards fleet on {card}: {mesh.placement()}, {report.n_steps} "
+        f"deadlines:")
+    for line in report.summary().splitlines():
+        log(f"  {line}")
+    log(f"shards fleet log: {fleet_log}; migrations (move, from shard, to "
+        f"shard): {crossing}; launches {launches}, per shard {per_shard}")
+    check(any(a != b for _, a, b in crossing),
+          f"shards fleet: a migration crosses shards ({crossing})")
+    steps = [e for k, e in report.log if k == "step"]
+    barriers = [i for i, e in enumerate(steps) if e.barrier]
+    check(barriers == [i for i in range(len(steps))
+                       if (i + 1) % FLEET_BARRIER_EVERY == 0],
+          f"shards fleet: barrier steps every {FLEET_BARRIER_EVERY}th "
+          f"deadline ({barriers} of {len(steps)})")
+    for tier, row in sorted(report.tiers.items()):
+        check(row["offered"] == row["ingested"] + row["dropped"]
+              + row["refused"] + row["discarded"] + row["deferred"],
+              f"shards fleet tier {tier} conserves: offered "
+              f"{row['offered']} == ingested + dropped + refused + "
+              f"discarded + deferred")
+    check(all(per[k] > 0 for per in per_shard for k in ENGINE_KERNELS),
+          f"shards fleet: every kernel launched on all {n_shards} shards")
+    try:
+        n = rp.check_oracle(report, make, frame)
+        check(n == report.n_steps, f"shards fleet digests == the "
+              f"synchronous oracle's on a {n_shards}-shard factory, bitwise, at "
+              f"all {n} deadlines")
+    except AssertionError as err:
+        check(False, f"shards fleet oracle gate: {err}")
+    return dict(events_per_s=report.events_per_sec, launches=launches,
+                launches_per_shard=per_shard, crossing=crossing,
+                tiers={t: {k: report.tiers[t][k] for k in
+                           ("ingested", "migrated", "latency_p50_us",
+                            "latency_p99_us")} for t in report.tiers})
+
+
+def shard_migrate(dev, mods, words, card, devices=None):
+    """Phase 8 (c): one migration between shards of a 4-shard QVGA pool
+    (shards cycling over ``devices``, default ``dev``), bitwise the
+    unsharded engine's ``migrate_slot``, timed."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.launch.mesh import make_host_mesh
+
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    cfg = eng.TSEngineConfig(h=H, w=W, polarities=P,
+                             n_slots=SHARD_MIGRATE_SLOTS, chunk_capacity=CAP,
+                             mode="edram", specs=(frame,))
+    mesh = make_host_mesh(SHARD_MIGRATE_SHARDS, devices=devices or [dev])
+    sharded = eng.TimeSurfaceEngine(cfg, mesh=mesh)
+    plain = eng.TimeSurfaceEngine(cfg, device=dev)
+    src, dst = 1, SHARD_MIGRATE_SLOTS - 2
+    sps = sharded._plan.slots_per_shard
+    times = {}
+    for e in (sharded, plain):
+        for _ in range(SHARD_MIGRATE_SLOTS):
+            e.attach()
+        for b in range(2):
+            e.serve_step([(s, words[s % N_SCENES][b])
+                          for s in range(SHARD_MIGRATE_SLOTS)], frame,
+                         DEADLINE_S)
+        e._sessions[dst].detach()
+        got, t_dev, t_host = timed_op(lambda: e.migrate(src, dst),
+                                      mesh.devices)
+        check(got == dst, f"shards: migrate {src} -> {dst} ({got})")
+        times["sharded" if e is sharded else "plain"] = (t_dev, t_host)
+    ok = all(b is None or same(a, b) for a, b in
+             zip(eng._leaves(sharded.state), eng._leaves(plain.state)))
+    check(ok, f"shards: migrate {src} (shard {src // sps}) -> {dst} (shard "
+          f"{dst // sps}) on {SHARD_MIGRATE_SHARDS} shards == the unsharded "
+          f"migrate_slot, every leaf bitwise")
+    after = sharded.serve_step([(dst, words[1][2])], frame, DEADLINE_S)
+    want = plain.serve_step([(dst, words[1][2])], frame, DEADLINE_S)
+    check(all(same(after[k], want[k]) for k in want),
+          "shards: the next serve_step after the move == unsharded, bitwise")
+    (sd, sh), (pd, ph) = times["sharded"], times["plain"]
+    log(f"shards migrate on {card}: {P}x{H}x{W} slot {src} -> {dst} across "
+        f"shards, device {sd:.4f} ms, host {sh:.4f} ms (the same move in "
+        f"one unsharded pool: device {pd:.4f} ms, host {ph:.4f} ms)")
+    return dict(cross_device_ms=sd, cross_host_ms=sh, plain_device_ms=pd,
+                plain_host_ms=ph)
+
+
+def shard_cli():
+    """Phase 8 (d): the ``sensors --mesh 2`` CLI in a subprocess."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SHARD_CLI_ARGV],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=SWEEP_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        log(f"  sensors --mesh 2 | {line}")
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0
+          and "shard 0 -> cuda:0, shard 1 -> cuda:0" in proc.stdout
+          and "fused surface bit-identical to dense readout: True"
+          in proc.stdout,
+          f"sensors --mesh 2 CLI on the card: exit {proc.returncode}, "
+          f"placement printed, fused == dense "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def shard_phase(dev, mods, words, card, run, fl, feeds):
+    """Phase 8: the slot pool over several shards on the card."""
+    loops = {n: [] for n in SHARD_COUNTS}
+    for n in SHARD_COUNTS + SHARD_COUNTS[::-1]:   # in turns: 1 2 4 4 2 1
+        loops[n].append(shard_loop(dev, mods, words, run, n, card))
+    run.pop("step_outs")   # phase 1's products are not needed any more
+    fleet = shard_fleet(dev, mods, card, feeds)
+    log(f"shards fleet: events/s {fleet['events_per_s']:.1f} on 2 shards "
+        f"(phase 7, one shard: {fl['events_per_s']:.1f})")
+    mig = shard_migrate(dev, mods, words, card)
+    shard_cli()
+    for n, rs_ in loops.items():
+        log(f"shards summary on {card}: {n} shard(s), in turns: events/s "
+            f"{[round(r['events_per_s'], 1) for r in rs_]} (mean "
+            f"{np.mean([r['events_per_s'] for r in rs_]):.1f}); serve_step "
+            f"p50 {[round(r['p50_ms'], 3) for r in rs_]} ms, p99 "
+            f"{[round(r['p99_ms'], 3) for r in rs_]} ms; route "
+            f"{[round(r['route_ms_p50'], 4) for r in rs_]} ms")
+    checked = loops[SHARD_LOOP_CHECKED][0]
+    return dict(loops=loops, fleet=fleet, migrate=mig,
+                launches=checked["launches"],
+                launches_per_shard=checked["launches_per_shard"])
 
 
 def sweep_phase(card):
@@ -1933,12 +2289,16 @@ def main() -> int:
     sw = sweep_phase(card)
     phase_s["sweep"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fl = fleet_phase(dev, mods, words, card, sm)
+    feeds, fl = fleet_phase(dev, mods, words, card, sm)
     torch.cuda.synchronize()
     phase_s["fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh = shard_phase(dev, mods, words, card, run, fl, feeds)
+    torch.cuda.synchronize()
+    phase_s["shards"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
-    log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl},
-                   default=str))
+    log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
+                    "shards": sh}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -1950,6 +2310,10 @@ def main() -> int:
                             heads_path_launches=hd["launches"].get(name, 0),
                             stream_path_launches=sm["launches"].get(name, 0),
                             fleet_path_launches=fl["launches"].get(name, 0),
+                            shard_path_launches=sh["launches"].get(name, 0),
+                            shard_path_launches_per_shard=[
+                                per.get(name, 0)
+                                for per in sh["launches_per_shard"]],
                             kernel_ms=row["ms"], **row))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:

@@ -2,10 +2,11 @@
 through a ``StreamRuntime`` as sustained traffic, with a synchronous
 bitwise oracle.
 
-The port of ``repro.events.replay``, on one device.  The oracle holds the
-port against itself: a runtime's digests are replayed on a fresh engine
-on the same device (float decays differ from the JAX package's by ULPs,
-so digests are never compared across packages).
+The port of ``repro.events.replay``, over one-device and sharded engine
+factories alike.  The oracle holds the port against itself: a runtime's
+digests are replayed on a fresh engine on the same devices (float decays
+differ from the JAX package's by ULPs, so digests are never compared
+across packages).
 
 The harness owns *time*: it walks a virtual clock in readout deadlines,
 delivers each feed's events in arrival granules (``arrival_substeps``
@@ -326,7 +327,8 @@ def oracle_digests(
                 if src in sessions:
                     sessions[dst] = sessions.pop(src)
         elif kind == "migrate":
-            # the (src, dst) the runtime performed, replayed verbatim
+            # the (src, dst) the runtime performed, replayed verbatim:
+            # the least-loaded-shard choice is never re-derived
             src, dst = entry
             engine.migrate(src, dst)
             sessions[dst] = sessions.pop(src)

@@ -38,13 +38,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve sweep --hw 24x32 \\
         --sensors 2 --duration 0.02 --chunk 512 --cmem 20 --retention 24 \\
         --classes 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve sensors --mesh 2 \\
+        --hw 48x64 --duration 0.05 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve stream --mesh 2 \\
+        --sensors 8 --shard-budget 2 --barrier-every 4
 
 Every mode runs on the CUDA device unless ``--device`` names another.
-Not ported yet (ROADMAP.md, queue 1 item 2): the device mesh; the
-stream's ``--mesh N`` with N > 1 raises ``NotImplementedError``, and
-``sensors`` has no ``--mesh``.  The
-reference's ``--backend`` has no counterpart: the tensors' device picks
-the kernels.
+``--mesh N`` (``sensors``, ``stream``) splits the slot pool into N
+shards over every visible card, cycling over the cards when N exceeds
+them (two shards on one card hold tensors of their own), or over N CPU
+shards with ``--device cpu``; the run prints each shard's device and
+the padded pool when padding was needed.  The reference's ``--backend``
+has no counterpart: the tensors' device picks the kernels.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.events import aer, datasets
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import spec as rs
@@ -95,9 +101,30 @@ def _device_name(device: torch.device) -> str:
             else "CPU")
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in dict.fromkeys(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _mesh(args):
+    """The ``--mesh N`` mesh (None without the flag), its placement
+    printed."""
+    if not args.mesh:
+        return None
+    mesh = make_host_mesh(args.mesh, device=args.device)
+    print(f"mesh: {mesh.shape} -- {mesh.placement()}")
+    return mesh
+
+
+def _engine(cfg, device, mesh):
+    """The engine over ``mesh`` (or on ``device``), with the padded pool
+    printed where the shard count forced padding."""
+    eng = TimeSurfaceEngine(cfg, device=device, mesh=mesh)
+    if eng.n_slots_padded != cfg.n_slots:
+        print(f"slot pool padded {cfg.n_slots} -> {eng.n_slots_padded} "
+              f"for {mesh.size} shards")
+    return eng
 
 
 def run_sensors(args) -> None:
@@ -107,6 +134,7 @@ def run_sensors(args) -> None:
         raise SystemExit(
             f"--hw must be HxW (e.g. 240x320), got {args.hw!r}") from None
     device = resolve_device(args.device)
+    mesh = _mesh(args)
     products = dict(surface=rs.surface(), mask=rs.mask(), stcf=rs.stcf(),
                     count=rs.count(4))
     if args.classify:
@@ -116,7 +144,8 @@ def run_sensors(args) -> None:
     cfg = TSEngineConfig(h=h, w=w, n_slots=args.slots,
                          chunk_capacity=args.chunk, mode=args.mode,
                          specs=(spec,))
-    eng = TimeSurfaceEngine(cfg, device=device)
+    eng = _engine(cfg, device, mesh)
+    device = eng.device
     name = _device_name(device)
 
     kinds = ("hotel_bar", "driving")
@@ -132,7 +161,7 @@ def run_sensors(args) -> None:
     t0 = time.perf_counter()
     eng.push(list(zip(cams, words)))
     out = eng.read(spec, args.duration)
-    _sync(device)
+    _sync(eng.shard_devices)
     dt = time.perf_counter() - t0
     n_total = sum(len(wd) for wd in words)
     print(f"push+read[{'+'.join(spec.names)}] {n_total} events over "
@@ -152,7 +181,7 @@ def run_sensors(args) -> None:
             t0 = time.perf_counter()
             surf = eng.serve_step(items, rs.SURFACE_SPEC,
                                   args.duration)["surface"]
-            _sync(device)
+            _sync(eng.shard_devices)
             print(f"fused burst {bi}: {sum(len(wd) for _, wd in items)} "
                   f"events in {(time.perf_counter() - t0) * 1e3:.1f} ms "
                   f"({'dense fill' if bi == 0 else 'incremental'})")
@@ -193,12 +222,10 @@ def run_stream(args) -> None:
 
     from repro_torch.events import replay as rp
     from repro_torch.serve.stream import StreamConfig
-    from repro_torch.serve.ts_engine import MESH_NOT_PORTED
 
-    if args.mesh > 1:
-        raise NotImplementedError(f"--mesh {args.mesh} {MESH_NOT_PORTED}")
     h, w = _hw(args.hw)
     device = resolve_device(args.device)
+    mesh = _mesh(args)
     elastic = args.elastic or args.migrate_demo
     n_slots = max(args.slots, args.sensors)
     slot_bucket = None
@@ -251,7 +278,7 @@ def run_stream(args) -> None:
               f"attach {f.attach_t * 1e3:.0f}ms -> {detach}{tier}{mig}{mov}")
 
     def make_engine():
-        return TimeSurfaceEngine(cfg, device=device)
+        return TimeSurfaceEngine(cfg, device=device, mesh=mesh)
 
     if args.speed == 0:
         # a throwaway engine on the same traffic first, so the latency
@@ -259,10 +286,11 @@ def run_stream(args) -> None:
         # runs skip it: they want the honest cold-start timeline)
         rp.replay(make_engine(), feeds, scfg, spec,
                   arrival_substeps=args.substeps)
-    eng = make_engine()
+    eng = _engine(cfg, device, mesh)
     report = rp.replay(eng, feeds, scfg, spec, speed=args.speed,
                        arrival_substeps=args.substeps)
-    print(f"stream on {_device_name(device)} ({device}):")
+    where = device if mesh is None else mesh.placement()
+    print(f"stream on {_device_name(eng.device)} ({where}):")
     print(report.summary())
     if elastic:
         fleet = [(k, e) for k, e in report.log
@@ -273,7 +301,8 @@ def run_stream(args) -> None:
             else f"migrate {e[0]}->{e[1]}"
             for k, e in fleet)
         print(f"fleet ops: {desc or 'none'}")
-        print(f"final capacity {eng.capacity}, "
+        print(f"final capacity {eng.capacity} "
+              f"(padded {eng.n_slots_padded}), "
               f"migrated events {report.migrated}")
     if args.classify:
         # the engine retains the final deadline's state: sample the
@@ -486,6 +515,10 @@ def main(argv=None) -> None:
     sp.add_argument("--bursts", type=int, default=4, metavar="B",
                     help="stream each sensor in B bursts through the cached "
                          "serve_step at one frame deadline (0/1 disables)")
+    sp.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard the slot pool over N shards: every visible "
+                         "card, cycling when N exceeds them, or N CPU "
+                         "shards with --device cpu (0 = no mesh)")
     sp.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
 
@@ -523,8 +556,9 @@ def main(argv=None) -> None:
                          "gesture tier carries the head-bearing spec, "
                          "otherwise every deadline serves it (0 disables)")
     st.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard the slot pool over N devices: N > 1 is not "
-                         "ported yet (ROADMAP queue 1 item 2) and raises")
+                    help="shard the slot pool over N shards: every visible "
+                         "card, cycling when N exceeds them, or N CPU "
+                         "shards with --device cpu (0 = no mesh)")
     st.add_argument("--elastic", action="store_true",
                     help="elastic slot pool: start at one bucket of "
                          "max(2, sensors // 3) slots and let connect() grow "
@@ -537,8 +571,8 @@ def main(argv=None) -> None:
                          "tier), all bitwise through the replay oracle")
     st.add_argument("--shard-budget", type=int, default=0, metavar="N",
                     help=">0 caps engine chunks per pool shard per deadline "
-                         "(the port's pool is one shard), priority first "
-                         "(0 = unlimited)")
+                         "(one shard without --mesh), priority claims a hot "
+                         "shard first (0 = unlimited)")
     st.add_argument("--barrier-every", type=int, default=0, metavar="K",
                     help=">0 makes every Kth deadline a barrier step: shard "
                          "budgets lift and the shard clocks re-sync "

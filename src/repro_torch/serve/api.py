@@ -11,7 +11,8 @@ The port of ``repro.serve.api``.  ``engine.attach()`` returns a
     out = session.push_and_read(burst, spec, t_now)  # cache-backed read
     session.detach()                                 # slot wiped + reusable
 
-Reads are per-sensor views of the engine's pool-wide read.
+Reads index the engine's read of the shard holding the slot (the whole
+pool on one device).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ class SensorSession:
     @property
     def generation(self) -> int:
         """The slot's acquire generation (bumps each time it is reused)."""
-        return int(self._engine.state.generation[self._slot])
+        return self._engine._slot_generation(self._slot)
 
     def detach(self) -> None:
         """Release the slot back to the pool, wiping its surface and its
@@ -90,11 +91,11 @@ class SensorSession:
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
              t_now: float = 0.0, noise_step: int = 0
              ) -> Dict[str, torch.Tensor]:
-        """This sensor's products at ``t_now`` (a view of the pool read;
-        ``noise_step`` keys analog noise)."""
+        """This sensor's products at ``t_now``: a read of the shard that
+        holds its slot, indexed down to the slot (``noise_step`` keys
+        analog noise)."""
         self._check()
-        pool = self._engine.read(spec, t_now, noise_step)
-        return {name: v[self._slot] for name, v in pool.items()}
+        return self._engine._read_slot(self._slot, spec, t_now, noise_step)
 
     def push_and_read(self, payload,
                       spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,

@@ -1,6 +1,7 @@
 """Real-time streaming runtime: continuous event traffic over the engine.
 
-The port of ``repro.serve.stream``, on one device.  The engine is
+The port of ``repro.serve.stream``, over a one-device or sharded
+engine.  The engine is
 request/response -- callers hand it pre-windowed chunks and block on
 every read.  ``StreamRuntime`` turns it into the
 sustained-traffic system the paper's in-sensor array actually is: events
@@ -139,9 +140,9 @@ the move cannot change what their digest reads.
 dispatches per shard of the slot pool, priority first, overflow deferred
 all-or-nothing per sensor; every ``shard_barrier_every`` deadlines the
 step is a **barrier**: the budget lifts, every ready sensor is served and
-the per-shard virtual clocks re-sync.  The port's engine is one shard
-(the multi-device pool is ROADMAP queue 1 item 2), so the budget caps the
-whole pool and there is one clock.
+the per-shard virtual clocks re-sync.  Shards are the engine's
+(``TimeSurfaceEngine(cfg, mesh=...)``); a one-device engine is one shard,
+so the budget caps the whole pool and there is one clock.
 
 Determinism contract: which events are accepted, dropped, scheduled,
 deferred, and coalesced into which chunk of which step is a pure
@@ -673,9 +674,9 @@ def digest_step(products_list: Sequence[Dict[str, torch.Tensor]]) -> str:
 
 
 class _Inflight:
-    """One dispatched step: its record, its products, and the CUDA event
-    recorded after its reads (None on the CPU, where reads are done when
-    they return)."""
+    """One dispatched step: its record, its products, and the CUDA events
+    recorded after its reads on each card of the engine (none on the CPU,
+    where reads are done when they return)."""
 
     __slots__ = ("record", "products_list", "done")
 
@@ -832,8 +833,9 @@ class StreamRuntime:
         self.log.append(("set_tier", (sensor.slot, qos)))
 
     def migrate(self, sensor: StreamSensor, dst: Optional[int] = None) -> int:
-        """Move a live sensor to another slot (``dst=None``: the lowest
-        free slot; a full elastic pool grows a bucket first).  The slot's
+        """Move a live sensor to another slot (``dst=None``: the engine's
+        pick, the lowest free slot of the least-loaded shard; a full
+        elastic pool grows a bucket first).  The slot's
         whole device state -- surface rows, dirty tiles, counter plane and
         the analog noise *generation* -- moves bitwise, so later analog
         reads draw the noise they would have drawn in the source slot.
@@ -926,11 +928,11 @@ class StreamRuntime:
 
     # -- the deadline loop ----------------------------------------------------
     def _shard_of(self, slot: int) -> int:
-        """The shard a slot lives on: 0, the port's pool being one."""
-        return 0
+        """The shard a slot lives on (0 on a one-device engine)."""
+        return self.engine._plan.shard_of(slot)
 
     def _n_shards(self) -> int:
-        return 1
+        return self.engine._plan.n_shards
 
     def _schedule(self, t: float):
         """Pick this step's sensors: every sensor whose next deadline
@@ -1084,10 +1086,14 @@ class StreamRuntime:
         products_by_spec = self.engine.read_many(specs, t_read,
                                                  noise_step=noise_step)
         products_list = [products_by_spec[sp] for sp in specs]
-        done = None
-        if self.engine.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.engine.device))
+        # one event per card the shards live on: the reads of every shard
+        # (and the gather onto shard 0's card) are ordered before them
+        done = []
+        for dev in dict.fromkeys(self.engine.shard_devices):
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                done.append(ev)
         record = StepRecord(
             t_read=float(t_read), n_events=n_events,
             n_chunks=len(copies),
@@ -1128,10 +1134,11 @@ class StreamRuntime:
         return record
 
     def _sync(self, fl: _Inflight) -> None:
-        """Wait for one step's reads (its CUDA event), note its latency
-        (host time from dispatch to the event) and digest its products."""
-        if fl.done is not None:
-            fl.done.synchronize()
+        """Wait for one step's reads (its CUDA events, one per card), note
+        its latency (host time from dispatch to the last event) and digest
+        its products."""
+        for ev in fl.done:
+            ev.synchronize()
         lat = time.perf_counter() - fl.record.wall_dispatch
         fl.record.latency_s = lat
         if len(self.latencies_s) < self._max_lat:

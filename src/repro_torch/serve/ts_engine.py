@@ -1,6 +1,6 @@
-"""Batched streaming time-surface serving engine (single device).
+"""Batched streaming time-surface serving engine, on one device or a mesh.
 
-The port of ``repro.serve.ts_engine``'s single-device engine.  A fixed
+The port of ``repro.serve.ts_engine``.  A fixed
 pool of per-sensor *slots*, each an SAE (last-write time per cell and
 polarity) plus its bookkeeping, batched along a leading slot axis:
 
@@ -53,7 +53,8 @@ slots) and then cuts the tail off every leaf with a real copy, and
 ``migrate(src, dst)`` moves one live session's whole per-slot state --
 SAE plane, ``t_last``/``n_events``, dirty-tile cache row and marks,
 counter plane and the ``generation`` *value*, which keys the analog
-noise -- onto a free slot (the lowest one by default), re-binding its
+noise -- onto a free slot (by default the lowest free slot of the
+least-loaded shard, so the lowest free slot on one device), re-binding its
 ``SensorSession`` in place.  Every move keeps the dirty-tile cache epoch
 coherent: a moved cache row holds the source's last read, and fresh or
 wiped rows are zeros, the read of a never-written surface at any
@@ -61,8 +62,26 @@ wiped rows are zeros, the read of a never-written surface at any
 before it never alias the new pool; a migration writes the pool in
 place, and products are never views of it.
 
-Not ported (ROADMAP queue 1 item 2): the device mesh.  The deprecated
-method-per-feature shims are not ported either (queue 1 item 5).
+**Device-parallel mode** -- pass a ``mesh`` (``launch.mesh.
+make_host_mesh``) and the pool's slot axis splits into ``n_shards``
+contiguous blocks of ``slots_per_shard`` slots, padded up to a multiple
+of the shard count (``n_slots_padded``; the dead tail is never handed
+out and reads as never-written).  Each shard keeps its rows in tensors of
+its own on its device, two shards on one card included.  The host routes
+each chunk to the shard owning its slot with local slot ids
+(``_ShardPlan.route``), and every hot-path op -- scatter, reset, spec
+reads, heads (on weights copied to each shard's device), the dirty-tile
+refresh -- launches per shard on that shard's tensors and device, each
+shard picking incremental or dense on its own dirty count.  Only a
+migration between shards crosses devices: a row copy to the
+destination's device, then a wipe of the source row.  Pool-level
+products come back in slot order at ``n_slots_padded`` rows, gathered on
+shard 0's device (``device``); a session's ``read`` reads its own shard
+only.  Per-slot results are bitwise the one-device engine's at any shard
+count: the math per slot never changes, only where the slot lives.
+
+The deprecated method-per-feature shims are not ported (ROADMAP queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -77,10 +96,12 @@ from repro_torch.core import representations
 from repro_torch.core import stcf as stcf_mod
 from repro_torch.core import time_surface as ts
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.events import aer
 from repro_torch.events import synthetic as syn
 from repro_torch.hw import constants as C
 from repro_torch.kernels import ops
+from repro_torch.models import module as M
 from repro_torch.serve import fidelity as fidelity_mod
 from repro_torch.serve import heads as heads_mod
 from repro_torch.serve import spec as spec_mod
@@ -181,7 +202,8 @@ class EngineState(NamedTuple):
 def init_state(cfg: TSEngineConfig, device=None,
                n_slots: Optional[int] = None) -> EngineState:
     """Fresh pool state on ``device``; ``n_slots`` overrides the config's
-    pool size (an elastic pool's new rows)."""
+    pool size (a padded pool, one shard's block, an elastic pool's new
+    rows)."""
     s = cfg.n_slots if n_slots is None else n_slots
     p, h, w = cfg.polarities, cfg.h, cfg.w
     bh, bw = cfg.block
@@ -203,6 +225,22 @@ def init_state(cfg: TSEngineConfig, device=None,
     )
 
 
+def _leaves(state: EngineState) -> List[Optional[torch.Tensor]]:
+    """Every per-slot leaf of a pool state, in one fixed order
+    (``_from_leaves`` inverts it; ``counts`` may be None)."""
+    sur, cache = state.surfaces, state.cache
+    return [sur.sae, sur.t_last, sur.n_events, state.generation,
+            cache.tiles, cache.dirty, state.counts]
+
+
+def _from_leaves(leaves: Sequence[Optional[torch.Tensor]]) -> EngineState:
+    sae, t_last, n_events, generation, tiles, dirty, counts = leaves
+    return EngineState(
+        surfaces=ts.SurfaceState(sae, t_last, n_events),
+        generation=generation, cache=ReadoutCache(tiles, dirty),
+        counts=counts)
+
+
 def reset_slot(state: EngineState, slot: int,
                bump_generation: bool = True) -> EngineState:
     """Wipe one slot back to 'never written', in place; an attach also
@@ -221,7 +259,8 @@ def reset_slot(state: EngineState, slot: int,
     return state
 
 
-def migrate_slot(state: EngineState, src: int, dst: int) -> EngineState:
+def migrate_slot(state: EngineState, src: int, dst: int,
+                 dst_state: Optional[EngineState] = None) -> EngineState:
     """Move slot ``src``'s rows onto slot ``dst`` and wipe ``src``, in
     place.  Every per-slot leaf moves: the SAE plane, ``t_last`` /
     ``n_events``, the cache tiles and dirty marks (the destination's
@@ -231,14 +270,17 @@ def migrate_slot(state: EngineState, src: int, dst: int) -> EngineState:
     slot index, so an analog slot's noise moves bitwise with it.  ``src``
     is wiped as ``reset_slot`` wipes it, without a generation bump (its
     next attach bumps from the carried value).  ``src != dst`` is the
-    caller's contract (``TimeSurfaceEngine.migrate`` enforces it)."""
-    sur, cache = state.surfaces, state.cache
-    rows = [sur.sae, sur.t_last, sur.n_events, cache.tiles, cache.dirty]
-    if state.counts is not None:
-        rows.append(state.counts)
-    for leaf in rows:
-        leaf[dst] = leaf[src]
-    state.generation[dst] = state.generation[src]
+    caller's contract (``TimeSurfaceEngine.migrate`` enforces it).
+
+    ``dst_state`` names the shard holding ``dst`` when it is not
+    ``state`` (``dst`` is then its local index): each row is copied to
+    that shard's device.  A copy keeps every bit, ``-inf`` SAE cells and
+    bool marks included, as the reference's sum-broadcast over shards
+    does."""
+    to = state if dst_state is None else dst_state
+    for a, b in zip(_leaves(state), _leaves(to)):
+        if a is not None:
+            b[dst].copy_(a[src])
     return reset_slot(state, src, bump_generation=False)
 
 
@@ -270,12 +312,6 @@ def ingest_support(state: EngineState, slot_ids: torch.Tensor,
             mode=mode, params=params, v_tw=v_tw, intra_chunk=intra_chunk)
         for i in range(sae_b.shape[0])])
 
-
-#: the device mesh waits for the multi-device slice
-MESH_NOT_PORTED = (
-    "is not ported to repro_torch yet (ROADMAP queue 1 item 2: the slot "
-    "pool over several devices); use the JAX package"
-)
 
 #: one raw ingest part: (x, y, t, p) host arrays, equal length <= capacity
 RawPart = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
@@ -382,6 +418,79 @@ def _pad_batch(n: int) -> int:
     return b
 
 
+class _ShardPlan:
+    """Where the pool's slots live: ``n_shards`` contiguous blocks of
+    ``slots_per_shard`` slots, shard ``k`` on ``devices[k]``.
+
+    The pool is padded up to a multiple of the shard count
+    (``n_slots_padded``).  The host routes each chunk to the shard owning
+    its slot with *local* slot ids (``route``), and every hot-path op --
+    scatter, reset, spec reads, heads, the dirty-tile refresh -- runs on
+    one shard's tensors alone, so no shard ever waits on another's.  Each
+    shard counts its own dirty tiles against ``max_dirty``, derived from
+    ``slots_per_shard`` as the reference derives its per-shard cap.  An
+    engine without a mesh is one shard over its one device.
+    """
+
+    def __init__(self, cfg: TSEngineConfig, devices: Sequence[torch.device],
+                 mesh=None):
+        self.mesh = mesh
+        self.devices = list(devices)
+        self.axes = shd.data_axes(mesh) if mesh is not None else ()
+        self.n_shards = len(self.devices)
+        self._cfg = cfg
+        self.resize(self.pad(cfg.n_slots))
+
+    def pad(self, capacity: int) -> int:
+        """The padded pool size for ``capacity`` acquirable slots."""
+        return (capacity if self.mesh is None
+                else shd.pad_pool(capacity, self.mesh))
+
+    def resize(self, n_slots_padded: int) -> None:
+        """Track a capacity change: the block size and the per-shard
+        dirty-gather cap move with the padded pool."""
+        if n_slots_padded % self.n_shards:
+            raise ValueError(f"{n_slots_padded} slots do not split over "
+                             f"{self.n_shards} shards")
+        self.n_slots_padded = n_slots_padded
+        self.slots_per_shard = n_slots_padded // self.n_shards
+        _, _, tp = self._cfg.tile_counts()
+        self.max_dirty = (self._cfg.max_dirty_tiles
+                          or max(16, self.slots_per_shard * tp // 4))
+
+    def locate(self, slot: int) -> Tuple[int, int]:
+        """``(shard, local slot)`` of a global slot."""
+        return divmod(slot, self.slots_per_shard)
+
+    def shard_of(self, slot: int) -> int:
+        return shd.shard_of(slot, self.slots_per_shard)
+
+    def route(self, parts: Sequence[Tuple[int, List[np.ndarray]]]):
+        """Per-slot -> per-shard ingest routing: ``[(slot, its five (k,
+        cap) fields)]`` -> ``[(shard, local slot ids (B,), the five (B,
+        cap) fields)]`` for every shard that owns at least one part,
+        parts in their given order.  Parts group by shard before they are
+        stacked, so every field is copied once, as on one device.  A
+        shard's rows are its own launch, so no shard is padded to
+        another's row count (the reference pads to a common power of two
+        only because ``shard_map`` splits one array into equal blocks);
+        the ring pads its staging sets by that rule
+        (``TimeSurfaceEngine.push_staged``)."""
+        groups: List[list] = [[] for _ in range(self.n_shards)]
+        for slot, fields in parts:
+            k, local = self.locate(slot)
+            groups[k].append((local, fields))
+        out = []
+        for k, rows in enumerate(groups):
+            if rows:
+                sids = [local for local, f in rows
+                        for _ in range(f[0].shape[0])]
+                fields = [np.concatenate(f)
+                          for f in zip(*(f for _, f in rows))]
+                out.append((k, np.asarray(sids, np.int32), fields))
+        return out
+
+
 #: an ingest item: (slot id | session, packed AER words | EventStream |
 #: EventBatch)
 IngestItem = Tuple[Union[int, SensorSession],
@@ -404,13 +513,28 @@ class TimeSurfaceEngine:
         cam.detach()
 
     Pool-level calls (``read`` / ``serve_step``) return pool-shaped
-    products for all slots.
+    products for all slots, ``n_slots_padded`` rows on ``device``.  With
+    a ``mesh`` (``launch.mesh.make_host_mesh``) the pool splits over the
+    mesh's shards (see the module docstring); ``device`` is then shard
+    0's, and ``state`` is a copy of the whole pool gathered there.
     """
 
-    def __init__(self, cfg: TSEngineConfig, device=None):
+    def __init__(self, cfg: TSEngineConfig, device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.state = init_state(cfg, self.device)
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            devices = shd.slot_pool_devices(mesh)
+            if device is not None and resolve_device(device) != devices[0]:
+                raise ValueError(f"device {device} is not the mesh's shard "
+                                 f"0 device {devices[0]}")
+        self.mesh = mesh
+        self._plan = _ShardPlan(cfg, devices, mesh)
+        self.device = devices[0]
+        sps = self._plan.slots_per_shard
+        self._states: List[EngineState] = [None] * len(devices)
+        for k, dev in enumerate(devices):
+            self._install(k, init_state(cfg, dev, n_slots=sps))
         self.capacity = cfg.n_slots
         self._free: List[int] = list(range(cfg.n_slots))
         self._sessions: Dict[int, SensorSession] = {}
@@ -420,11 +544,55 @@ class TimeSurfaceEngine:
         self._cache_surface: Optional[Tuple[str, spec_mod.Surface]] = None
         self._compiled_cache: Dict[spec_mod.ReadoutSpec,
                                    spec_mod.CompiledSpec] = {}
-        self._head_cache: Dict[spec_mod.ReadoutSpec, Optional[dict]] = {}
+        self._head_cache: Dict[Tuple[spec_mod.ReadoutSpec, str],
+                               Optional[dict]] = {}
         self._rest_cache: Dict[spec_mod.ReadoutSpec,
                                Optional[spec_mod.ReadoutSpec]] = {}
-        self._recompute_max_dirty()
-        self._ring = IngestRing(cfg.chunk_capacity, self.device)
+        # one ring per shard: its own pinned staging sets and copy stream
+        self._rings = [IngestRing(cfg.chunk_capacity, dev) for dev in devices]
+
+    # -- shards ----------------------------------------------------------------
+    @property
+    def n_slots_padded(self) -> int:
+        """Rows of the pool and of every pool-level product: the capacity
+        padded up to a multiple of the shard count."""
+        return self._plan.n_slots_padded
+
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        """The device of each shard, in shard order."""
+        return list(self._plan.devices)
+
+    def _install(self, k: int, state: EngineState) -> None:
+        """Make ``state`` shard ``k``'s, raising unless every leaf lives
+        on the shard's device."""
+        dev = self._plan.devices[k]
+        for leaf in _leaves(state):
+            if leaf is not None and leaf.device != dev:
+                raise ValueError(f"shard {k} lives on {dev} but a state "
+                                 f"leaf is on {leaf.device}")
+        self._states[k] = state
+
+    def _gather(self, parts: Sequence[Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+        """Per-shard products -> pool products on ``device``, slot order."""
+        if len(parts) == 1:
+            return parts[0]
+        return {name: torch.cat([p[name].to(self.device) for p in parts])
+                for name in parts[0]}
+
+    @property
+    def state(self) -> EngineState:
+        """The whole pool's state.  With one shard these are the pool's
+        own tensors; with several, a copy gathered on ``device`` (writing
+        to it writes nothing back; ``load_state`` installs a state)."""
+        if len(self._states) == 1:
+            return self._states[0]
+        per_leaf = zip(*(_leaves(st) for st in self._states))
+        return _from_leaves([
+            None if parts[0] is None
+            else torch.cat([t.to(self.device) for t in parts])
+            for parts in per_leaf])
 
     # -- sessions ------------------------------------------------------------
     def attach(self, qos=None) -> SensorSession:
@@ -436,7 +604,8 @@ class TimeSurfaceEngine:
             raise RuntimeError(
                 f"no free sensor slots (pool capacity {self.capacity})")
         slot = self._free.pop(0)
-        reset_slot(self.state, slot, bump_generation=True)
+        k, local = self._plan.locate(slot)
+        reset_slot(self._states[k], local, bump_generation=True)
         session = SensorSession(self, slot, qos=qos)
         self._sessions[slot] = session
         return session
@@ -444,7 +613,8 @@ class TimeSurfaceEngine:
     def _detach(self, slot: int) -> None:
         """Session teardown: wipe the slot and return it to the pool."""
         self._check_acquired(slot)
-        reset_slot(self.state, slot, bump_generation=False)
+        k, local = self._plan.locate(slot)
+        reset_slot(self._states[k], local, bump_generation=False)
         self._sessions.pop(slot, None)
         self._free.append(slot)
         self._free.sort()
@@ -454,6 +624,10 @@ class TimeSurfaceEngine:
             raise ValueError(f"slot {slot} out of range [0, {self.capacity})")
         if slot in self._free:
             raise ValueError(f"slot {slot} is not acquired")
+
+    def _slot_generation(self, slot: int) -> int:
+        k, local = self._plan.locate(slot)
+        return int(self._states[k].generation[local])
 
     @property
     def n_live(self) -> int:
@@ -498,35 +672,32 @@ class TimeSurfaceEngine:
         return out
 
     def _collect(self, items: Sequence[IngestItem]):
-        """Items -> (slot ids (B,), the five (B, cap) fields) on the host."""
-        parts = self._item_chunks(items)
-        if not parts:
-            return None
-        slot_ids = [slot for slot, f in parts for _ in range(f[0].shape[0])]
-        fields = [np.concatenate(f) for f in zip(*(f for _, f in parts))]
-        return np.asarray(slot_ids, np.int32), fields
+        """Items -> ``[(shard, local slot ids (B,), the five (B, cap)
+        fields)]`` on the host (``_ShardPlan.route``)."""
+        return self._plan.route(self._item_chunks(items))
 
     def push(self, items: Sequence[IngestItem]) -> None:
-        """Pool-level batched ingest: one scatter launch for every chunk
-        of every item.  ``items`` pairs a ``SensorSession`` (or its slot
-        id) with a payload; payloads longer than ``chunk_capacity`` are
-        split on the host."""
-        host = self._collect(items)
-        if host is None:
-            return
-        sids, fields = host
-        dev = self.device
-        ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
-        _scatter_chunks(self.state, torch.from_numpy(sids).to(dev), ev)
+        """Pool-level batched ingest: one scatter launch per shard for
+        every chunk of every item aimed at it.  ``items`` pairs a
+        ``SensorSession`` (or its slot id) with a payload; payloads longer
+        than ``chunk_capacity`` are split on the host."""
+        for k, sids, fields in self._collect(items):
+            dev = self._plan.devices[k]
+            ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
+            _scatter_chunks(self._states[k], torch.from_numpy(sids).to(dev),
+                            ev)
 
     def push_staged(self, items: Sequence[Tuple[int, RawPart]]) -> None:
         """Ring-staged batched ingest: raw ``(slot | session, (x, y, t,
         p))`` host parts, each at most ``chunk_capacity`` events, staged
-        into the ``IngestRing`` and scattered by one ``chunk_scatter``
-        launch (rows padded to a power of two with invalid rows).  Bitwise
-        the ``push`` of the same parts."""
+        into each shard's ``IngestRing`` and scattered by one
+        ``chunk_scatter`` launch per shard.  Rows group by the shard owning
+        their slot (ids local) and every shard's rows pad with invalid
+        rows to one power of two, the reference's shard-major staging.
+        Bitwise the ``push`` of the same parts."""
         cap = self.cfg.chunk_capacity
-        rows = []
+        per_shard: List[List[Tuple[int, RawPart]]] = [
+            [] for _ in range(self._plan.n_shards)]
         for slot, part in items:
             if isinstance(slot, SensorSession):
                 slot._check()
@@ -536,14 +707,18 @@ class TimeSurfaceEngine:
                 raise ValueError(
                     f"part of {len(part[0])} events exceeds the chunk "
                     f"capacity {cap}; split parts on the host")
-            rows.append((slot, part))
-        if not rows:
-            return
-        buf = self._ring.acquire(_pad_batch(len(rows)))
-        for i, (slot, part) in enumerate(rows):
-            IngestRing.fill_row(buf, i, slot, part)
-        sids, ev = self._ring.upload(buf)
-        _scatter_chunks(self.state, sids, ev)
+            k, local = self._plan.locate(slot)
+            per_shard[k].append((local, part))
+        b = _pad_batch(max(len(rows) for rows in per_shard))
+        for k, rows in enumerate(per_shard):
+            if not rows:
+                continue
+            ring = self._rings[k]
+            buf = ring.acquire(b)
+            for i, (local, part) in enumerate(rows):
+                IngestRing.fill_row(buf, i, local, part)
+            sids, ev = ring.upload(buf)
+            _scatter_chunks(self._states[k], sids, ev)
 
     def _ingest_labeled(self, items: Sequence[IngestItem]) -> list:
         """Scatter payloads *and* label each event with its STCF support
@@ -554,21 +729,23 @@ class TimeSurfaceEngine:
         scattered -- so the labels are those of the offline
         ``stcf_chunked`` at ``chunk = chunk_capacity``.  Returns, per
         item, ``(support (n,) int32, support >= stcf_threshold)`` over its
-        valid events, on the engine's device.
+        valid events, on the device of the slot's shard.
         """
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         stcf_cfg, params = cfg.stcf_config(), cfg.decay_params()
         v_tw = cfg.v_tw()
         out = []
         for slot, fields in self._item_chunks(items):
+            k, local = self._plan.locate(slot)
+            dev, state = self._plan.devices[k], self._states[k]
             ev = ts.EventBatch(*(torch.from_numpy(f).to(dev) for f in fields))
-            sid = torch.tensor([slot], dtype=torch.int32, device=dev)
+            sid = torch.tensor([local], dtype=torch.int32, device=dev)
             sups = []
             for i in range(ev.x.shape[0]):
                 chunk = ts.EventBatch(*(f[i:i + 1] for f in ev))
-                sups.append(ingest_support(self.state, sid, chunk, stcf_cfg,
+                sups.append(ingest_support(state, sid, chunk, stcf_cfg,
                                            cfg.mode, params, v_tw)[0])
-                _scatter_chunks(self.state, sid, chunk)
+                _scatter_chunks(state, sid, chunk)
             sup = torch.cat(sups)[ev.valid.reshape(-1)]
             out.append((sup, sup >= cfg.stcf_threshold))
         return out
@@ -581,7 +758,7 @@ class TimeSurfaceEngine:
                 "compose one with serve.spec (e.g. "
                 "ReadoutSpec(surface=surface()))"
             )
-        if spec_mod.needs_counts(spec) and self.state.counts is None:
+        if spec_mod.needs_counts(spec) and self._states[0].counts is None:
             raise ValueError(
                 "spec needs the counter plane (a count(...) product) but "
                 "this engine has none; declare a counts-needing spec in "
@@ -595,36 +772,61 @@ class TimeSurfaceEngine:
                 spec, self.cfg)
         return plan
 
-    def _resolved(self, spec: spec_mod.ReadoutSpec):
-        """``(compiled plan, {classify head name: params} or None)``, both
-        resolved once per spec; head weights land on the engine's device
-        (``serve.heads``)."""
+    def _resolved(self, spec: spec_mod.ReadoutSpec, k: int = 0):
+        """``(compiled plan, {classify head name: params} or None)`` for
+        shard ``k``, both resolved once per spec: head weights resolve on
+        ``device`` (``serve.heads``) and are copied to each other shard's
+        device, so every shard reads with the same bits."""
         compiled = self._compiled(spec)
-        if spec not in self._head_cache:
-            params = {name: heads_mod.resolve_head_params(h, self.cfg,
-                                                          self.device)
-                      for name, h in compiled.heads
-                      if isinstance(h, spec_mod.Classify)}
-            self._head_cache[spec] = params or None
-        return compiled, self._head_cache[spec]
+        dev = self._plan.devices[k]
+        key = (spec, str(dev))
+        if key not in self._head_cache:
+            if k:
+                base = self._resolved(spec)[1]
+                params = None if base is None else {
+                    name: M.unflatten({n: v.to(dev) for n, v in
+                                       M.flatten(p).items()})
+                    for name, p in base.items()}
+            else:
+                params = {name: heads_mod.resolve_head_params(h, self.cfg,
+                                                              dev)
+                          for name, h in compiled.heads
+                          if isinstance(h, spec_mod.Classify)} or None
+            self._head_cache[key] = params
+        return compiled, self._head_cache[key]
+
+    def _read_shard(self, k: int, spec: spec_mod.ReadoutSpec, t_now,
+                    noise_step: int) -> Dict[str, torch.Tensor]:
+        """Every product of ``spec`` over shard ``k``'s slots."""
+        compiled, head_params = self._resolved(spec, k)
+        st = self._states[k]
+        return spec_mod.read_compiled(
+            st.surfaces.sae, st.counts, t_now, compiled, self.cfg,
+            head_params, noise_step=noise_step, generation=st.generation)
 
     def read(self, spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
              t_now: float = 0.0, noise_step: int = 0
              ) -> Dict[str, torch.Tensor]:
         """Every product of ``spec`` over the whole pool at ``t_now``:
-        the stage-0 products, then the heads over exactly those tensors.
-        Free slots read as never-written.  The ``surface()`` product is
-        the same ``ops.ts_decay`` an offline reader
+        the stage-0 products, then the heads over exactly those tensors,
+        each shard reading its own slots.  Free and dead-tail slots read
+        as never-written.  The ``surface()`` product is the same
+        ``ops.ts_decay`` an offline reader
         (``time_surface.surface_read_kernel``) runs, so engine and
         offline reads of equal SAE state are bitwise equal.
         ``noise_step`` (with each slot's generation) keys the analog
         products' noise; a spec that draws none ignores it."""
         self._check_spec(spec)
-        compiled, head_params = self._resolved(spec)
-        return spec_mod.read_compiled(
-            self.state.surfaces.sae, self.state.counts, t_now, compiled,
-            self.cfg, head_params, noise_step=noise_step,
-            generation=self.state.generation)
+        return self._gather([self._read_shard(k, spec, t_now, noise_step)
+                             for k in range(self._plan.n_shards)])
+
+    def _read_slot(self, slot: int, spec: spec_mod.ReadoutSpec, t_now,
+                   noise_step: int = 0) -> Dict[str, torch.Tensor]:
+        """One slot's products: a read of its own shard only."""
+        self._check_spec(spec)
+        k, local = self._plan.locate(slot)
+        return {name: v[local] for name, v in
+                self._read_shard(k, spec, t_now, noise_step).items()}
 
     def read_many(self, specs: Sequence[spec_mod.ReadoutSpec],
                   t_now: float = 0.0, noise_step: int = 0
@@ -632,25 +834,31 @@ class TimeSurfaceEngine:
         """Serve several specs against the same pool state.  Duplicate
         specs are read once, and specs with equal stage-0 sub-specs share
         one stage-0 read, each member's heads running on its tensors --
-        bitwise what the member's own ``read`` serves."""
+        bitwise what the member's own ``read`` serves (every shard runs
+        its heads on its own slots, as ``read`` does)."""
         uniq = list(dict.fromkeys(specs))
         groups: Dict[spec_mod.ReadoutSpec, List[spec_mod.ReadoutSpec]] = {}
         for sp in uniq:
             self._check_spec(sp)
             groups.setdefault(self._compiled(sp).stage0, []).append(sp)
-        out: Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]] = {}
-        for stage0, members in groups.items():
-            if len(members) == 1:
-                out[members[0]] = self.read(members[0], t_now, noise_step)
-                continue
-            base = self.read(stage0, t_now, noise_step)
-            for sp in members:
-                compiled, head_params = self._resolved(sp)
-                heads = spec_mod.apply_heads(base, head_params, compiled,
-                                             self.cfg)
-                merged = {**base, **heads}
-                out[sp] = {n: merged[n] for n in sp.names}
-        return {sp: out[sp] for sp in uniq}
+        per_shard = []
+        for k in range(self._plan.n_shards):
+            out: Dict[spec_mod.ReadoutSpec, Dict[str, torch.Tensor]] = {}
+            for stage0, members in groups.items():
+                if len(members) == 1:
+                    out[members[0]] = self._read_shard(k, members[0], t_now,
+                                                       noise_step)
+                    continue
+                base = self._read_shard(k, stage0, t_now, noise_step)
+                for sp in members:
+                    compiled, head_params = self._resolved(sp, k)
+                    heads = spec_mod.apply_heads(base, head_params, compiled,
+                                                 self.cfg)
+                    merged = {**base, **heads}
+                    out[sp] = {n: merged[n] for n in sp.names}
+            per_shard.append(out)
+        return {sp: self._gather([out[sp] for out in per_shard])
+                for sp in uniq}
 
     def serve_step(self, items: Sequence[IngestItem],
                    spec: spec_mod.ReadoutSpec = spec_mod.SURFACE_SPEC,
@@ -663,7 +871,9 @@ class TimeSurfaceEngine:
         reads everything densely after the push (the heads need every
         input current), and so does an analog spec (the cache holds
         digital tiles; an analog read goes through the cell physics every
-        time): the same staged read a ``read`` runs."""
+        time): the same staged read a ``read`` runs.  Each shard refreshes
+        its own cache rows, choosing incremental or dense on its own dirty
+        count; either choice is bitwise."""
         self._check_spec(spec)
         surface_products = spec.surface_products()
         if (not surface_products or spec.has_heads
@@ -675,21 +885,23 @@ class TimeSurfaceEngine:
         params0 = self._compiled(spec).dynamic[name0]
         refresh_all = (self._cache_t is None or float(t_now) != self._cache_t
                        or self._cache_surface != (name0, prod0))
-        state = self.state
-        s, p, h, w = state.surfaces.sae.shape
-        tp = state.cache.dirty.shape[1]
         bh, bw = self.cfg.block
-        surface, tiles, dirty = ops.ts_fused_dirty(
-            state.surfaces.sae, state.cache.tiles.view(s * tp, bh, bw),
-            state.cache.dirty.view(s * tp), t_now, params0,
-            max_dirty=self._max_dirty, block=self.cfg.block,
-            force_dense=refresh_all,
-        )
-        self.state = state._replace(cache=ReadoutCache(
-            tiles=tiles.view(s, tp, bh, bw), dirty=dirty.view(s, tp)))
+        surfaces = []
+        for k, state in enumerate(self._states):
+            s = state.surfaces.sae.shape[0]
+            tp = state.cache.dirty.shape[1]
+            surface, tiles, dirty = ops.ts_fused_dirty(
+                state.surfaces.sae, state.cache.tiles.view(s * tp, bh, bw),
+                state.cache.dirty.view(s * tp), t_now, params0,
+                max_dirty=self._plan.max_dirty, block=self.cfg.block,
+                force_dense=refresh_all,
+            )
+            self._states[k] = state._replace(cache=ReadoutCache(
+                tiles=tiles.view(s, tp, bh, bw), dirty=dirty.view(s, tp)))
+            surfaces.append({name0: surface})
         self._cache_t = float(t_now)
         self._cache_surface = (name0, prod0)
-        out = {name0: surface}
+        out = self._gather(surfaces)
         if spec not in self._rest_cache:
             rest = {n: q for n, q in spec.products if n != name0}
             self._rest_cache[spec] = (spec_mod.ReadoutSpec(**rest)
@@ -706,45 +918,49 @@ class TimeSurfaceEngine:
         size)."""
         return self.cfg.slot_bucket or self.cfg.n_slots
 
-    def _recompute_max_dirty(self) -> None:
-        _, _, tp = self.cfg.tile_counts()
-        self._max_dirty = (self.cfg.max_dirty_tiles
-                           or max(16, self.capacity * tp // 4))
-
-    def _resize_state(self, n_slots: int) -> None:
-        """Reallocate every pool leaf at ``n_slots`` rows: growth appends
-        never-written rows, shrinking copies the head rows (a real copy,
-        so the released tail's storage is freed)."""
-        old = self.state
-        if n_slots > self.capacity:
-            tail = init_state(self.cfg, self.device,
-                              n_slots=n_slots - self.capacity)
-            fit = lambda a, b: torch.cat([a, b])
-        else:
-            tail = old
-            fit = lambda a, _: a[:n_slots].clone()
-        self.state = EngineState(
-            surfaces=ts.SurfaceState(*map(fit, old.surfaces, tail.surfaces)),
-            generation=fit(old.generation, tail.generation),
-            cache=ReadoutCache(*map(fit, old.cache, tail.cache)),
-            counts=(None if old.counts is None
-                    else fit(old.counts, tail.counts)),
-        )
+    def _resize_state(self, n_slots_padded: int) -> None:
+        """Reallocate every shard at ``n_slots_padded / n_shards`` rows:
+        global slot ``g`` keeps its bits wherever the new blocks put it,
+        rows past the old pool are never-written, rows past the new one
+        are dropped.  Each shard gets tensors of its own (a real copy, so
+        released storage is freed), filled block by block from the old
+        shards (a row copy to the new owner's device)."""
+        if n_slots_padded == self.n_slots_padded:
+            return
+        old, old_sps = self._states, self._plan.slots_per_shard
+        sps = n_slots_padded // self._plan.n_shards
+        keep = min(n_slots_padded, self.n_slots_padded)
+        news = []
+        for k, dev in enumerate(self._plan.devices):
+            new = init_state(self.cfg, dev, n_slots=sps)
+            lo, hi = k * sps, min((k + 1) * sps, keep)
+            for j, src in enumerate(old):
+                a, b = max(lo, j * old_sps), min(hi, (j + 1) * old_sps)
+                if a >= b:
+                    continue
+                for x, y in zip(_leaves(src), _leaves(new)):
+                    if x is not None:
+                        y[a - lo:b - lo].copy_(
+                            x[a - j * old_sps:b - j * old_sps])
+            news.append(new)
+        for k, new in enumerate(news):
+            self._install(k, new)
+        self._plan.resize(n_slots_padded)
 
     def grow(self, capacity: Optional[int] = None) -> int:
         """Grow the pool to ``capacity`` acquirable slots (default: one
         ``slot_bucket`` more).  The new rows are never-written state;
-        live slots keep their bits.  Returns the new capacity."""
+        live slots keep their bits.  On a mesh the padded pool moves to
+        the new capacity's padded size.  Returns the new capacity."""
         if capacity is None:
             capacity = self.capacity + self.slot_bucket
         if capacity <= self.capacity:
             raise ValueError(f"grow target {capacity} <= current capacity "
                              f"{self.capacity} (use shrink())")
-        self._resize_state(capacity)
+        self._resize_state(self._plan.pad(capacity))
         self._free.extend(range(self.capacity, capacity))
         self._free.sort()
         self.capacity = capacity
-        self._recompute_max_dirty()
         return self.capacity
 
     def shrink(self, capacity: int) -> List[Tuple[int, int]]:
@@ -767,16 +983,35 @@ class TimeSurfaceEngine:
         moves = list(zip(live_tail, free_head))
         for src, dst in moves:
             self._migrate_slot(src, dst)
-        self._resize_state(capacity)
+        self._resize_state(self._plan.pad(capacity))
         self._free = [d for d in self._free if d < capacity]
         self.capacity = capacity
-        self._recompute_max_dirty()
         return moves
+
+    def _pick_migration_dst(self, src: int) -> int:
+        """The default destination: the lowest free slot on the
+        least-loaded shard (live slots other than ``src``, which is about
+        to leave its shard); one shard takes the lowest free slot.  The
+        action log records the pair, so the oracle replays the choice
+        rather than re-deriving it."""
+        if not self._free:
+            raise RuntimeError("no free slot to migrate into")
+        load: Dict[int, int] = {}
+        for s in range(self.capacity):
+            if s != src and s not in self._free:
+                k = self._plan.shard_of(s)
+                load[k] = load.get(k, 0) + 1
+        return min(self._free,
+                   key=lambda d: (load.get(self._plan.shard_of(d), 0), d))
 
     def _migrate_slot(self, src: int, dst: int) -> None:
         """The state move and the host re-key for one live slot (shared by
-        ``migrate`` and ``shrink``; the caller validates)."""
-        migrate_slot(self.state, src, dst)
+        ``migrate`` and ``shrink``; the caller validates).  Across shards
+        the rows are copied to the destination shard's device."""
+        ks, ls = self._plan.locate(src)
+        kd, ld = self._plan.locate(dst)
+        migrate_slot(self._states[ks], ls, ld,
+                     None if kd == ks else self._states[kd])
         self._free.remove(dst)
         session = self._sessions.pop(src, None)
         if session is not None:
@@ -787,14 +1022,12 @@ class TimeSurfaceEngine:
 
     def migrate(self, src: int, dst: Optional[int] = None) -> int:
         """Live-migrate the session on slot ``src`` to free slot ``dst``
-        (default: the lowest free slot).  Its whole per-slot state moves
-        (``migrate_slot``), its ``SensorSession`` re-binds in place, and
-        ``src`` is wiped and freed.  Returns the destination slot."""
+        (default: ``_pick_migration_dst``).  Its whole per-slot state
+        moves (``migrate_slot``), its ``SensorSession`` re-binds in place,
+        and ``src`` is wiped and freed.  Returns the destination slot."""
         self._check_acquired(src)
         if dst is None:
-            if not self._free:
-                raise RuntimeError("no free slot to migrate into")
-            dst = self._free[0]
+            dst = self._pick_migration_dst(src)
         if dst == src:
             raise ValueError(f"migration src == dst ({src})")
         if not 0 <= dst < self.capacity:
@@ -806,57 +1039,57 @@ class TimeSurfaceEngine:
 
     # -- state hand-over -----------------------------------------------------
     def load_state(self, state: EngineState) -> None:
-        """Install a whole pool state (for example one carried over from
-        the JAX engine, ``convert.engine_state_from_numpy``).  Shapes and
-        dtypes must match this engine's; the cache epoch goes cold, so the
-        next ``serve_step`` refills densely."""
-        want = init_state(self.cfg, "meta", n_slots=self.capacity)
-        for name, got, ref in (
-            ("sae", state.surfaces.sae, want.surfaces.sae),
-            ("t_last", state.surfaces.t_last, want.surfaces.t_last),
-            ("n_events", state.surfaces.n_events, want.surfaces.n_events),
-            ("generation", state.generation, want.generation),
-            ("cache.tiles", state.cache.tiles, want.cache.tiles),
-            ("cache.dirty", state.cache.dirty, want.cache.dirty),
-        ):
-            if got.shape != ref.shape or got.dtype != ref.dtype:
+        """Install a whole pool state of ``n_slots_padded`` rows (for
+        example one carried over from the JAX engine,
+        ``convert.engine_state_from_numpy``), split over the shards.
+        Shapes and dtypes must match this engine's; the cache epoch goes
+        cold, so the next ``serve_step`` refills densely."""
+        want = init_state(self.cfg, "meta", n_slots=self.n_slots_padded)
+        names = ("sae", "t_last", "n_events", "generation", "cache.tiles",
+                 "cache.dirty", "counts")
+        for name, got, ref in zip(names, _leaves(state), _leaves(want)):
+            if (got is None) != (ref is None):
+                raise ValueError("counts plane does not match this "
+                                 "engine's declared specs")
+            if got is not None and (got.shape != ref.shape
+                                    or got.dtype != ref.dtype):
                 raise ValueError(f"{name}: {tuple(got.shape)} {got.dtype} != "
                                  f"{tuple(ref.shape)} {ref.dtype}")
-        if (state.counts is None) != (want.counts is None) or (
-            state.counts is not None
-            and (state.counts.shape != want.counts.shape
-                 or state.counts.dtype != want.counts.dtype)
-        ):
-            raise ValueError("counts plane does not match this engine's "
-                             "declared specs")
-        dev = self.device
-        self.state = EngineState(
-            surfaces=ts.SurfaceState(*(x.to(dev).contiguous()
-                                       for x in state.surfaces)),
-            generation=state.generation.to(dev).contiguous(),
-            cache=ReadoutCache(*(x.to(dev).contiguous() for x in state.cache)),
-            counts=(None if state.counts is None
-                    else state.counts.to(dev).contiguous()),
-        )
+        sps = self._plan.slots_per_shard
+        for k, dev in enumerate(self._plan.devices):
+            rows = slice(k * sps, (k + 1) * sps)
+            self._install(k, _from_leaves([
+                None if x is None else x[rows].to(dev).contiguous()
+                for x in _leaves(state)]))
         self._cache_t = None
         self._cache_surface = None
 
     # -- telemetry -----------------------------------------------------------
     def stats(self) -> dict:
         s, n = self.state, self.capacity
-        return {
+        out = {
             "device": str(self.device),
             "capacity": n,
+            "n_slots_padded": self.n_slots_padded,
             "slot_bucket": self.slot_bucket,
             "live": [i not in self._free for i in range(n)],
-            "generation": s.generation.tolist(),
-            "n_events": s.surfaces.n_events.tolist(),
-            "t_last": s.surfaces.t_last.tolist(),
+            "generation": s.generation[:n].tolist(),
+            "n_events": s.surfaces.n_events[:n].tolist(),
+            "t_last": s.surfaces.t_last[:n].tolist(),
             "free_slots": list(self._free),
             "dirty_tiles": int(s.cache.dirty.sum()),
             "cache_t": self._cache_t,
-            "max_dirty_tiles": self._max_dirty,
+            "max_dirty_tiles": self._plan.max_dirty,
             "sessions": sorted(self._sessions),
             "counts_plane": s.counts is not None,
             "compiled_specs": len(self._compiled_cache),
         }
+        if self.mesh is not None:
+            out["mesh"] = {
+                "axes": list(self._plan.axes),
+                "n_shards": self._plan.n_shards,
+                "n_slots_padded": self.n_slots_padded,
+                "slots_per_shard": self._plan.slots_per_shard,
+                "devices": [str(d) for d in self._plan.devices],
+            }
+        return out

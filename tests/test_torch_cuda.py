@@ -707,3 +707,98 @@ def test_grow_keeps_pending_products(cuda):
     rt.flush()
     assert rp.oracle_digests(eng.TimeSurfaceEngine(cfg), rt.log) == [
         e.digest for k, e in rt.log if k == "step"]
+
+
+# ---------------------------------------------------------------------------
+# the slot pool over several shards on the card
+# ---------------------------------------------------------------------------
+
+def _shard_engines(cuda, n_shards, n_slots=5):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = _fleet_cfg(n_slots=n_slots, slot_bucket=n_slots)
+    mesh = make_host_mesh(n_shards, devices=[cuda])
+    return (eng.TimeSurfaceEngine(cfg, mesh=mesh),
+            eng.TimeSurfaceEngine(cfg, cuda))
+
+
+def _same_pool(sharded, plain):
+    n = plain.n_slots_padded
+    for a, b in zip(eng._leaves(sharded.state), eng._leaves(plain.state)):
+        if b is not None:
+            assert a.device == b.device
+            assert torch.equal(bits(a[:n]), bits(b))
+
+
+def bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def test_two_shards_on_one_card_match_unsharded(cuda):
+    """Two shards on one card, each with tensors of its own: host and ring
+    pushes, the FRAME read, the cached ``serve_step`` and the stream's
+    digests bitwise the unsharded engine's on the card, the dead tail of
+    the padded pool never-written."""
+    from repro_torch.events import replay as rp
+    from repro_torch.serve.stream import StreamConfig
+
+    sharded, plain = _shard_engines(cuda, 2)
+    assert sharded.n_slots_padded == 6 and plain.n_slots_padded == 5
+    st0, st1 = sharded._states
+    assert st0.surfaces.sae.device == st1.surfaces.sae.device
+    assert st0.surfaces.sae.data_ptr() != st1.surfaces.sae.data_ptr()
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           stcf=rs.stcf(), count=rs.count(4), ebbi=rs.ebbi())
+    for e in (sharded, plain):
+        for _ in range(5):
+            e.attach()
+    items = [(s, _fleet_words(s, 0.0, 0.03)) for s in range(5)]
+    _lib.reset_launches()
+    for e in (sharded, plain):
+        e.push(items)
+        s = aer.unpack(_fleet_words(7, 0.03, 0.06), 60, 100)
+        e.push_staged([(4, (s.x[:1024], s.y[:1024], s.t[:1024],
+                            s.p[:1024]))])
+    _same_pool(sharded, plain)
+    for t_now in (0.06, 0.06):
+        got = sharded.serve_step([(1, items[1][1])], frame, t_now)
+        want = plain.serve_step([(1, items[1][1])], frame, t_now)
+        for k in want:
+            assert torch.equal(bits(got[k][:5]), bits(want[k])), k
+            assert not bits(got[k][5:]).any(), k
+    assert all(_lib.LAUNCHES[k] > 0 for k in
+               ("ts_decay", "stcf_support", "chunk_scatter")), _lib.LAUNCHES
+    _same_pool(sharded, plain)
+    cfg = _fleet_cfg(n_slots=4, slot_bucket=4)
+    mesh = sharded.mesh
+    feeds = lambda: rp.mixed_scene_feeds(60, 100, 0.04, 4, seed=3,  # noqa
+                                         churn=True)
+    scfg = StreamConfig(policy="drop_oldest", deadline_s=0.01)
+    a = rp.replay(eng.TimeSurfaceEngine(cfg, mesh=mesh), feeds(), scfg)
+    b = rp.replay(eng.TimeSurfaceEngine(cfg, cuda), feeds(), scfg)
+    assert a.digests == b.digests
+    assert rp.check_oracle(
+        a, lambda: eng.TimeSurfaceEngine(cfg, mesh=mesh)) == a.n_steps
+
+
+def test_cross_shard_migration_on_card(cuda):
+    """A migration between shards on the card (a row copy into the other
+    shard's tensors, then a wipe) leaves the pool bitwise the unsharded
+    engine's after the same move, and the cached read equals the dense
+    one after it."""
+    sharded, plain = _shard_engines(cuda, 4, n_slots=8)
+    for e in (sharded, plain):
+        for _ in range(8):
+            e.attach()
+        e.serve_step([(s, _fleet_words(s, 0.0, 0.04)) for s in range(8)],
+                     rs.SURFACE_SPEC, 0.04)
+        e._sessions[6].detach()
+        assert e.migrate(1, 6) == 6       # shard 0 -> shard 3
+    _same_pool(sharded, plain)
+    got = sharded.serve_step([(6, _fleet_words(9, 0.04, 0.05))],
+                             rs.SURFACE_SPEC, 0.05)["surface"]
+    want = plain.serve_step([(6, _fleet_words(9, 0.04, 0.05))],
+                            rs.SURFACE_SPEC, 0.05)["surface"]
+    assert torch.equal(bits(got), bits(want))
+    dense = sharded.read(rs.SURFACE_SPEC, 0.05)["surface"]
+    assert torch.equal(bits(got), bits(dense))

@@ -602,6 +602,18 @@ def test_sensors_cli_on_cpu(capsys):
     assert out.count("logits argmax") == 2 and "on CPU" in out
 
 
+def test_sensors_cli_mesh_on_cpu(capsys):
+    """``sensors --mesh 2`` on two CPU shards: the placement and the
+    padded pool printed, the fused surface bitwise the dense read."""
+    tlaunch.main(["sensors", "--mesh", "2", "--hw", "48x64", "--duration",
+                  "0.03", "--sensors", "3", "--slots", "5", "--chunk", "1024",
+                  "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 2} -- shard 0 -> cpu, shard 1 -> cpu" in out
+    assert "slot pool padded 5 -> 6 for 2 shards" in out
+    assert "fused surface bit-identical to dense readout: True" in out
+
+
 def test_sensors_cli_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

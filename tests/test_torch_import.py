@@ -63,6 +63,8 @@ REQUIRED = (
     "repro_torch.core.edram", "repro_torch.hw.energy_model",
     "repro_torch.serve.fidelity", "repro_torch.serve.stream",
     "repro_torch.events.replay",
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.launch.mesh",
 )
 
 

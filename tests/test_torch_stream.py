@@ -14,7 +14,8 @@ cross).  The reference's single-device fleet cases (elastic pools, live
 migration, the shard budget at one shard) run on both packages side by
 side: action logs, counters and tier counters (``migrated`` included)
 equal across packages, each package's digests equal to its own oracle's.
-The multi-device pool waits for its slice; there ``--mesh N`` must raise.
+The pool over several shards has its own file (``test_torch_sharded.py``);
+here the stream CLI drives it with ``--mesh 2``.
 """
 import dataclasses
 
@@ -980,16 +981,24 @@ def test_stream_classify_tier_end_to_end():
 
 
 # ---------------------------------------------------------------------------
-# the device mesh waits for the multi-device slice
+# the stream CLI over a mesh of CPU shards
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"]])
-def test_stream_cli_fleet_flags_raise(flag):
+def test_stream_cli_fleet_flags_raise(flag, capsys):
+    """``stream --mesh 2`` (which raised before the pool over several
+    devices was ported) runs on two CPU shards with the multi-shard EDF
+    flags, prints each shard's device and passes its oracle gate on a
+    sharded engine factory."""
     from repro_torch.launch import serve as launch_serve
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        launch_serve.main(["stream", "--hw", "8x8", "--device", "cpu",
-                           *flag])
+    launch_serve.main(["stream", "--hw", "24x32", "--sensors", "8",
+                       "--duration", "0.03", "--deadline", "0.005",
+                       "--chunk", "512", "--shard-budget", "2",
+                       "--barrier-every", "4", "--device", "cpu", *flag])
+    out = capsys.readouterr().out
+    assert "shard 0 -> cpu, shard 1 -> cpu" in out
+    assert "bitwise oracle gate: OK" in out
 
 
 # ---------------------------------------------------------------------------

@@ -242,7 +242,7 @@ def main() -> int:
                       f"(turns {[round(x, 4) for x in t]})", flush=True)
 
     if args.scatter:
-        sids, fields = engine._collect(
+        (_, sids, fields), = engine._collect(
             [(k, np.concatenate(words[k % cs.N_SCENES][2:4]))
              for k in range(cs.S)])
         pushes = {
