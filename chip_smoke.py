@@ -16,7 +16,9 @@ and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
 5 the vision heads and labeled ingest on the time-surface path, 6 the
 analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
 elastic slot pool and live migration, 8 the slot pool over several
-shards):
+shards, 9 the slot pool over several cards where more than one is
+visible; phase 8 (a) and phase 9's loops run straight after phase 2,
+while phase 1's products are held to compare against):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -146,13 +148,19 @@ shards):
    Checks: every step's products == phase 1's unsharded products,
    bitwise; incremental == dense read at every deadline; the events
    ingested equal; every kernel launched on every shard.  Prints each
-   loop's events/s and ``serve_step`` p50/p99 beside phase 1's, and the
-   host time of ``route``.  (b) Phase 7's fleet feeds on a 2-shard engine
+   loop's events/s and ``serve_step`` p50/p99 beside phase 1's, the
+   host time of ``route``, the host time of a steady step by part
+   (``HostSpans``: chunking, ``route``, uploads and scatter, the
+   dirty-tile refresh, its ``nonzero`` sync, the other reads, the gather
+   onto shard 0) and, for the first loop of each count, two more steps
+   under ``torch.profiler``.  (b) Phase 7's fleet feeds on a 2-shard engine
    (21 slots pad to 22) under the same ``StreamConfig`` (``shard_budget
    = 320``, ``shard_barrier_every = 4``).  Checks: the digests replay
    bitwise through the oracle on a 2-shard factory; a migration crosses
    shards; barrier steps fall every 4th deadline; each tier conserves
-   its events; every kernel launched on both shards.  (c) One migration
+   its events; every kernel launched on both shards.  Prints the three
+   steps of longest readout latency with the actions logged around
+   them.  (c) One migration
    from shard 0 to shard 3 of a 4-shard QVGA pool of 8 slots: every leaf
    bitwise the unsharded engine's after the same move, and the next
    ``serve_step`` too; device and host ms of the move beside the same
@@ -160,6 +168,14 @@ shards):
    sensors --mesh 2 --hw 48x64 --duration 0.05 --sensors 4`` in a
    subprocess: the placement printed and the fused surface bitwise the
    dense read.
+9. **Cards** -- only where more than one card is visible (one card:
+   skipped with a line).  One small copy between every ordered pair of
+   cards, one untimed loop on one shard per card, then phase 8 (a)'s
+   loop with N shards on card 0, N shards on the N cards and 2 shards on
+   2 cards, in turns, each checked as in phase 8 (a); one migration
+   from card 0's shard to the last card's, checked as in phase 8 (c);
+   phase 8 (b)'s fleet on one shard per card, twice (the second on
+   cards the first warmed), checked as there.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -1930,12 +1946,72 @@ class ShardLaunches:
                 for shard in range(n_shards)]
 
 
-def shard_loop(dev, mods, words, run, n_shards, card, devices=None):
+class HostSpans:
+    """Host time of a ``serve_step``'s parts on one engine, split
+    exclusively (a span's time less the spans inside it): while active,
+    the engine's ``_item_chunks`` (host chunking), ``_plan.route``,
+    ``push`` (what is left of it: the uploads and the scatter launches),
+    ``read`` (the products read after the surface), ``_gather`` (products
+    onto shard 0), ``ops.ts_fused_dirty`` (the dirty-tile refresh) and
+    ``torch.nonzero`` (its host sync) are wrapped with the host clock."""
+
+    def __init__(self, ops, engine):
+        self._targets = [(engine, "_item_chunks", "chunking"),
+                         (engine._plan, "route", "route"),
+                         (engine, "push", "uploads + scatter"),
+                         (engine, "read", "other reads"),
+                         (engine, "_gather", "gather"),
+                         (ops, "ts_fused_dirty", "refresh"),
+                         (torch, "nonzero", "nonzero sync")]
+        self.ms = {name: 0.0 for _, _, name in self._targets}
+        self.active = True
+        self._stack = []
+        self._saved = []
+
+    def _wrap(self, fn, name):
+        def wrapped(*args, **kw):
+            if not self.active:
+                return fn(*args, **kw)
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = (time.perf_counter() - t0) * 1e3
+                inner = self._stack.pop()
+                self.ms[name] += dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+        return wrapped
+
+    def __enter__(self):
+        for obj, attr, name in self._targets:
+            fn = getattr(obj, attr)
+            self._saved.append((obj, attr, obj.__dict__.get(attr), fn))
+            setattr(obj, attr, self._wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, own, fn in reversed(self._saved):
+            if own is None:       # a bound method: drop the wrapper
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
+
+    def per_step(self, n_steps: int, step_ms: float) -> dict:
+        out = {k: v / n_steps for k, v in self.ms.items()}
+        out["rest of serve_step"] = step_ms / n_steps - sum(out.values())
+        return out
+
+
+def shard_loop(dev, mods, words, run, n_shards, card, devices=None,
+               profile=False):
     """Phase 8 (a): phase 1's FRAME loop on an ``n_shards`` engine, the
     shards cycling over ``devices`` (default: all on ``dev``), each with
     tensors of its own.  Each step's products against phase 1's on the
     same words, bitwise; incremental == dense at every deadline; launches
-    per shard."""
+    per shard; the host time of a step by part (``HostSpans``), and with
+    ``profile`` two more steps under ``torch.profiler``."""
     _lib, ops, ts, aer, pipeline, rs, eng = mods
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -1958,11 +2034,13 @@ def shard_loop(dev, mods, words, run, n_shards, card, devices=None):
     t_wall = 0.0
     torch.cuda.synchronize()
     _lib.reset_launches()
-    with ShardLaunches(_lib, engine) as sl:
+    with ShardLaunches(_lib, engine) as sl, HostSpans(ops, engine) as hs:
         for d in range(DEADLINES):
             t_now = (d + 1) * DEADLINE_S
             for half in range(2):
                 b = 2 * d + half
+                if b == 2:   # spans over the steady steps only
+                    hs.ms = dict.fromkeys(hs.ms, 0.0)
                 t0 = time.perf_counter()
                 out = engine.serve_step(bursts[b], frame, t_now)
                 torch.cuda.synchronize()
@@ -1974,17 +2052,21 @@ def shard_loop(dev, mods, words, run, n_shards, card, devices=None):
                            and not bits(out[k][S:]).any() for k in want):
                     differ.append(b)
             with sl.paused():
+                hs.active = False
                 dense = engine.read(rs.SURFACE_SPEC, t_now)["surface"]
+                hs.active = True
                 if not same(out["surface"], dense):
                     mismatched.append(d)
         launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
     per_shard = sl.per_shard(n_shards)
-    n_events = int(engine.state.surfaces.n_events.sum())
+    n_events = sum(engine.stats()["n_events"])
     steady = step_ms[2:]
+    spans = hs.per_step(len(steady), sum(steady))
     res = dict(n_shards=n_shards, events_per_s=n_events / t_wall,
                p50_ms=float(np.percentile(steady, 50)),
                p99_ms=float(np.percentile(steady, 99)), launches=launches,
-               launches_per_shard=per_shard, n_events=n_events)
+               launches_per_shard=per_shard, n_events=n_events,
+               host_ms_per_step=spans)
     log(f"shards on {card}: FRAME loop on {n_shards} shard(s) of "
         f"{engine._plan.slots_per_shard} slots ({mesh.placement()}): "
         f"{n_events} "
@@ -1994,6 +2076,20 @@ def shard_loop(dev, mods, words, run, n_shards, card, devices=None):
         f"{run['events_per_s']:.1f} events/s)")
     log(f"shards: {n_shards}-shard launches {launches}, per shard "
         f"{per_shard}")
+    log(f"shards: host ms of a steady serve_step by part on {n_shards} "
+        f"shard(s), mean of {len(steady)}: "
+        f"{ {k: round(v, 4) for k, v in spans.items()} }")
+    if profile:
+        # one dense and one incremental step under torch.profiler, after
+        # the path's counts were read: kernel launches and device idle
+        t_now = (DEADLINES + 1) * DEADLINE_S
+        prof = profiled(lambda: [engine.serve_step(bursts[b], frame, t_now)
+                                 for b in (0, 1)])
+        profile_line(f"shards profile, {n_shards} shard(s), two steps "
+                     f"(dense + incremental)", prof)
+        res["profile"] = dict(launches=prof["launches"],
+                              device_ms=prof["device_ms"],
+                              wall_ms=prof["wall_ms"])
     check(not differ, f"{n_shards}-shard FRAME products == phase 1's "
           f"unsharded products, bitwise, at every step (differ: {differ})")
     check(not mismatched, f"{n_shards}-shard incremental serve_step == "
@@ -2081,6 +2177,10 @@ def shard_fleet(dev, mods, card, feeds, n_shards=2, devices=None):
               f"discarded + deferred")
     check(all(per[k] > 0 for per in per_shard for k in ENGINE_KERNELS),
           f"shards fleet: every kernel launched on all {n_shards} shards")
+    slow = latency_outliers(report)
+    log(f"shards fleet: the {len(slow)} steps of longest readout latency, "
+        f"with the actions logged before them and before the next step "
+        f"(which syncs them): {slow}")
     try:
         n = rp.check_oracle(report, make, frame)
         check(n == report.n_steps, f"shards fleet digests == the "
@@ -2090,9 +2190,30 @@ def shard_fleet(dev, mods, card, feeds, n_shards=2, devices=None):
         check(False, f"shards fleet oracle gate: {err}")
     return dict(events_per_s=report.events_per_sec, launches=launches,
                 launches_per_shard=per_shard, crossing=crossing,
+                slowest_steps=slow,
                 tiers={t: {k: report.tiers[t][k] for k in
                            ("ingested", "migrated", "latency_p50_us",
                             "latency_p99_us")} for t in report.tiers})
+
+
+def latency_outliers(report, k=3):
+    """The ``k`` steps of a replay with the longest readout latency, each
+    with the kinds of the actions logged just before it and just before
+    the next step (a pipelined step's latency runs until the next step
+    syncs it)."""
+    steps, acts, cur = [], [], {}
+    for kind, e in report.log:
+        if kind == "step":
+            steps.append(e)
+            acts.append(cur)
+            cur = {}
+        else:
+            cur[kind] = cur.get(kind, 0) + 1
+    acts.append(cur)
+    order = sorted(range(len(steps)), key=lambda i: -steps[i].latency_s)
+    return [dict(step=i, latency_ms=round(steps[i].latency_s * 1e3, 3),
+                 n_events=steps[i].n_events, before=acts[i],
+                 after=acts[i + 1]) for i in order[:k]]
 
 
 def shard_migrate(dev, mods, words, card, devices=None):
@@ -2126,7 +2247,8 @@ def shard_migrate(dev, mods, words, card, devices=None):
         check(got == dst, f"shards: migrate {src} -> {dst} ({got})")
         times["sharded" if e is sharded else "plain"] = (t_dev, t_host)
     ok = all(b is None or same(a, b) for a, b in
-             zip(eng._leaves(sharded.state), eng._leaves(plain.state)))
+             zip(eng._leaves(sharded.gather_state()),
+                 eng._leaves(plain.state)))
     check(ok, f"shards: migrate {src} (shard {src // sps}) -> {dst} (shard "
           f"{dst // sps}) on {SHARD_MIGRATE_SHARDS} shards == the unsharded "
           f"migrate_slot, every leaf bitwise")
@@ -2153,21 +2275,29 @@ def shard_cli():
         log(f"  sensors --mesh 2 | {line}")
     if proc.returncode:
         log(proc.stderr[-4000:])
-    check(proc.returncode == 0
-          and "shard 0 -> cuda:0, shard 1 -> cuda:0" in proc.stdout
+    n = torch.cuda.device_count()
+    placement = f"shard 0 -> cuda:0, shard 1 -> cuda:{1 % n}"
+    check(proc.returncode == 0 and placement in proc.stdout
           and "fused surface bit-identical to dense readout: True"
           in proc.stdout,
           f"sensors --mesh 2 CLI on the card: exit {proc.returncode}, "
-          f"placement printed, fused == dense "
+          f"placement {placement} printed, fused == dense "
           f"({time.perf_counter() - t0:.1f} s)")
 
 
-def shard_phase(dev, mods, words, card, run, fl, feeds):
-    """Phase 8: the slot pool over several shards on the card."""
+def shard_loops(dev, mods, words, run, card):
+    """Phase 8 (a), run straight after phase 1 while its products are
+    held: the FRAME loop on 1, 2 and 4 shards of the card in turns (1, 2,
+    4, 4, 2, 1), the first loop of each count profiled."""
     loops = {n: [] for n in SHARD_COUNTS}
-    for n in SHARD_COUNTS + SHARD_COUNTS[::-1]:   # in turns: 1 2 4 4 2 1
-        loops[n].append(shard_loop(dev, mods, words, run, n, card))
-    run.pop("step_outs")   # phase 1's products are not needed any more
+    for n in SHARD_COUNTS + SHARD_COUNTS[::-1]:
+        loops[n].append(shard_loop(dev, mods, words, run, n, card,
+                                   profile=not loops[n]))
+    return loops
+
+
+def shard_phase(dev, mods, words, card, loops, fl, feeds):
+    """Phase 8 (b)-(d) and the summary of (a)."""
     fleet = shard_fleet(dev, mods, card, feeds)
     log(f"shards fleet: events/s {fleet['events_per_s']:.1f} on 2 shards "
         f"(phase 7, one shard: {fl['events_per_s']:.1f})")
@@ -2180,10 +2310,86 @@ def shard_phase(dev, mods, words, card, run, fl, feeds):
             f"p50 {[round(r['p50_ms'], 3) for r in rs_]} ms, p99 "
             f"{[round(r['p99_ms'], 3) for r in rs_]} ms; route "
             f"{[round(r['route_ms_p50'], 4) for r in rs_]} ms")
+    parts = {n: {k: float(np.mean([r["host_ms_per_step"][k] for r in rs_]))
+                 for k in rs_[0]["host_ms_per_step"]}
+             for n, rs_ in loops.items()}
+    for n in SHARD_COUNTS[1:]:
+        log(f"shards: host ms of a steady serve_step by part, {n} shards "
+            f"less 1 shard (means of the loops in turns): "
+            f"{ {k: round(parts[n][k] - parts[1][k], 4) for k in parts[1]} }")
     checked = loops[SHARD_LOOP_CHECKED][0]
     return dict(loops=loops, fleet=fleet, migrate=mig,
                 launches=checked["launches"],
                 launches_per_shard=checked["launches_per_shard"])
+
+
+def visible_cards():
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def card_layouts(cards):
+    """Phase 9's loops: (name, shard count, devices), each layout twice,
+    forward then backward."""
+    n = len(cards)
+    one = [(f"{n} shards on 1 card", n, cards[:1]),
+           (f"{n} shards on {n} cards", n, cards),
+           ("2 shards on 2 cards", 2, cards[:2])]
+    return one + one[::-1]
+
+
+def card_loops(dev, mods, words, run, card):
+    """Phase 9, part 1 (more than one card visible; run beside phase 8
+    (a) while phase 1's products are held): one small copy between every
+    ordered pair of cards (PyTorch enables peer access at a pair's first
+    copy), one untimed N-card loop, then the layouts of ``card_layouts``
+    in turns, every product bitwise phase 1's."""
+    cards = visible_cards()
+    t0 = time.perf_counter()
+    for a in cards:
+        for b in cards:
+            if a != b:
+                torch.ones(1, device=a).to(b)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    log(f"cards: first copies between every pair of the {len(cards)} "
+        f"cards in {time.perf_counter() - t0:.3f} s")
+    shard_loop(dev, mods, words, run, len(cards), card, devices=cards)
+    log("cards: the first N-card loop above warmed every card; the loops "
+        "below are timed in turns")
+    runs = {}
+    for name, n, devices in card_layouts(cards):
+        runs.setdefault(name, []).append(shard_loop(
+            dev, mods, words, run, n, card, devices=devices,
+            profile=name not in runs))
+    return runs
+
+
+def cards_phase(dev, mods, words, card, runs, feeds, smi):
+    """Phase 9, part 2: a migration from card 0's shard to the last
+    card's, and the fleet on one shard per card, twice (the second on
+    cards whose allocators the first warmed).  ``smi`` is every card's
+    ``nvidia-smi`` name and power limit."""
+    cards = visible_cards()
+    log(f"cards: {smi}")
+    for name, rr in runs.items():
+        log(f"cards summary on {card}: {name}, in turns: events/s "
+            f"{[round(r['events_per_s'], 1) for r in rr]} (mean "
+            f"{np.mean([r['events_per_s'] for r in rr]):.1f}); "
+            f"serve_step p50 {[round(r['p50_ms'], 3) for r in rr]} ms, "
+            f"p99 {[round(r['p99_ms'], 3) for r in rr]} ms")
+    mig = shard_migrate(dev, mods, words, card, devices=cards)
+    fleets = [shard_fleet(dev, mods, card, feeds, n_shards=len(cards),
+                          devices=cards) for _ in range(2)]
+    for i, f in enumerate(fleets):
+        log(f"cards fleet run {i + 1} on {len(cards)} cards: events/s "
+            f"{f['events_per_s']:.1f}; p50/p99 per tier, us: "
+            f"{ {t: (r['latency_p50_us'], r['latency_p99_us']) for t, r in f['tiers'].items()} }")
+    return dict(cards=[str(d) for d in cards], smi=smi, migrate=mig,
+                fleets=fleets,
+                loops={name: [dict(events_per_s=r["events_per_s"],
+                                   p50_ms=r["p50_ms"], p99_ms=r["p99_ms"],
+                                   host_ms_per_step=r["host_ms_per_step"])
+                              for r in rr] for name, rr in runs.items()})
 
 
 def sweep_phase(card):
@@ -2270,6 +2476,14 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_s["time surface"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    loops = shard_loops(dev, mods, words, run, card)
+    phase_s["shards"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_runs = (card_loops(dev, mods, words, run, card)
+                 if torch.cuda.device_count() > 1 else None)
+    run.pop("step_outs")   # phase 1's products are not needed any more
+    phase_s["cards"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lm = run_lm(dev, card)
     phase_s["lm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2293,12 +2507,19 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_s["fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sh = shard_phase(dev, mods, words, card, run, fl, feeds)
+    sh = shard_phase(dev, mods, words, card, loops, fl, feeds)
     torch.cuda.synchronize()
-    phase_s["shards"] = time.perf_counter() - t0
+    phase_s["shards"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if card_runs is None:
+        log("cards: one card visible; phase 9 runs where there are more")
+        cd = None
+    else:
+        cd = cards_phase(dev, mods, words, card, card_runs, feeds, smi)
+    phase_s["cards"] += time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
-                    "shards": sh}, default=str))
+                    "shards": sh, "cards": cd}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []

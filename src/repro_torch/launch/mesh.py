@@ -25,14 +25,14 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
-    """A 1-D mesh: shard ``k`` of the slot pool lives on ``devices[k]``."""
+    """A 1-D mesh over the ``"data"`` axis: shard ``k`` of the slot pool
+    lives on ``devices[k]``."""
 
     devices: Tuple[torch.device, ...]
-    axis_names: Tuple[str, ...] = ("data",)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return {"data": len(self.devices)}
 
     @property
     def size(self) -> int:
@@ -56,10 +56,9 @@ def _visible(device) -> Tuple[torch.device, ...]:
 
 
 def make_host_mesh(n_devices: Optional[int] = None,
-                   axes: Sequence[str] = ("data",),
                    devices: Optional[Sequence] = None,
                    device=None) -> HostMesh:
-    """A 1-D mesh of ``n_devices`` shards.
+    """A 1-D mesh of ``n_devices`` shards over the ``"data"`` axis.
 
     ``devices`` lists the devices to spread over; by default every
     visible card (``device=None`` or ``"cuda"``), or the one device
@@ -67,9 +66,6 @@ def make_host_mesh(n_devices: Optional[int] = None,
     one shard per listed device; more shards than devices cycle over
     them.
     """
-    if len(axes) != 1:
-        raise ValueError("make_host_mesh builds 1-D meshes "
-                         f"(got axes={tuple(axes)})")
     base = (_visible(device) if devices is None
             else tuple(resolve_device(d) for d in devices))
     if not base:
@@ -77,5 +73,4 @@ def make_host_mesh(n_devices: Optional[int] = None,
     n = len(base) if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n}")
-    return HostMesh(tuple(base[k % len(base)] for k in range(n)),
-                    tuple(axes))
+    return HostMesh(tuple(base[k % len(base)] for k in range(n)))

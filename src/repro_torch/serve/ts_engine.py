@@ -76,9 +76,11 @@ shard picking incremental or dense on its own dirty count.  Only a
 migration between shards crosses devices: a row copy to the
 destination's device, then a wipe of the source row.  Pool-level
 products come back in slot order at ``n_slots_padded`` rows, gathered on
-shard 0's device (``device``); a session's ``read`` reads its own shard
-only.  Per-slot results are bitwise the one-device engine's at any shard
-count: the math per slot never changes, only where the slot lives.
+shard 0's device (``device``), and so is ``gather_state()``, a copy of
+the whole pool's state (``state``, the pool's own tensors, exists for one
+shard only); a session's ``read`` reads its own shard only.  Per-slot
+results are bitwise the one-device engine's at any shard count: the math
+per slot never changes, only where the slot lives.
 
 The deprecated method-per-feature shims are not ported (ROADMAP queue 1
 item 5).
@@ -473,9 +475,9 @@ class _ShardPlan:
         stacked, so every field is copied once, as on one device.  A
         shard's rows are its own launch, so no shard is padded to
         another's row count (the reference pads to a common power of two
-        only because ``shard_map`` splits one array into equal blocks);
-        the ring pads its staging sets by that rule
-        (``TimeSurfaceEngine.push_staged``)."""
+        only because ``shard_map`` splits one array into equal blocks),
+        and the ring's staging (``TimeSurfaceEngine.push_staged``) keeps
+        that rule."""
         groups: List[list] = [[] for _ in range(self.n_shards)]
         for slot, fields in parts:
             k, local = self.locate(slot)
@@ -516,7 +518,8 @@ class TimeSurfaceEngine:
     products for all slots, ``n_slots_padded`` rows on ``device``.  With
     a ``mesh`` (``launch.mesh.make_host_mesh``) the pool splits over the
     mesh's shards (see the module docstring); ``device`` is then shard
-    0's, and ``state`` is a copy of the whole pool gathered there.
+    0's, ``gather_state()`` copies the whole pool there, and ``state``
+    (the pool's own tensors) exists for one shard only.
     """
 
     def __init__(self, cfg: TSEngineConfig, device=None, mesh=None):
@@ -583,11 +586,19 @@ class TimeSurfaceEngine:
 
     @property
     def state(self) -> EngineState:
-        """The whole pool's state.  With one shard these are the pool's
-        own tensors; with several, a copy gathered on ``device`` (writing
-        to it writes nothing back; ``load_state`` installs a state)."""
-        if len(self._states) == 1:
-            return self._states[0]
+        """The pool's own state tensors, for an engine of one shard.  A
+        sharded pool has no one state: read a copy with
+        ``gather_state`` and install one with ``load_state``."""
+        if len(self._states) != 1:
+            raise RuntimeError(
+                f"the pool is split over {len(self._states)} shards; "
+                "gather_state() returns a copy of the whole pool")
+        return self._states[0]
+
+    def gather_state(self) -> EngineState:
+        """A copy of the whole pool's state, ``n_slots_padded`` rows in
+        slot order on ``device``, for any shard count (writing to it
+        writes nothing back; ``load_state`` installs a state)."""
         per_leaf = zip(*(_leaves(st) for st in self._states))
         return _from_leaves([
             None if parts[0] is None
@@ -692,9 +703,9 @@ class TimeSurfaceEngine:
         p))`` host parts, each at most ``chunk_capacity`` events, staged
         into each shard's ``IngestRing`` and scattered by one
         ``chunk_scatter`` launch per shard.  Rows group by the shard owning
-        their slot (ids local) and every shard's rows pad with invalid
-        rows to one power of two, the reference's shard-major staging.
-        Bitwise the ``push`` of the same parts."""
+        their slot (ids local); each shard's rows pad with invalid rows to
+        a power of two of their own, as ``_ShardPlan.route`` leaves each
+        shard's rows its own.  Bitwise the ``push`` of the same parts."""
         cap = self.cfg.chunk_capacity
         per_shard: List[List[Tuple[int, RawPart]]] = [
             [] for _ in range(self._plan.n_shards)]
@@ -709,12 +720,11 @@ class TimeSurfaceEngine:
                     f"capacity {cap}; split parts on the host")
             k, local = self._plan.locate(slot)
             per_shard[k].append((local, part))
-        b = _pad_batch(max(len(rows) for rows in per_shard))
         for k, rows in enumerate(per_shard):
             if not rows:
                 continue
             ring = self._rings[k]
-            buf = ring.acquire(b)
+            buf = ring.acquire(_pad_batch(len(rows)))
             for i, (local, part) in enumerate(rows):
                 IngestRing.fill_row(buf, i, local, part)
             sids, ev = ring.upload(buf)
@@ -1066,22 +1076,26 @@ class TimeSurfaceEngine:
 
     # -- telemetry -----------------------------------------------------------
     def stats(self) -> dict:
-        s, n = self.state, self.capacity
+        n, states = self.capacity, self._states
+
+        def per_slot(leaf) -> list:   # slot order, each shard's own rows
+            return [v for st in states for v in leaf(st).tolist()][:n]
+
         out = {
             "device": str(self.device),
             "capacity": n,
             "n_slots_padded": self.n_slots_padded,
             "slot_bucket": self.slot_bucket,
             "live": [i not in self._free for i in range(n)],
-            "generation": s.generation[:n].tolist(),
-            "n_events": s.surfaces.n_events[:n].tolist(),
-            "t_last": s.surfaces.t_last[:n].tolist(),
+            "generation": per_slot(lambda st: st.generation),
+            "n_events": per_slot(lambda st: st.surfaces.n_events),
+            "t_last": per_slot(lambda st: st.surfaces.t_last),
             "free_slots": list(self._free),
-            "dirty_tiles": int(s.cache.dirty.sum()),
+            "dirty_tiles": sum(int(st.cache.dirty.sum()) for st in states),
             "cache_t": self._cache_t,
             "max_dirty_tiles": self._plan.max_dirty,
             "sessions": sorted(self._sessions),
-            "counts_plane": s.counts is not None,
+            "counts_plane": states[0].counts is not None,
             "compiled_specs": len(self._compiled_cache),
         }
         if self.mesh is not None:

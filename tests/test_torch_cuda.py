@@ -724,7 +724,8 @@ def _shard_engines(cuda, n_shards, n_slots=5):
 
 def _same_pool(sharded, plain):
     n = plain.n_slots_padded
-    for a, b in zip(eng._leaves(sharded.state), eng._leaves(plain.state)):
+    for a, b in zip(eng._leaves(sharded.gather_state()),
+                    eng._leaves(plain.state)):
         if b is not None:
             assert a.device == b.device
             assert torch.equal(bits(a[:n]), bits(b))

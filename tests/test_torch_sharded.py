@@ -147,7 +147,7 @@ def _assert_state_equal(sharded, plain):
     """Every leaf of the sharded pool (gathered) bitwise the unsharded
     pool's on its first rows; the dead tail never-written."""
     n = plain.n_slots_padded
-    s, p = sharded.state, plain.state
+    s, p = sharded.gather_state(), plain.state
     for a, b in zip(teng._leaves(s), teng._leaves(p)):
         if b is None:
             assert a is None
@@ -157,7 +157,7 @@ def _assert_state_equal(sharded, plain):
 
 def _assert_int_state_matches_reference(te, je, n):
     """Integer and bool state bitwise the reference's on the first rows."""
-    ts_, js = te.state, je.state
+    ts_, js = te.gather_state(), je.state
     for a, b in ((ts_.surfaces.sae, js.surfaces.sae),
                  (ts_.surfaces.t_last, js.surfaces.t_last),
                  (ts_.surfaces.n_events, js.surfaces.n_events),
@@ -201,8 +201,6 @@ def test_make_host_mesh_cycles_and_records_placement():
     assert m.placement() == "shard 0 -> cpu, shard 1 -> cpu, shard 2 -> cpu"
     assert make_host_mesh(devices=["cpu", "cpu"]).devices == (cpu, cpu)
     assert make_host_mesh(5, devices=["cpu"]).size == 5
-    with pytest.raises(ValueError, match="1-D"):
-        make_host_mesh(2, axes=("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="at least one shard"):
         make_host_mesh(0, device="cpu")
     with pytest.raises(ValueError, match="shard 0"):
@@ -238,6 +236,31 @@ def test_stats_mesh_and_padding(n):
     assert [c.slot for c in cams] == list(range(5))
     with pytest.raises(RuntimeError, match="no free sensor slots"):
         eng.attach()   # the dead tail is never handed out
+    eng.push([(c, _words(c.slot)) for c in cams[::2]])
+    st, g = eng.stats(), eng.gather_state()
+    assert st["generation"] == g.generation[:5].tolist()
+    assert st["n_events"] == g.surfaces.n_events[:5].tolist()
+    assert st["t_last"] == g.surfaces.t_last[:5].tolist()
+    assert st["dirty_tiles"] == int(g.cache.dirty.sum()) > 0
+    assert [x > 0 for x in st["n_events"]] == [True, False] * 2 + [True]
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_gather_state_is_a_copy_and_state_one_shard_only(n):
+    """``gather_state`` copies the pool at every shard count; ``state``
+    is the pool's own tensors and exists for one shard only."""
+    eng = teng.TimeSurfaceEngine(_cfgs(4)[1], mesh=_mesh(n))
+    cam = eng.attach()
+    cam.push(_words(0))
+    g = eng.gather_state()
+    assert g.surfaces.sae.shape[0] == eng.n_slots_padded
+    g.surfaces.n_events.zero_()
+    assert eng.stats()["n_events"][cam.slot] > 0
+    if n == 1:
+        assert eng.state.surfaces.sae is eng._states[0].surfaces.sae
+    else:
+        with pytest.raises(RuntimeError, match="gather_state"):
+            eng.state
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +498,8 @@ def test_ring_push_per_shard_bitwise(n):
         x=x, y=y, t=t, p=p, is_signal=np.ones(len(x), bool), h=H, w=W))
         for s, (x, y, t, p) in parts])
     _assert_state_equal(ring, plain)
-    for a, b in zip(teng._leaves(ring.state), teng._leaves(host.state)):
+    for a, b in zip(teng._leaves(ring.gather_state()),
+                    teng._leaves(host.gather_state())):
         assert (a is None and b is None) or _same(a, b)
 
 
