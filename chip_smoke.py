@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch serving paths on one NVIDIA card and check them.
+"""Drive the repro_torch serving and training paths on one NVIDIA card and
+check them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -17,8 +18,9 @@ and then, in order (phases 1-2 the time-surface path, 3-4 the LM path,
 analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
 elastic slot pool and live migration, 8 the slot pool over several
 shards, 9 the slot pool over several cards where more than one is
-visible; phase 8 (a) and phase 9's loops run straight after phase 2,
-while phase 1's products are held to compare against):
+visible, 10 the paper's reconstruction and classification protocols
+trained on the card; phase 8 (a) and phase 9's loops run straight after
+phase 2, while phase 1's products are held to compare against):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -176,6 +178,37 @@ while phase 1's products are held to compare against):
    from card 0's shard to the last card's, checked as in phase 8 (c);
    phase 8 (b)'s fleet on one shard per card, twice (the second on
    cards the first warmed), checked as there.
+10. **Vision training** -- under PyTorch's default cuDNN TF32 (on), so
+   the port's own float32 rule for every forward and backward is what is
+   checked; every time host clock ending in ``torch.cuda.synchronize()``.
+   (a) ``examples/reconstruct_video_torch.py``'s protocol at 48x48
+   (``davis_like(3, 48, 48, 0.4, seed=9)``, 30 pairs, UNet width 12,
+   AdamW, batch 16, 80 steps) through its ``main`` on the card and on the
+   CPU port.  Checks: every backward ran with cuDNN's TF32 off and cuDNN
+   off (``train.grad``'s direct convolutions), the flags restored after;
+   step 1's loss within 1e-5 and gradients within rtol 1e-4, atol 1e-4 x
+   max|CPU leaf| of the CPU's; every loss finite; the held-out SSIM card
+   vs CPU within 0.02, each device's the median of 9 runs (the
+   example's, then 8 from its initial weights jittered by 1e-7: a run
+   parts from any 1e-7 perturbation within ~6 steps and ends near 0.340
+   in ~4 of 5 runs, anywhere in 0.28-0.34 in the rest).  Prints the
+   SSIMs and the step-1 gradient error at PyTorch's defaults (cuDNN,
+   TF32).
+   (b) The same protocol at DAVIS240C's 180x240: ``davis_like(8, 180,
+   240, 1.0, seed=9)``, 200 pairs (150 train, 50 held out), 300 steps
+   after 5 warm-up steps.  Prints ms per step p50/p99, pairs/s, peak
+   allocated memory, the held-out SSIM, and two steps under
+   ``torch.profiler`` (the device's idle share, the top device ops).
+   Checks: every loss finite; the mean L1 of the last 10 steps below the
+   first 10's; the SSIM finite.  (c) The classification protocol's step:
+   ``cnn_defs(1, 6, width=16)`` (``PRNGKey(7)``) on ``streaming_ts``
+   eDRAM frames of ``nmnist_like(6, 6, 48, 48, 0.25, seed=5)`` (50 ms
+   windows of 4096 events, per-cell planes from ``PRNGKey(0)``, the last
+   stream of every three held out), 20 AdamW steps at batch 32 on the
+   card and on the CPU port.  Checks: step 1's gradients in the band of
+   (a); every loss finite.  Prints ms per step.  (d) ``ts_decay``'s (H, W)
+   planes form on (b)'s 200 SAEs with their (1, 180, 240) planes,
+   through ``surface_read_kernel``: within 2 ULP of ``ts_edram``.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -190,6 +223,7 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
 import shutil
@@ -253,6 +287,21 @@ SHARD_LOOP_CHECKED = 2        # the loop whose launches the JSON line reports
 SHARD_MIGRATE_SHARDS, SHARD_MIGRATE_SLOTS = 4, 8
 SHARD_CLI_ARGV = ("sensors", "--mesh", "2", "--hw", "48x64",
                   "--duration", "0.05", "--sensors", "4")
+
+RECON_SSIM_TOL = 0.02         # card vs CPU held-out SSIM after 80 steps
+RECON_MEMBERS = 9             # runs a device's median SSIM is taken over
+GRAD_TOL = 1e-4   # the CPU tests' band: loss 1e-5 rel.; grads 1e-4 x max|CPU leaf|
+DAVIS_HW = (180, 240)         # DAVIS240C's sensor
+DAVIS_SCENES = 8
+DAVIS_DURATION = 1.0          # 25 frames a scene at 25 fps
+DAVIS_STEPS = 300
+DAVIS_WARMUP = 5
+BATCH = 16
+CLS_CLASSES = 6
+CLS_HW = 48
+CLS_WINDOW_S = 0.05
+CLS_STEPS = 20
+CLS_BATCH = 32
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -2422,6 +2471,324 @@ def sweep_phase(card):
     return dict(verdicts=v, seconds=secs)
 
 
+def example_module():
+    """``examples/reconstruct_video_torch.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "reconstruct_video_torch",
+        ROOT / "examples" / "reconstruct_video_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def grads_agree(loss, grads, cpu_loss, cpu_grads, what: str) -> float:
+    """Check a card step's loss and gradients against the CPU port's in the
+    CPU tests' band; returns the largest error over each leaf's scale."""
+    from repro_torch.models import module as M
+
+    worst = 0.0
+    ok = abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    want = M.flatten(cpu_grads)
+    for k, g in M.flatten(grads).items():
+        w = want[k].float()
+        err = (g.float().cpu() - w).abs()
+        tol = GRAD_TOL * w.abs() + GRAD_TOL * float(w.abs().max())
+        ok &= bool((err <= tol).all())
+        worst = max(worst, float(err.max()) / max(float(w.abs().max()), 1e-30))
+    check(ok, f"{what}: loss {float(loss):.7f} (CPU {float(cpu_loss):.7f}) "
+          f"and every gradient leaf within rtol {GRAD_TOL}, atol {GRAD_TOL} "
+          f"x max|CPU leaf| (largest error {worst:.3e} of its leaf's max)")
+    return worst
+
+
+def recon_small(ex, dev) -> dict:
+    """Phase 10 (a): the example's protocol at 48x48 on the card and on
+    the CPU port, in this process."""
+    from repro_torch.models import module as M
+
+    seen = []   # cuDNN's TF32 and enabled flags as autograd runs the backward
+    plain_loss = ex.l1_loss
+
+    def watched(params, xb, yb):
+        out = plain_loss(params, xb, yb)
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.append(
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.enabled)) or g)
+        return out
+
+    ex.l1_loss = watched
+    try:
+        t0 = time.perf_counter()
+        card = ex.main(["--device", str(dev)])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        ex.l1_loss = plain_loss
+    t0 = time.perf_counter()
+    cpu = ex.main(["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    log(f"recon 48x48: held-out SSIM card {card['ssim']:.4f}, CPU "
+        f"{cpu['ssim']:.4f} after 80 steps ({card_s:.2f} s on the card, "
+        f"{cpu_s:.2f} s on the CPU)")
+    check(bool(seen) and not any(a or b for a, b in seen)
+          and torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled,
+          f"every backward of the card run ran with cuDNN's TF32 off and "
+          f"cuDNN off (direct convolutions; {len(seen)} backwards), the "
+          f"global flags restored after")
+    worst = grads_agree(card["losses"][0], card["first_grads"],
+                        cpu["losses"][0], cpu["first_grads"],
+                        "recon step 1, card vs CPU")
+    # the same step at PyTorch's defaults (cuDNN, its heuristic algorithms
+    # and TF32 in the backward): what the band above would catch
+    pairs = ex.make_pairs(device=dev)
+    params, _, _ = ex.init(80, 12, dev)
+    idx = ex.batches(pairs.n_train, 1, BATCH)[0].to(dev)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in M.flatten(params).items()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        loss = ex.l1_loss(M.unflatten(leaves), pairs.x[idx], pairs.y[idx])
+        tf32 = dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+    want = M.flatten(cpu["first_grads"])
+    tf32_err = max(float((g.cpu() - want[k]).abs().max())
+                   / max(float(want[k].abs().max()), 1e-30)
+                   for k, g in tf32.items())
+    log(f"recon step 1 at PyTorch's defaults (cuDNN, TF32 in the "
+        f"backward): largest gradient error {tf32_err:.3e} of its leaf's "
+        f"max (the port's step: {worst:.3e})")
+    members = {k: [r["ssim"]] + recon_members(ex, d) for k, d, r in (
+        ("card", dev, card), ("cpu", torch.device("cpu"), cpu))}
+    med = {k: float(np.median(v)) for k, v in members.items()}
+    log(f"recon 48x48: held-out SSIM of {RECON_MEMBERS} runs (the example, "
+        f"then initial weights jittered by 1e-7): card "
+        f"{[round(v, 4) for v in members['card']]}, median {med['card']:.4f}; "
+        f"CPU {[round(v, 4) for v in members['cpu']]}, median "
+        f"{med['cpu']:.4f}")
+    check(all(np.isfinite(card["losses"])) and np.isfinite(card["ssim"])
+          and abs(med["card"] - med["cpu"]) <= RECON_SSIM_TOL,
+          f"recon 48x48: every loss finite; held-out SSIM card vs CPU, "
+          f"medians of {RECON_MEMBERS} runs, within {RECON_SSIM_TOL} "
+          f"({abs(med['card'] - med['cpu']):.4f})")
+    return dict(ssim_card=card["ssim"], ssim_cpu=cpu["ssim"],
+                ssim_members=members, ssim_median=med,
+                grad_err=worst, grad_err_pytorch_defaults=tf32_err,
+                card_s=card_s, cpu_s=cpu_s)
+
+
+def recon_members(ex, dev) -> list:
+    """The held-out SSIM of ``RECON_MEMBERS - 1`` more runs of the 48x48
+    protocol on ``dev``, member m from the initial weights times (1 +
+    1e-7 N(0, 1)) drawn on the CPU from seed m.  One run's SSIM is not a
+    stable statistic: the protocol parts from any 1e-7 perturbation
+    within ~6 steps and ends near 0.340 in ~4 of 5 runs, anywhere in
+    0.28-0.34 in the rest (``tools/train_probe.py spread``)."""
+    from repro_torch.models import module as M
+
+    pairs = ex.make_pairs(device=dev)
+    out = []
+    for m in range(1, RECON_MEMBERS):
+        params, opt, _ = ex.init(80, 12, dev)
+        g = torch.Generator().manual_seed(m)
+        params = M.unflatten({
+            k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g)).to(dev)
+            for k, v in M.flatten(params).items()})
+        params, _, _ = ex.train(pairs, 80, params, opt, opt.init(params))
+        out.append(ex.held_out_ssim(params, pairs))
+    return out
+
+
+def recon_davis(ex, dev, card) -> tuple:
+    """Phase 10 (b): the protocol at DAVIS240C's sensor size.  Returns the
+    report and the pairs (for (d))."""
+    h, w = DAVIS_HW
+    t0 = time.perf_counter()
+    pairs = ex.make_pairs(h, w, DAVIS_SCENES, DAVIS_DURATION, seed=9,
+                          device=dev)
+    torch.cuda.synchronize()
+    n, n_tr = len(pairs.x), pairs.n_train
+    log(f"recon {h}x{w} on {card}: {n} pairs ({n - n_tr} held out) built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    params, opt, state = ex.init(DAVIS_STEPS, 12, dev)
+    step = ex.make_step(opt)
+    # warm-up steps on the initial weights, their results dropped
+    p, st = params, state
+    for i, idx in enumerate(ex.batches(n_tr, DAVIS_WARMUP, BATCH)):
+        idx = idx.to(dev)
+        p, st, _, _ = step(p, st, pairs.x[idx], pairs.y[idx], i)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    t_all = time.perf_counter()
+    for i, idx in enumerate(ex.batches(n_tr, DAVIS_STEPS, BATCH)):
+        t0 = time.perf_counter()
+        idx = idx.to(dev)
+        params, state, loss, _ = step(params, state, pairs.x[idx],
+                                      pairs.y[idx], i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    wall = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    losses = torch.stack(losses).cpu()
+    idx = ex.batches(n_tr, 1, BATCH)[0].to(dev)
+
+    def two_steps():
+        for i in range(2):
+            step(params, state, pairs.x[idx], pairs.y[idx], DAVIS_STEPS + i)
+
+    prof = profiled(two_steps)
+    held = ex.held_out_ssim(params, pairs)
+    r = dict(pairs=n, held_out=n - n_tr,
+             step_ms_p50=float(np.percentile(step_ms, 50)),
+             step_ms_p99=float(np.percentile(step_ms, 99)),
+             pairs_per_s=BATCH * DAVIS_STEPS / wall,
+             peak_gib=peak / 2**30, ssim=held,
+             l1_first10=float(losses[:10].mean()),
+             l1_last10=float(losses[-10:].mean()),
+             device_idle=1 - prof["device_ms"] / prof["wall_ms"])
+    log(f"recon {h}x{w} on {card}: UNet width 12, batch {BATCH}, "
+        f"{DAVIS_STEPS} steps after {DAVIS_WARMUP} warm-up: step p50 "
+        f"{r['step_ms_p50']:.3f} ms, p99 {r['step_ms_p99']:.3f} ms, "
+        f"{r['pairs_per_s']:.1f} pairs/s, peak allocated by the run "
+        f"{r['peak_gib']:.3f} GiB (above {base / 2**30:.3f} GiB held "
+        f"before it), L1 {r['l1_first10']:.4f} (first 10) -> "
+        f"{r['l1_last10']:.4f} (last 10), held-out SSIM {held:.4f}")
+    profile_line(f"recon {h}x{w}, two training steps", prof)
+    check(bool(torch.isfinite(losses).all()) and
+          r["l1_last10"] < r["l1_first10"] and np.isfinite(held),
+          f"recon {h}x{w}: every loss finite, mean L1 of the last 10 steps "
+          f"below the first 10's, SSIM finite")
+    return r, pairs
+
+
+def cls_frames(dev):
+    """The classification protocol's frames on ``dev``: ``streaming_ts``
+    eDRAM reads of 50 ms windows through per-cell planes from
+    ``PRNGKey(0)``, and the train split (the last stream of every three
+    held out)."""
+    from repro_torch.core import edram, prng
+    from repro_torch.core import time_surface as ts
+    from repro_torch.device import f32
+    from repro_torch.events import datasets, pipeline
+
+    streams = datasets.nmnist_like(n_classes=CLS_CLASSES, per_class=6,
+                                   h=CLS_HW, w=CLS_HW, duration=0.25, seed=5)
+    planes = edram.sample_variability(prng.PRNGKey(0, dev),
+                                      (1, CLS_HW, CLS_HW),
+                                      edram.decay_params_for_cmem())
+    xs, ys, train = [], [], []
+    for i, s in enumerate(streams):
+        chunks = pipeline.window_chunks(s, CLS_WINDOW_S, 4096, device=dev)
+        k = chunks.x.shape[0]
+        reads = ((torch.arange(k, dtype=torch.float32, device=dev) + 1.0)
+                 * f32(CLS_WINDOW_S, dev))
+        fr = ts.streaming_ts(chunks, CLS_HW, CLS_HW, reads, tau=24e-3,
+                             params=planes)[:, 0]
+        xs.append(fr)
+        ys += [s.label] * k
+        train += [i % 3 != 2] * k
+    x = torch.cat(xs)[..., None]
+    keep = torch.tensor(train, device=dev)
+    return x[keep], torch.tensor(ys, device=dev)[keep]
+
+
+def cls_train(dev) -> dict:
+    """The classification protocol's first ``CLS_STEPS`` AdamW steps."""
+    from repro_torch.core import prng
+    from repro_torch.models import module as M
+    from repro_torch.models.cnn import cnn_apply, cnn_defs
+    from repro_torch.train.grad import value_and_grad
+    from repro_torch.train.optimizer import Schedule, adamw
+
+    x, y = cls_frames(dev)
+    params = M.init_params(cnn_defs(1, CLS_CLASSES, width=16),
+                           prng.PRNGKey(7), dev)
+    opt = adamw(Schedule(2e-3, warmup_steps=5, decay_steps=120))
+    state = opt.init(params)
+    loss_grad = value_and_grad(lambda p, xb, yb: torch.nn.functional
+                               .cross_entropy(cnn_apply(p, xb), yb))
+    rng = np.random.default_rng(0)
+    losses, step_ms, first = [], [], None
+    for i in range(CLS_STEPS):
+        idx = torch.from_numpy(rng.choice(len(x), CLS_BATCH)).to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_grad(params, x[idx], y[idx])
+        params, state = opt.update(grads, state, params, i)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            first = (loss, grads)
+    return dict(frames=len(x), losses=losses, step_ms=step_ms, first=first)
+
+
+def cls_phase(dev, card) -> dict:
+    """Phase 10 (c): the classification protocol's training step on the
+    card and on the CPU port."""
+    card_r = cls_train(dev)
+    cpu_r = cls_train(torch.device("cpu"))
+    grads_agree(*card_r["first"], *cpu_r["first"],
+                "classify step 1 (cross-entropy through cnn_apply), card vs "
+                "CPU")
+    ms = card_r["step_ms"][1:]
+    log(f"classify on {card}: cnn width 16, {card_r['frames']} training "
+        f"frames of {CLS_HW}x{CLS_HW}, batch {CLS_BATCH}: step p50 "
+        f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms "
+        f"(CPU p50 {np.percentile(cpu_r['step_ms'][1:], 50):.3f} ms); "
+        f"loss {card_r['losses'][0]:.4f} -> {card_r['losses'][-1]:.4f}")
+    check(all(np.isfinite(card_r["losses"])) and
+          all(np.isfinite(cpu_r["losses"])),
+          f"classify: every loss finite over {CLS_STEPS} steps, card and CPU")
+    return dict(frames=card_r["frames"], step_ms_p50=float(np.percentile(
+        ms, 50)), losses=card_r["losses"])
+
+
+def planes_phase(pairs) -> dict:
+    """Phase 10 (d): ``ts_decay``'s (H, W) planes form on (b)'s SAEs."""
+    from repro_torch.core import edram
+    from repro_torch.core import time_surface as ts
+    from repro_torch.kernels import _lib, ref
+
+    planes = edram.DecayParams(*(p[0] for p in pairs.decay))
+    n0 = _lib.LAUNCHES["ts_decay"]
+    worst, n_reads = 0, 0
+    for t in torch.unique(pairs.t_read):
+        sel = pairs.t_read == t
+        state = ts.SurfaceState(sae=pairs.sae[sel], t_last=None,
+                                n_events=None)
+        got = ts.surface_read_kernel(state, t, planes)
+        want = ts.ts_edram(pairs.sae[sel], t, pairs.decay)
+        worst = max(worst, int(ref.ulp_distance(got, want).max()))
+        n_reads += 1
+    torch.cuda.synchronize()
+    launches = _lib.LAUNCHES["ts_decay"] - n0
+    check(worst <= 2 and launches == n_reads,
+          f"ts_decay planes form on the {len(pairs.sae)} SAEs of "
+          f"{tuple(pairs.sae.shape[-2:])} ({n_reads} read times, {launches} "
+          f"launches) within 2 ULP of ts_edram (max {worst} ULP)")
+    return dict(max_ulp=worst, launches=launches)
+
+
+def vision_phase(dev, card) -> dict:
+    """Phase 10: the reconstruction and classification protocols trained
+    on the card."""
+    # PyTorch's default (cuDNN in TF32), which the kernel phases turned
+    # off: the port's own float32 rule is what the checks below hold
+    torch.backends.cudnn.allow_tf32 = True
+    ex = example_module()
+    small = recon_small(ex, dev)
+    davis, pairs = recon_davis(ex, dev, card)
+    cls = cls_phase(dev, card)
+    planes = planes_phase(pairs)
+    return dict(recon_48=small, recon_davis=davis, classify=cls,
+                planes=planes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -2517,9 +2884,13 @@ def main() -> int:
     else:
         cd = cards_phase(dev, mods, words, card, card_runs, feeds, smi)
     phase_s["cards"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vis = vision_phase(dev, card)
+    torch.cuda.synchronize()
+    phase_s["vision training"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
-                    "shards": sh, "cards": cd}, default=str))
+                    "shards": sh, "cards": cd, "vision": vis}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []

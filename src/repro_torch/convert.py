@@ -12,7 +12,11 @@ with ``.``, and maps one to one onto the port's tensors and back:
   * an LM's decode caches, one dict per layer (``ssm.conv.x``,
     ``ssm.conv.b``, ``ssm.conv.c``, ``ssm.state``);
   * a ``Classify`` head's CNN parameters, whose paths are joined with
-    ``/`` instead (``inc1/b3a/w``), as a checkpoint names its leaves.
+    ``/`` instead (``inc1/b3a/w``), as a checkpoint names its leaves;
+  * any model's parameters against its ``ParamDef`` tree (the UNet's,
+    the CNN's), and an optimizer's state against a state tree of the
+    same structure (AdamW's ``m.<path>`` / ``v.<path>``, Adafactor's
+    ``<path>.vr`` / ``.vc`` / ``.v`` and its bfloat16 ``<path>.m``).
 
 Nothing here imports JAX: the caller converts its arrays with
 ``np.asarray`` (bfloat16 ones as float32, which holds them exactly).
@@ -140,23 +144,43 @@ def _to_numpy(tree) -> Dict[str, np.ndarray]:
             .detach().cpu().numpy() for k, v in M.flatten(tree).items()}
 
 
-def lm_params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
-                         device) -> dict:
-    """The port's parameter dict for ``cfg`` on ``device`` from the
-    reference's ``{leaf path: array}``; raises on a missing, extra or
-    misshapen leaf."""
-    defs = M.flatten(T.param_defs(cfg))
-    if set(arrays) != set(defs):
+def _same_paths(arrays, want) -> None:
+    if set(arrays) != set(want):
         raise KeyError(f"leaf paths differ: missing "
-                       f"{sorted(set(defs) - set(arrays))}, extra "
-                       f"{sorted(set(arrays) - set(defs))}")
+                       f"{sorted(set(want) - set(arrays))}, extra "
+                       f"{sorted(set(arrays) - set(want))}")
+
+
+def params_from_numpy(arrays: Mapping[str, np.ndarray], defs, device=None,
+                      sep: str = ".") -> dict:
+    """The param tree of ``defs`` (a nested dict of ``ParamDef``) on
+    ``device`` (default: the CUDA device; raises when there is none) from
+    ``{leaf path: array}``, each leaf in its def's dtype; raises on a
+    missing, extra or misshapen leaf."""
+    device = resolve_device(device)
+    defs = M.flatten(defs, sep=sep)
+    _same_paths(arrays, defs)
     out = {}
     for path, d in defs.items():
         a = np.asarray(arrays[path])
         if a.shape != d.shape:
             raise ValueError(f"{path}: shape {a.shape} != {d.shape}")
         out[path] = _tensor(a, d.dtype, device)
-    return M.unflatten(out)
+    return M.unflatten(out, sep=sep)
+
+
+def params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``{leaf path: array}`` of a param tree (bfloat16 leaves as
+    float32)."""
+    return _to_numpy(params)
+
+
+def lm_params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
+                         device) -> dict:
+    """The port's parameter dict for ``cfg`` on ``device`` from the
+    reference's ``{leaf path: array}``; raises on a missing, extra or
+    misshapen leaf."""
+    return params_from_numpy(arrays, T.param_defs(cfg), device)
 
 
 def lm_params_to_numpy(params) -> Dict[str, np.ndarray]:
@@ -189,23 +213,36 @@ def decode_caches_to_numpy(caches: Sequence[dict]) -> List[Dict[str, np.ndarray]
     return [_to_numpy(c) for c in caches]
 
 
+def opt_state_from_numpy(arrays: Mapping[str, np.ndarray], like) -> dict:
+    """An optimizer state from ``{leaf path: array}``, each leaf in the
+    dtype and on the device of the same path in ``like`` (the optimizer's
+    ``init`` of the parameters: bfloat16 where Adafactor keeps its first
+    moment); raises on a missing, extra or misshapen leaf."""
+    like = M.flatten(like)
+    _same_paths(arrays, like)
+    out = {}
+    for path, t in like.items():
+        a = np.asarray(arrays[path])
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{path}: shape {a.shape} != {tuple(t.shape)}")
+        out[path] = _tensor(a, t.dtype, t.device)
+    return M.unflatten(out)
+
+
+def opt_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """``{leaf path: array}`` of an optimizer state (bfloat16 moments as
+    float32, which holds them exactly)."""
+    return _to_numpy(state)
+
+
 def head_params_from_numpy(arrays: Mapping[str, np.ndarray], head, cfg,
                            device=None) -> dict:
     """A ``Classify`` head's param tree on ``device`` (default: the CUDA
     device; raises when there is none) from the reference's ``{leaf path:
     array}``; raises on a missing, extra or misshapen leaf.  ``cfg`` is
     the engine config (its polarities size the input channels)."""
-    device = resolve_device(device)
-    defs = M.flatten(heads.head_param_defs(head, cfg), sep="/")
-    if set(arrays) != set(defs):
-        raise KeyError(f"leaf paths {sorted(arrays)} != {sorted(defs)}")
-    out = {}
-    for path, d in defs.items():
-        a = np.asarray(arrays[path])
-        if a.shape != d.shape:
-            raise ValueError(f"{path}: shape {a.shape} != {d.shape}")
-        out[path] = _tensor(a, d.dtype, device)
-    return M.unflatten(out, sep="/")
+    return params_from_numpy(arrays, heads.head_param_defs(head, cfg),
+                             device, sep="/")
 
 
 def head_params_to_numpy(params) -> Dict[str, np.ndarray]:

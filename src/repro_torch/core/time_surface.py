@@ -8,8 +8,8 @@ lazy: nothing is computed between events.
 Event batches are fixed-capacity tensors (padded, ``valid`` masked), the
 layout the engine's scatter kernel takes.
 
-The reference's scan-based ``events_to_frames`` and ``streaming_ts`` are
-not ported.
+The reference's ``lax.scan``s (``events_to_frames``, ``streaming_ts``)
+are loops over frames or chunks here, with the same semantics.
 """
 from __future__ import annotations
 
@@ -184,3 +184,56 @@ def surface_read_kernel(state: SurfaceState, t_now, params) -> torch.Tensor:
     from repro_torch.kernels import ops  # deferred: kernels sit above core
 
     return ops.ts_decay(state.sae, t_now, params)
+
+
+def events_to_frames(
+    ev: EventBatch,
+    h: int,
+    w: int,
+    t_starts: torch.Tensor,
+    frame_dt: float,
+    tau: float,
+    polarities: int = 1,
+    params: Optional[edram.DecayParams] = None,
+) -> torch.Tensor:
+    """Per-window TS frames of one event batch, (F, P, H, W) on the
+    events' device: frame f is the TS read at ``t_starts[f] + frame_dt``
+    from all events with t < that time.  ``params=None`` -> ideal
+    exponential TS; else the eDRAM model (planes allowed).
+
+    Each frame re-scatters the whole masked batch, as the reference does
+    for clarity; ``streaming_ts`` writes each event once.
+    """
+    sae = empty_sae(h, w, polarities, ev.t.device)
+    frames = []
+    for t_start in torch.as_tensor(t_starts, dtype=torch.float32,
+                                   device=ev.t.device):
+        t_read = t_start + f32(frame_dt, t_start.device)
+        sae = sae_update(sae, ev._replace(valid=ev.valid & (ev.t < t_read)))
+        frames.append(ts_ideal(sae, t_read, tau) if params is None
+                      else ts_edram(sae, t_read, params))
+    return torch.stack(frames)
+
+
+def streaming_ts(
+    chunks: EventBatch,
+    h: int,
+    w: int,
+    read_times: torch.Tensor,
+    tau: float,
+    polarities: int = 1,
+    params: Optional[edram.DecayParams] = None,
+) -> torch.Tensor:
+    """Write event chunks ((K, N) fields) in turn, each event once, and
+    read the TS after each chunk at ``read_times[k]``: the production
+    streaming form, O(E) writes and lazy decay at read time only.
+    Returns (K, P, H, W) on the chunks' device."""
+    dev = chunks.t.device
+    state = surface_init(h, w, polarities, dev)
+    frames = []
+    for k, t_read in enumerate(torch.as_tensor(read_times,
+                                               dtype=torch.float32,
+                                               device=dev)):
+        state = surface_update(state, EventBatch(*(f[k] for f in chunks)))
+        frames.append(surface_read(state, t_read, tau=tau, params=params))
+    return torch.stack(frames)

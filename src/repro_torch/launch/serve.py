@@ -49,7 +49,11 @@ shards over every visible card, cycling over the cards when N exceeds
 them (two shards on one card hold tensors of their own), or over N CPU
 shards with ``--device cpu``; the run prints each shard's device and
 the padded pool when padding was needed.  The reference's ``--backend``
-has no counterpart: the tensors' device picks the kernels.
+has no counterpart: the tensors' device picks the kernels.  Its
+``--platform`` maps onto the device (``gpu``: the CUDA device, ``cpu``:
+``--device cpu``; ``tpu`` and a platform that contradicts ``--device``
+are refused), and ``--x64`` is refused: the serving path is float32 end
+to end.
 """
 from __future__ import annotations
 
@@ -491,6 +495,12 @@ def run_sweep(args) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--platform", choices=("cpu", "gpu", "tpu"), default=None,
+                    help="the reference's platform pin, as a device: gpu "
+                         "runs on the CUDA device, cpu as --device cpu; "
+                         "tpu is refused")
+    ap.add_argument("--x64", action="store_true",
+                    help="refused: the serving path is float32 end to end")
     sub = ap.add_subparsers(dest="command", required=True)
     tok = sub.add_parser("tokens", help="batched LM prefill + greedy decode")
     tok.add_argument("--arch", required=True)
@@ -607,6 +617,19 @@ def main(argv=None) -> None:
     sw.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
+    if args.x64:
+        ap.error("--x64 is refused: the serving path is float32 end to end "
+                 "(the reference's flag is for offline analysis)")
+    if args.platform == "tpu":
+        ap.error("--platform tpu is refused: the port runs on the CUDA "
+                 "device or the CPU")
+    if args.platform is not None:
+        want = "cuda" if args.platform == "gpu" else "cpu"
+        if args.device is not None and torch.device(args.device).type != want:
+            ap.error(f"--platform {args.platform} contradicts --device "
+                     f"{args.device}")
+        if want == "cpu":
+            args.device = "cpu"
     {"tokens": run_tokens, "sensors": run_sensors, "stream": run_stream,
      "sweep": run_sweep}[args.command](args)
 

@@ -20,7 +20,13 @@ devices sum inside their matrix products in other orders and evaluate
 of the CPU port (the noise is drawn on each device: the same threefry
 bits, CUDA's ``log1p``/``sqrt`` in the normal; 8 is the CPU tests'
 analog_2d band), comparator products equal away from V_tw; the ring push
-and the stream's digests are bitwise.
+and the stream's digests are bitwise.  The training path (UNet, SSIM,
+gradients, AdamW / Adafactor) on the card sits within the CPU tests'
+bands of the CPU port (``tests/test_torch_unet.py``,
+``tests/test_torch_optimizer.py``): forward rtol = atol = 1e-4 x
+max(1, max|CPU|), gradients 1e-4 x each leaf's max, one update 3 ULP of
+the larger operand plus 1e-5 of a step, with cuDNN's TF32 left at
+PyTorch's default (on): the port's float32 rule holds the backward too.
 """
 import pytest
 import torch
@@ -803,3 +809,86 @@ def test_cross_shard_migration_on_card(cuda):
     assert torch.equal(bits(got), bits(want))
     dense = sharded.read(rs.SURFACE_SPEC, 0.05)["surface"]
     assert torch.equal(bits(got), bits(dense))
+
+
+# ----------------------------------------------------------------------------
+# the training path
+# ----------------------------------------------------------------------------
+
+def _unet_case(device):
+    """The reconstruction protocol's weights and first batch: TS frames
+    with large never-written areas, so many activations are exactly 0
+    (the ReLU's kink)."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "reconstruct_video_torch", pathlib.Path(__file__).resolve()
+        .parents[1] / "examples" / "reconstruct_video_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    pairs = ex.make_pairs(device="cpu")
+    params, _, _ = ex.init(80, 12, device)
+    idx = ex.batches(pairs.n_train, 1, 16)[0]
+    return params, pairs.x[idx].to(device), pairs.y[idx].to(device)
+
+
+def test_unet_forward_and_grads_on_card_match_cpu(cuda):
+    """cuDNN's TF32 at PyTorch's default (on): ``unet_apply``'s float32
+    rule and ``value_and_grad``'s (float32, direct convolutions, which
+    keep the exact zeros the ReLU's gradient depends on) are what keep
+    the card in the CPU band."""
+    from repro_torch.models import module as M
+    from repro_torch.models.unet import ssim, unet_apply
+    from repro_torch.train.grad import value_and_grad
+
+    loss_fn = lambda p, xb, yb: (unet_apply(p, xb) - yb).abs().mean()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        p_card, x_card, y_card = _unet_case(cuda)
+        l_card, g_card = value_and_grad(loss_fn)(p_card, x_card, y_card)
+        out_card = unet_apply(p_card, x_card)
+        s_card = ssim(out_card, y_card)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+    p_cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(p_card).items()})
+    x_cpu, y_cpu = x_card.cpu(), y_card.cpu()
+    l_cpu, g_cpu = value_and_grad(loss_fn)(p_cpu, x_cpu, y_cpu)
+    out_cpu = unet_apply(p_cpu, x_cpu)
+    scale = max(1.0, float(out_cpu.abs().max()))
+    assert torch.allclose(out_card.cpu(), out_cpu, rtol=1e-4,
+                          atol=1e-4 * scale)
+    assert abs(float(s_card) - float(ssim(out_cpu, y_cpu))) <= 1e-6
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * float(l_cpu)
+    for k, w in M.flatten(g_cpu).items():
+        got = M.flatten(g_card)[k].cpu()
+        assert torch.allclose(got, w, rtol=1e-4,
+                              atol=1e-4 * float(w.abs().max())), k
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_optimizer_update_on_card_matches_cpu(cuda, kind):
+    """Every scalar a float32 tensor on the card: no reciprocal path."""
+    from repro_torch.models import module as M
+    from repro_torch.train import optimizer as O
+
+    g = torch.Generator().manual_seed(4)
+    shapes = {"conv.w": (3, 3, 12, 24), "conv.b": (24,), "head.w": (48, 10)}
+    params = M.unflatten({k: torch.randn(s, generator=g)
+                          for k, s in shapes.items()})
+    grads = M.unflatten({k: 0.3 * torch.randn(s, generator=g)
+                         for k, s in shapes.items()})
+    opt = O.make_optimizer(kind, O.Schedule(3e-3, 5, 80))
+    to = lambda t, d: M.unflatten({k: v.to(d)
+                                   for k, v in M.flatten(t).items()})
+    p_cpu, s_cpu = params, opt.init(params)
+    p_card, s_card = to(params, cuda), opt.init(to(params, cuda))
+    for i in range(3):
+        p_cpu, s_cpu = opt.update(grads, s_cpu, p_cpu, i)
+        p_card, s_card = opt.update(to(grads, cuda), s_card, p_card, i)
+    for k, w in M.flatten(p_cpu).items():
+        got = M.flatten(p_card)[k].cpu()
+        assert (got - w).abs().max() <= 1e-3 * 3e-3, k
+    for k, w in M.flatten(s_cpu).items():
+        got = M.flatten(s_card)[k].cpu().float()
+        tol = 2 ** -7 if w.dtype == torch.bfloat16 else 1e-5
+        assert (got - w.float()).abs().max() <= tol * float(
+            w.float().abs().max()), k

@@ -9,6 +9,9 @@ support counts exact away from the threshold, the rest bitwise).  Inside
 the port, the cached incremental ``serve_step`` must equal a dense read
 bitwise.
 """
+import importlib.util
+import pathlib
+
 import jax
 import numpy as np
 import pytest
@@ -240,8 +243,15 @@ def _entry_points():
     from repro_torch.core import time_surface as tts
     from repro_torch.events import pipeline as tpipe
     from repro_torch.models import module, transformer
+    from repro_torch.models.unet import unet_defs
     from repro_torch.serve import engine, heads
 
+    spec = importlib.util.spec_from_file_location(
+        "reconstruct_video_torch",
+        pathlib.Path(__file__).resolve().parents[1] / "examples"
+        / "reconstruct_video_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
     cfg = get_config("mamba2-2.7b").reduced()
     stream = tdatasets.dnd21_like("hotel_bar", 4, 5, 0.01, seed=0)
     head, ecfg = tspec.Classify(n_classes=3, width=8), _cfgs("edram")[1]
@@ -275,6 +285,10 @@ def _entry_points():
         "isc_state_from_numpy": lambda: convert.isc_state_from_numpy(
             convert.isc_state_to_numpy(isc_array.ISCArray(
                 4, 5, device="cpu").init(prng.PRNGKey(0)))),
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            convert.params_to_numpy(module.init_params(
+                unet_defs(1, 4), prng.PRNGKey(0), "cpu")), unet_defs(1, 4)),
+        "reconstruct_example": lambda: example.main(["--steps", "1"]),
     }
 
 
@@ -285,7 +299,9 @@ def _entry_points():
                                    "resolve_head_params",
                                    "head_params_from_numpy", "StreamRuntime",
                                    "replay", "stream_cli", "sweep_cli",
-                                   "ISCArray", "isc_state_from_numpy"])
+                                   "ISCArray", "isc_state_from_numpy",
+                                   "params_from_numpy",
+                                   "reconstruct_example"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point allocates on the CUDA device
     and raises when there is none (it never falls back to the CPU)."""

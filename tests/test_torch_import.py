@@ -3,8 +3,8 @@
 The port has to run on a machine without JAX or ``msgpack``, so ``import
 repro_torch`` and every submodule (the checkpoint's manifest codec
 included) must succeed with ``jax``, ``msgpack`` and the top-level
-``repro`` package blocked, and no source line of the port or of
-``chip_smoke.py`` may import any of them.
+``repro`` package blocked, and no source line of the port, of
+``chip_smoke.py`` or of the port's example may import any of them.
 """
 import os
 import pathlib
@@ -65,6 +65,8 @@ REQUIRED = (
     "repro_torch.events.replay",
     "repro_torch.distributed", "repro_torch.distributed.sharding",
     "repro_torch.launch.mesh",
+    "repro_torch.train", "repro_torch.train.optimizer",
+    "repro_torch.train.grad", "repro_torch.models.unet",
 )
 
 
@@ -84,7 +86,8 @@ _IMPORT_LINE = re.compile(
 
 def test_no_source_line_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "examples" / "reconstruct_video_torch.py"]
     offenders = [
         f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
         for f in files
