@@ -181,19 +181,23 @@ phase 2, while phase 1's products are held to compare against):
 10. **Vision training** -- under PyTorch's default cuDNN TF32 (on), so
    the port's own float32 rule for every forward and backward is what is
    checked; every time host clock ending in ``torch.cuda.synchronize()``.
-   (a) ``examples/reconstruct_video_torch.py``'s protocol at 48x48
+   (a) The example's protocol (``repro_torch.train.recon``, which
+   ``examples/reconstruct_video_torch.py`` runs) at 48x48
    (``davis_like(3, 48, 48, 0.4, seed=9)``, 30 pairs, UNet width 12,
-   AdamW, batch 16, 80 steps) through its ``main`` on the card and on the
-   CPU port.  Checks: every backward ran with cuDNN's TF32 off and cuDNN
-   off (``train.grad``'s direct convolutions), the flags restored after;
-   step 1's loss within 1e-5 and gradients within rtol 1e-4, atol 1e-4 x
-   max|CPU leaf| of the CPU's; every loss finite; the held-out SSIM card
-   vs CPU within 0.02, each device's the median of 9 runs (the
-   example's, then 8 from its initial weights jittered by 1e-7: a run
+   AdamW, batch 16, 80 steps) on the card and on the CPU port at
+   ``RECON_CPU_THREADS`` threads (the count moves a CPU run's rounding).
+   Checks: every backward ran with TF32 off in cuDNN and cuBLAS and
+   cuDNN off (``recon.make_step``'s direct convolutions, which keep the
+   reference's exact zeros), the flags restored after; step 1's loss
+   within 1e-5 and gradients within rtol 1e-4, atol 1e-4 x max|CPU leaf|
+   of the CPU's, every gradient cell that is exactly 0 on the CPU 0 on
+   the card; every loss finite;
+   the held-out SSIM card vs CPU within 0.02, each device's the median of
+   9 runs (the example's, then 8 from ``recon.jitter``'s weights: a run
    parts from any 1e-7 perturbation within ~6 steps and ends near 0.340
-   in ~4 of 5 runs, anywhere in 0.28-0.34 in the rest).  Prints the
-   SSIMs and the step-1 gradient error at PyTorch's defaults (cuDNN,
-   TF32).
+   in most runs, near 0.323 or lower in the rest).  Prints the SSIMs and
+   the step-1 gradient error at PyTorch's defaults (TF32 in the
+   backward).
    (b) The same protocol at DAVIS240C's 180x240: ``davis_like(8, 180,
    240, 1.0, seed=9)``, 200 pairs (150 train, 50 held out), 300 steps
    after 5 warm-up steps.  Prints ms per step p50/p99, pairs/s, peak
@@ -205,8 +209,10 @@ phase 2, while phase 1's products are held to compare against):
    eDRAM frames of ``nmnist_like(6, 6, 48, 48, 0.25, seed=5)`` (50 ms
    windows of 4096 events, per-cell planes from ``PRNGKey(0)``, the last
    stream of every three held out), 20 AdamW steps at batch 32 on the
-   card and on the CPU port.  Checks: step 1's gradients in the band of
-   (a); every loss finite.  Prints ms per step.  (d) ``ts_decay``'s (H, W)
+   card (on cuDNN, which keeps this CNN's exact zeros) and on the CPU
+   port.  Checks: step 1's gradients in the band of (a), exact zeros
+   kept; every loss finite.  Prints ms per step and two card steps under
+   ``torch.profiler``.  (d) ``ts_decay``'s (H, W)
    planes form on (b)'s 200 SAEs with their (1, 180, 240) planes,
    through ``surface_read_kernel``: within 2 ULP of ``ts_edram``.
 
@@ -223,7 +229,6 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib
-import importlib.util
 import json
 import os
 import shutil
@@ -290,6 +295,7 @@ SHARD_CLI_ARGV = ("sensors", "--mesh", "2", "--hw", "48x64",
 
 RECON_SSIM_TOL = 0.02         # card vs CPU held-out SSIM after 80 steps
 RECON_MEMBERS = 9             # runs a device's median SSIM is taken over
+RECON_CPU_THREADS = 4         # the CPU runs' thread count (it moves the SSIM)
 GRAD_TOL = 1e-4   # the CPU tests' band: loss 1e-5 rel.; grads 1e-4 x max|CPU leaf|
 DAVIS_HW = (180, 240)         # DAVIS240C's sensor
 DAVIS_SCENES = 8
@@ -2471,100 +2477,98 @@ def sweep_phase(card):
     return dict(verdicts=v, seconds=secs)
 
 
-def example_module():
-    """``examples/reconstruct_video_torch.py`` of this checkout."""
-    spec = importlib.util.spec_from_file_location(
-        "reconstruct_video_torch",
-        ROOT / "examples" / "reconstruct_video_torch.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def grads_agree(loss, grads, cpu_loss, cpu_grads, what: str) -> float:
     """Check a card step's loss and gradients against the CPU port's in the
-    CPU tests' band; returns the largest error over each leaf's scale."""
+    CPU tests' band, and every gradient cell that is exactly 0 on the CPU
+    0 on the card (Adam's normalised step makes a step of any nonzero);
+    returns the largest error over each leaf's scale."""
     from repro_torch.models import module as M
 
-    worst = 0.0
+    worst, broken, zeros = 0.0, 0, 0
     ok = abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
     want = M.flatten(cpu_grads)
     for k, g in M.flatten(grads).items():
-        w = want[k].float()
-        err = (g.float().cpu() - w).abs()
+        w, g = want[k].float(), g.float().cpu()
+        err = (g - w).abs()
         tol = GRAD_TOL * w.abs() + GRAD_TOL * float(w.abs().max())
         ok &= bool((err <= tol).all())
         worst = max(worst, float(err.max()) / max(float(w.abs().max()), 1e-30))
-    check(ok, f"{what}: loss {float(loss):.7f} (CPU {float(cpu_loss):.7f}) "
+        zeros += int((w == 0).sum())
+        broken += int(((w == 0) & (g != 0)).sum())
+    check(ok and not broken,
+          f"{what}: loss {float(loss):.7f} (CPU {float(cpu_loss):.7f}) "
           f"and every gradient leaf within rtol {GRAD_TOL}, atol {GRAD_TOL} "
-          f"x max|CPU leaf| (largest error {worst:.3e} of its leaf's max)")
+          f"x max|CPU leaf| (largest error {worst:.3e} of its leaf's max); "
+          f"{broken} of the {zeros} cells exactly 0 on the CPU nonzero on "
+          f"the card")
     return worst
 
 
-def recon_small(ex, dev) -> dict:
+def recon_small(dev) -> dict:
     """Phase 10 (a): the example's protocol at 48x48 on the card and on
-    the CPU port, in this process."""
+    the CPU port (``RECON_CPU_THREADS`` threads), in this process."""
     from repro_torch.models import module as M
+    from repro_torch.train import recon
 
-    seen = []   # cuDNN's TF32 and enabled flags as autograd runs the backward
-    plain_loss = ex.l1_loss
+    seen = []   # cuDNN's and cuBLAS's TF32 flags and cuDNN's enabled flag
+    #             as autograd runs a backward
 
     def watched(params, xb, yb):
-        out = plain_loss(params, xb, yb)
-        if out.requires_grad:
-            out.register_hook(lambda g: seen.append(
-                (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cudnn.enabled)) or g)
+        out = recon.l1_loss(params, xb, yb)
+        out.register_hook(lambda g: seen.append(
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.enabled)) or g)
         return out
 
-    ex.l1_loss = watched
-    try:
-        t0 = time.perf_counter()
-        card = ex.main(["--device", str(dev)])
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-    finally:
-        ex.l1_loss = plain_loss
     t0 = time.perf_counter()
-    cpu = ex.main(["--device", "cpu"])
+    card = recon.run(80, dev, loss=watched,
+                     log=lambda line: log(f"  recon 48x48 card | {line}"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with recon.cpu_threads(RECON_CPU_THREADS):
+        cpu = recon.run(80, "cpu")
     cpu_s = time.perf_counter() - t0
     log(f"recon 48x48: held-out SSIM card {card['ssim']:.4f}, CPU "
         f"{cpu['ssim']:.4f} after 80 steps ({card_s:.2f} s on the card, "
-        f"{cpu_s:.2f} s on the CPU)")
-    check(bool(seen) and not any(a or b for a, b in seen)
+        f"{cpu_s:.2f} s on the CPU at {RECON_CPU_THREADS} threads)")
+    check(len(seen) == 80 and not any(any(f) for f in seen)
           and torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled,
-          f"every backward of the card run ran with cuDNN's TF32 off and "
-          f"cuDNN off (direct convolutions; {len(seen)} backwards), the "
-          f"global flags restored after")
+          f"every backward of the card run ran with TF32 off in cuDNN and "
+          f"cuBLAS and cuDNN off (direct convolutions; {len(seen)} "
+          f"backwards), the global flags restored after")
     worst = grads_agree(card["losses"][0], card["first_grads"],
                         cpu["losses"][0], cpu["first_grads"],
                         "recon step 1, card vs CPU")
-    # the same step at PyTorch's defaults (cuDNN, its heuristic algorithms
-    # and TF32 in the backward): what the band above would catch
-    pairs = ex.make_pairs(device=dev)
-    params, _, _ = ex.init(80, 12, dev)
-    idx = ex.batches(pairs.n_train, 1, BATCH)[0].to(dev)
+    # the same step at PyTorch's defaults (TF32 in the backward): what the
+    # band above would catch
+    pairs = recon.make_pairs(device=dev)
+    params, _, _ = recon.init(80, 12, dev)
+    idx = recon.batches(pairs.n_train, 1, BATCH)[0].to(dev)
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in M.flatten(params).items()}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-        loss = ex.l1_loss(M.unflatten(leaves), pairs.x[idx], pairs.y[idx])
+        loss = recon.l1_loss(M.unflatten(leaves), pairs.x[idx], pairs.y[idx])
         tf32 = dict(zip(leaves, torch.autograd.grad(loss,
                                                     list(leaves.values()))))
     want = M.flatten(cpu["first_grads"])
     tf32_err = max(float((g.cpu() - want[k]).abs().max())
                    / max(float(want[k].abs().max()), 1e-30)
                    for k, g in tf32.items())
-    log(f"recon step 1 at PyTorch's defaults (cuDNN, TF32 in the "
-        f"backward): largest gradient error {tf32_err:.3e} of its leaf's "
-        f"max (the port's step: {worst:.3e})")
-    members = {k: [r["ssim"]] + recon_members(ex, d) for k, d, r in (
-        ("card", dev, card), ("cpu", torch.device("cpu"), cpu))}
+    log(f"recon step 1 at PyTorch's defaults (TF32 in the backward): "
+        f"largest gradient error {tf32_err:.3e} of its leaf's max (the "
+        f"port's step: {worst:.3e})")
+    members = {"card": [card["ssim"]] + recon_members(dev, pairs)}
+    with recon.cpu_threads(RECON_CPU_THREADS):
+        members["cpu"] = [cpu["ssim"]] + recon_members(
+            torch.device("cpu"), recon.make_pairs(device="cpu"))
     med = {k: float(np.median(v)) for k, v in members.items()}
     log(f"recon 48x48: held-out SSIM of {RECON_MEMBERS} runs (the example, "
         f"then initial weights jittered by 1e-7): card "
         f"{[round(v, 4) for v in members['card']]}, median {med['card']:.4f}; "
-        f"CPU {[round(v, 4) for v in members['cpu']]}, median "
-        f"{med['cpu']:.4f}")
+        f"CPU at {RECON_CPU_THREADS} threads "
+        f"{[round(v, 4) for v in members['cpu']]}, median {med['cpu']:.4f}")
     check(all(np.isfinite(card["losses"])) and np.isfinite(card["ssim"])
           and abs(med["card"] - med["cpu"]) <= RECON_SSIM_TOL,
           f"recon 48x48: every loss finite; held-out SSIM card vs CPU, "
@@ -2572,48 +2576,42 @@ def recon_small(ex, dev) -> dict:
           f"({abs(med['card'] - med['cpu']):.4f})")
     return dict(ssim_card=card["ssim"], ssim_cpu=cpu["ssim"],
                 ssim_members=members, ssim_median=med,
+                cpu_threads=RECON_CPU_THREADS,
                 grad_err=worst, grad_err_pytorch_defaults=tf32_err,
                 card_s=card_s, cpu_s=cpu_s)
 
 
-def recon_members(ex, dev) -> list:
+def recon_members(dev, pairs) -> list:
     """The held-out SSIM of ``RECON_MEMBERS - 1`` more runs of the 48x48
-    protocol on ``dev``, member m from the initial weights times (1 +
-    1e-7 N(0, 1)) drawn on the CPU from seed m.  One run's SSIM is not a
-    stable statistic: the protocol parts from any 1e-7 perturbation
-    within ~6 steps and ends near 0.340 in ~4 of 5 runs, anywhere in
-    0.28-0.34 in the rest (``tools/train_probe.py spread``)."""
-    from repro_torch.models import module as M
+    protocol on ``dev``, run m from ``recon.jitter``'s weights.  One run's
+    SSIM is not a stable statistic: the protocol parts from any 1e-7
+    perturbation, or another thread count, within ~6 steps, and ends near
+    0.340 in most runs, near 0.323 or lower in the rest
+    (``tools/train_probe.py spread``)."""
+    from repro_torch.train import recon
 
-    pairs = ex.make_pairs(device=dev)
-    out = []
-    for m in range(1, RECON_MEMBERS):
-        params, opt, _ = ex.init(80, 12, dev)
-        g = torch.Generator().manual_seed(m)
-        params = M.unflatten({
-            k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g)).to(dev)
-            for k, v in M.flatten(params).items()})
-        params, _, _ = ex.train(pairs, 80, params, opt, opt.init(params))
-        out.append(ex.held_out_ssim(params, pairs))
-    return out
+    return [recon.run(80, dev, m=m, pairs=pairs)["ssim"]
+            for m in range(1, RECON_MEMBERS)]
 
 
-def recon_davis(ex, dev, card) -> tuple:
+def recon_davis(dev, card) -> tuple:
     """Phase 10 (b): the protocol at DAVIS240C's sensor size.  Returns the
     report and the pairs (for (d))."""
+    from repro_torch.train import recon
+
     h, w = DAVIS_HW
     t0 = time.perf_counter()
-    pairs = ex.make_pairs(h, w, DAVIS_SCENES, DAVIS_DURATION, seed=9,
+    pairs = recon.make_pairs(h, w, DAVIS_SCENES, DAVIS_DURATION, seed=9,
                           device=dev)
     torch.cuda.synchronize()
     n, n_tr = len(pairs.x), pairs.n_train
     log(f"recon {h}x{w} on {card}: {n} pairs ({n - n_tr} held out) built "
         f"in {time.perf_counter() - t0:.2f} s")
-    params, opt, state = ex.init(DAVIS_STEPS, 12, dev)
-    step = ex.make_step(opt)
+    params, opt, state = recon.init(DAVIS_STEPS, 12, dev)
+    step = recon.make_step(opt)
     # warm-up steps on the initial weights, their results dropped
     p, st = params, state
-    for i, idx in enumerate(ex.batches(n_tr, DAVIS_WARMUP, BATCH)):
+    for i, idx in enumerate(recon.batches(n_tr, DAVIS_WARMUP, BATCH)):
         idx = idx.to(dev)
         p, st, _, _ = step(p, st, pairs.x[idx], pairs.y[idx], i)
     torch.cuda.synchronize()
@@ -2621,7 +2619,7 @@ def recon_davis(ex, dev, card) -> tuple:
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms = [], []
     t_all = time.perf_counter()
-    for i, idx in enumerate(ex.batches(n_tr, DAVIS_STEPS, BATCH)):
+    for i, idx in enumerate(recon.batches(n_tr, DAVIS_STEPS, BATCH)):
         t0 = time.perf_counter()
         idx = idx.to(dev)
         params, state, loss, _ = step(params, state, pairs.x[idx],
@@ -2632,14 +2630,14 @@ def recon_davis(ex, dev, card) -> tuple:
     wall = time.perf_counter() - t_all
     peak = torch.cuda.max_memory_allocated(dev) - base
     losses = torch.stack(losses).cpu()
-    idx = ex.batches(n_tr, 1, BATCH)[0].to(dev)
+    idx = recon.batches(n_tr, 1, BATCH)[0].to(dev)
 
     def two_steps():
         for i in range(2):
             step(params, state, pairs.x[idx], pairs.y[idx], DAVIS_STEPS + i)
 
     prof = profiled(two_steps)
-    held = ex.held_out_ssim(params, pairs)
+    held = recon.held_out_ssim(params, pairs)
     r = dict(pairs=n, held_out=n - n_tr,
              step_ms_p50=float(np.percentile(step_ms, 50)),
              step_ms_p99=float(np.percentile(step_ms, 99)),
@@ -2694,8 +2692,9 @@ def cls_frames(dev):
     return x[keep], torch.tensor(ys, device=dev)[keep]
 
 
-def cls_train(dev) -> dict:
-    """The classification protocol's first ``CLS_STEPS`` AdamW steps."""
+def cls_train(dev, profile: bool = False) -> dict:
+    """The classification protocol's first ``CLS_STEPS`` AdamW steps, then
+    (``profile``) two more under ``torch.profiler``."""
     from repro_torch.core import prng
     from repro_torch.models import module as M
     from repro_torch.models.cnn import cnn_apply, cnn_defs
@@ -2711,6 +2710,7 @@ def cls_train(dev) -> dict:
                                .cross_entropy(cnn_apply(p, xb), yb))
     rng = np.random.default_rng(0)
     losses, step_ms, first = [], [], None
+    prof = None
     for i in range(CLS_STEPS):
         idx = torch.from_numpy(rng.choice(len(x), CLS_BATCH)).to(dev)
         if dev.type == "cuda":
@@ -2724,13 +2724,23 @@ def cls_train(dev) -> dict:
         losses.append(float(loss))
         if i == 0:
             first = (loss, grads)
-    return dict(frames=len(x), losses=losses, step_ms=step_ms, first=first)
+    if profile:
+        idx = torch.from_numpy(rng.choice(len(x), CLS_BATCH)).to(dev)
+
+        def two_steps():
+            for j in range(2):
+                _, g = loss_grad(params, x[idx], y[idx])
+                opt.update(g, state, params, CLS_STEPS + j)
+
+        prof = profiled(two_steps)
+    return dict(frames=len(x), losses=losses, step_ms=step_ms, first=first,
+                prof=prof)
 
 
 def cls_phase(dev, card) -> dict:
     """Phase 10 (c): the classification protocol's training step on the
     card and on the CPU port."""
-    card_r = cls_train(dev)
+    card_r = cls_train(dev, profile=True)
     cpu_r = cls_train(torch.device("cpu"))
     grads_agree(*card_r["first"], *cpu_r["first"],
                 "classify step 1 (cross-entropy through cnn_apply), card vs "
@@ -2741,11 +2751,18 @@ def cls_phase(dev, card) -> dict:
         f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms "
         f"(CPU p50 {np.percentile(cpu_r['step_ms'][1:], 50):.3f} ms); "
         f"loss {card_r['losses'][0]:.4f} -> {card_r['losses'][-1]:.4f}")
+    profile_line(f"classify on {card}, two training steps", card_r["prof"],
+                 step_ms=float(np.percentile(ms, 50)))
     check(all(np.isfinite(card_r["losses"])) and
           all(np.isfinite(cpu_r["losses"])),
           f"classify: every loss finite over {CLS_STEPS} steps, card and CPU")
+    prof = card_r["prof"]
     return dict(frames=card_r["frames"], step_ms_p50=float(np.percentile(
-        ms, 50)), losses=card_r["losses"])
+        ms, 50)), cpu_step_ms_p50=float(np.percentile(
+            cpu_r["step_ms"][1:], 50)), losses=card_r["losses"],
+        device_ms_two_steps=prof["device_ms"],
+        wall_ms_two_steps=prof["wall_ms"], launches_two_steps=prof["launches"],
+        device_idle=1 - prof["device_ms"] / prof["wall_ms"])
 
 
 def planes_phase(pairs) -> dict:
@@ -2780,9 +2797,8 @@ def vision_phase(dev, card) -> dict:
     # PyTorch's default (cuDNN in TF32), which the kernel phases turned
     # off: the port's own float32 rule is what the checks below hold
     torch.backends.cudnn.allow_tf32 = True
-    ex = example_module()
-    small = recon_small(ex, dev)
-    davis, pairs = recon_davis(ex, dev, card)
+    small = recon_small(dev)
+    davis, pairs = recon_davis(dev, card)
     cls = cls_phase(dev, card)
     planes = planes_phase(pairs)
     return dict(recon_48=small, recon_davis=davis, classify=cls,

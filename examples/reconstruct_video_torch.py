@@ -1,8 +1,8 @@
 """Event-to-video reconstruction (paper Sec. IV-E) on the PyTorch port:
 analog TS -> UNet -> intensity frames, SSIM against paired ground truth.
 The port's counterpart of ``examples/reconstruct_video.py``: the same
-data, keys, training and output lines, on the CUDA device unless
-``--device`` names another.
+data, keys, training and output lines (``repro_torch.train.recon``), on
+the CUDA device unless ``--device`` names another.
 
     PYTHONPATH=src python examples/reconstruct_video_torch.py --steps 80
     PYTHONPATH=src python examples/reconstruct_video_torch.py --device cpu
@@ -10,114 +10,8 @@ data, keys, training and output lines, on the CUDA device unless
 from __future__ import annotations
 
 import argparse
-from typing import NamedTuple
 
-import numpy as np
-import torch
-
-from repro_torch.core import edram, prng
-from repro_torch.core import time_surface as ts
-from repro_torch.device import resolve_device
-from repro_torch.events import datasets
-from repro_torch.models import module as M
-from repro_torch.models.unet import ssim, unet_apply, unet_defs
-from repro_torch.train.grad import value_and_grad
-from repro_torch.train.optimizer import Schedule, adamw
-
-
-class Pairs(NamedTuple):
-    """The protocol's data, on one device: per ground-truth frame, the SAE
-    of every event before it and its eDRAM read, and the frame."""
-
-    x: torch.Tensor       # (N, H, W, 1) TS frames, volts
-    y: torch.Tensor       # (N, H, W) frames scaled to a maximum of 1
-    sae: torch.Tensor     # (N, 1, H, W) the SAEs read into ``x``
-    t_read: torch.Tensor  # (N,) float32 read time of each SAE
-    decay: edram.DecayParams  # (1, H, W) per-cell planes
-    n_train: int          # the first 3/4 train, the rest are held out
-
-
-def make_pairs(h: int = 48, w: int = 48, n_scenes: int = 3,
-               duration: float = 0.4, seed: int = 9, device=None) -> Pairs:
-    """``davis_like`` scenes read through per-cell decay planes drawn from
-    ``PRNGKey(1)``, on ``device`` (default: the CUDA device)."""
-    dev = resolve_device(device)
-    scenes = datasets.davis_like(n_scenes=n_scenes, h=h, w=w,
-                                 duration=duration, seed=seed)
-    decay = edram.sample_variability(prng.PRNGKey(1, dev), (1, h, w),
-                                     edram.decay_params_for_cmem())
-    xs, ys, saes, times = [], [], [], []
-    for s in scenes:
-        for ft, frame in zip(s.frame_times, s.frames):
-            m = s.t < ft
-            ev = ts.EventBatch(*(torch.from_numpy(a).to(dev) for a in (
-                s.x[m], s.y[m], s.t[m], s.p[m], np.ones(int(m.sum()), bool))))
-            sae = ts.sae_update(ts.empty_sae(h, w, device=dev), ev)
-            xs.append(ts.ts_edram(sae, float(ft), decay)[0])
-            ys.append(frame / max(frame.max(), 1e-6))
-            saes.append(sae)
-            times.append(ft)
-    y = torch.from_numpy(np.stack(ys).astype(np.float32)).to(dev)
-    return Pairs(x=torch.stack(xs)[..., None], y=y, sae=torch.stack(saes),
-                 t_read=torch.from_numpy(np.array(times, np.float32)).to(dev),
-                 decay=decay, n_train=int(0.75 * len(xs)))
-
-
-def l1_loss(params, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-    return (unet_apply(params, xb) - yb).abs().mean()
-
-
-def make_step(opt):
-    """One training step, the reference's jitted ``step``: ``(params,
-    state, xb, yb, i) -> (params, state, loss, grads)``."""
-    loss_grad = value_and_grad(l1_loss)
-
-    def step(params, state, xb, yb, i):
-        loss, grads = loss_grad(params, xb, yb)
-        params, state = opt.update(grads, state, params, i)
-        return params, state, loss, grads
-
-    return step
-
-
-def init(steps: int, width: int, device):
-    """The UNet's weights from ``PRNGKey(0)``, AdamW on the protocol's
-    schedule, and its state."""
-    params = M.init_params(unet_defs(1, width=width), prng.PRNGKey(0),
-                           device)
-    opt = adamw(Schedule(3e-3, warmup_steps=5, decay_steps=steps))
-    return params, opt, opt.init(params)
-
-
-def batches(n_train: int, steps: int, batch: int):
-    """The protocol's batch indices, ``default_rng(0).choice`` per step."""
-    rng = np.random.default_rng(0)
-    return [torch.from_numpy(rng.choice(n_train, batch)) for _ in range(steps)]
-
-
-def train(pairs: Pairs, steps: int, params, opt, state, batch: int = 16,
-          log=None):
-    """The protocol's loop: ``steps`` AdamW steps on batches of the
-    training pairs.  Returns (params, losses, the first step's grads);
-    ``log`` gets the reference's line every 20 steps."""
-    step = make_step(opt)
-    losses, first_grads = [], None
-    for i, idx in enumerate(batches(pairs.n_train, steps, batch)):
-        idx = idx.to(pairs.x.device)
-        params, state, loss, grads = step(params, state, pairs.x[idx],
-                                          pairs.y[idx], i)
-        losses.append(loss)
-        if i == 0:
-            first_grads = grads
-        if log is not None and i % 20 == 0:
-            log(f"step {i:3d} L1 {float(loss):.4f}")
-    return params, losses, first_grads
-
-
-def held_out_ssim(params, pairs: Pairs) -> float:
-    with torch.no_grad():
-        return float(ssim(unet_apply(params, pairs.x[pairs.n_train:]),
-                          pairs.y[pairs.n_train:]))
+from repro_torch.train import recon
 
 
 def main(argv=None) -> dict:
@@ -126,18 +20,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-
-    pairs = make_pairs(device=dev)
-    n, n_tr = len(pairs.x), pairs.n_train
-    print(f"pairs: {n} ({n - n_tr} held out)")
-    params, opt, state = init(args.steps, 12, dev)
-    params, losses, first_grads = train(pairs, args.steps, params, opt,
-                                        state, log=print)
-    held = held_out_ssim(params, pairs)
-    print(f"held-out SSIM: {held:.3f}")
-    return dict(ssim=held, losses=[float(l) for l in losses],
-                first_grads=first_grads, params=params)
+    return recon.run(args.steps, args.device, log=print)
 
 
 if __name__ == "__main__":

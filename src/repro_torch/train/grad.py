@@ -1,18 +1,22 @@
 """Gradients of a loss over a param tree: the port's ``jax.value_and_grad``.
 
 The forward and backward of a training step run in full float32
-(``models.cnn.float32_math``; autograd runs a convolution's backward after
-the forward's ``with`` block has exited, and cuDNN would take it in TF32
-by default) and with cuDNN off, on PyTorch's direct CUDA convolution
-(im2col and a cuBLAS product).  The algorithm cuDNN's heuristics pick
-for some of the UNet's convolutions does not keep exact zeros: measured
-on an H100 (``tools/train_probe.py convs``), the 36 -> 12 channel 3x3
-decoder convolution of the reconstruction protocol at 48x48 put
-nonzero values (up to 9.2e-5) on 6,409 of the 61,824 cells whose exact
-sum is 0.  A ReLU there then passes gradient where the reference's
-(``jax.nn.relu``: gradient 0 at 0) passes none.  The direct sum keeps
-those zeros.  Inference (``unet_apply`` and ``cnn_apply`` outside this
-function) stays on cuDNN.
+(``models.cnn.float32_math``): autograd runs a convolution's backward
+after the forward's ``with`` block has exited, and cuDNN would take it in
+TF32 by default, so the rule is held around the backward too.
+
+The convolutions are cuDNN's, as at inference, unless the caller asks
+for ``direct`` ones: PyTorch's direct CUDA convolution (im2col and a
+cuBLAS product, cuDNN off), which keeps every exact zero of the
+reference's gradients.  cuDNN's backward does not always: measured on an
+H100 (``tools/train_probe.py convs``), the data gradient of the
+reconstruction UNet's 72 -> 24 decoder convolution came out nonzero (up
+to 3.2e-12) on 236,549 of its 675,684 cells whose exact sum is 0, and
+step 1's weight gradients on 303 of 1,727 cells the reference leaves at
+0, under every cuDNN setting (its heuristics, ``benchmark``,
+``deterministic``).  Adam's normalised step turns such a cell into a
+step of its own, and over 80 steps the protocol's held-out SSIM lands
+low more often than the reference's does.
 """
 from __future__ import annotations
 
@@ -25,26 +29,26 @@ from repro_torch.models.cnn import float32_math
 
 
 @contextlib.contextmanager
-def direct_convolutions():
-    """cuDNN off for the block (PyTorch's direct convolution), the global
-    flag restored after."""
+def direct_convolutions(direct: bool = True):
+    """cuDNN off for the block (PyTorch's direct convolution) when
+    ``direct``, the global flag restored after."""
     enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
+    torch.backends.cudnn.enabled = enabled and not direct
     try:
         yield
     finally:
         torch.backends.cudnn.enabled = enabled
 
 
-def value_and_grad(fn):
+def value_and_grad(fn, direct: bool = False):
     """``fn(params, *args) -> scalar loss`` -> a function ``(params, *args)
     -> (loss, grads)``, ``grads`` a tree like ``params``; forward and
-    backward in full float32 on direct convolutions, the inputs left
-    untouched."""
+    backward in full float32 (on direct convolutions if ``direct``), the
+    inputs left untouched."""
     def wrapped(params, *args):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in M.flatten(params).items()}
-        with torch.enable_grad(), float32_math(), direct_convolutions():
+        with torch.enable_grad(), float32_math(), direct_convolutions(direct):
             loss = fn(M.unflatten(leaves), *args)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), M.unflatten(dict(zip(leaves, grads)))

@@ -819,24 +819,19 @@ def _unet_case(device):
     """The reconstruction protocol's weights and first batch: TS frames
     with large never-written areas, so many activations are exactly 0
     (the ReLU's kink)."""
-    import importlib.util
-    import pathlib
+    from repro_torch.train import recon
 
-    spec = importlib.util.spec_from_file_location(
-        "reconstruct_video_torch", pathlib.Path(__file__).resolve()
-        .parents[1] / "examples" / "reconstruct_video_torch.py")
-    ex = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ex)
-    pairs = ex.make_pairs(device="cpu")
-    params, _, _ = ex.init(80, 12, device)
-    idx = ex.batches(pairs.n_train, 1, 16)[0]
+    pairs = recon.make_pairs(device="cpu")
+    params, _, _ = recon.init(80, 12, device)
+    idx = recon.batches(pairs.n_train, 1, 16)[0]
     return params, pairs.x[idx].to(device), pairs.y[idx].to(device)
 
 
 def test_unet_forward_and_grads_on_card_match_cpu(cuda):
     """cuDNN's TF32 at PyTorch's default (on): ``unet_apply``'s float32
-    rule and ``value_and_grad``'s (float32, direct convolutions, which
-    keep the exact zeros the ReLU's gradient depends on) are what keep
+    rule and ``value_and_grad``'s (float32 around the backward too, on
+    the direct convolutions the protocol trains on, which keep the exact
+    zeros the ReLU's gradient and Adam's step depend on) are what keep
     the card in the CPU band."""
     from repro_torch.models import module as M
     from repro_torch.models.unet import ssim, unet_apply
@@ -845,7 +840,8 @@ def test_unet_forward_and_grads_on_card_match_cpu(cuda):
     loss_fn = lambda p, xb, yb: (unet_apply(p, xb) - yb).abs().mean()
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
         p_card, x_card, y_card = _unet_case(cuda)
-        l_card, g_card = value_and_grad(loss_fn)(p_card, x_card, y_card)
+        l_card, g_card = value_and_grad(loss_fn, direct=True)(
+            p_card, x_card, y_card)
         out_card = unet_apply(p_card, x_card)
         s_card = ssim(out_card, y_card)
         assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
@@ -862,6 +858,7 @@ def test_unet_forward_and_grads_on_card_match_cpu(cuda):
         got = M.flatten(g_card)[k].cpu()
         assert torch.allclose(got, w, rtol=1e-4,
                               atol=1e-4 * float(w.abs().max())), k
+        assert not bool(((w == 0) & (got != 0)).any()), k
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])

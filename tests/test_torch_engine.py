@@ -9,9 +9,6 @@ support counts exact away from the threshold, the rest bitwise).  Inside
 the port, the cached incremental ``serve_step`` must equal a dense read
 bitwise.
 """
-import importlib.util
-import pathlib
-
 import jax
 import numpy as np
 import pytest
@@ -245,13 +242,8 @@ def _entry_points():
     from repro_torch.models import module, transformer
     from repro_torch.models.unet import unet_defs
     from repro_torch.serve import engine, heads
+    from repro_torch.train import recon
 
-    spec = importlib.util.spec_from_file_location(
-        "reconstruct_video_torch",
-        pathlib.Path(__file__).resolve().parents[1] / "examples"
-        / "reconstruct_video_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
     cfg = get_config("mamba2-2.7b").reduced()
     stream = tdatasets.dnd21_like("hotel_bar", 4, 5, 0.01, seed=0)
     head, ecfg = tspec.Classify(n_classes=3, width=8), _cfgs("edram")[1]
@@ -288,7 +280,7 @@ def _entry_points():
         "params_from_numpy": lambda: convert.params_from_numpy(
             convert.params_to_numpy(module.init_params(
                 unet_defs(1, 4), prng.PRNGKey(0), "cpu")), unet_defs(1, 4)),
-        "reconstruct_example": lambda: example.main(["--steps", "1"]),
+        "reconstruct_example": lambda: recon.run(1),
     }
 
 

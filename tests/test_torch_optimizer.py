@@ -23,6 +23,12 @@ it.  Bands:
   its bfloat16 first moment may round the other way where the float32
   values differ (1 bfloat16 ULP).  With the clip on, twice the relative
   difference of the two packages' norms comes on top.
+* One update from params at 0 and a fresh state, so that the new params
+  are ``-lr * step`` and no sum can cancel: AdamW's step within 2 ULP of
+  itself (the bias corrections and the quotient); Adafactor's within 10
+  (its row and column means sum in other orders, 4 ULP each, and the
+  factored denominator ``vr * vc / mean(vr)`` carries three of them into
+  ``rsqrt``, which halves them; ``rms_u`` adds its own mean; 8 measured).
 * Three updates, each package on its own trajectory from the same start
   and grads: params within 1e-3 of a step (the peak lr) of each other,
   the state within 1e-5 of each leaf's largest value (a bfloat16 ULP for
@@ -55,6 +61,8 @@ DEFS = {
     "small": ParamDef((4, 6), (None, None)),
 }
 BF16_ULP = 2.0 ** -7   # relative spacing of bfloat16 values
+#: the step from params at 0 (see the module docstring)
+STEP_ULP = {"adamw": 2, "adafactor": 10}
 
 
 def _draw(seed, scale=1.0):
@@ -227,6 +235,24 @@ def test_one_update_matches_reference(kind, clip_on):
     if kind == "adafactor":
         assert all(v.dtype == torch.bfloat16 for k, v in
                    tmodule.flatten(ts2).items() if k.endswith(".m"))
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_one_update_from_zero_params_holds_the_step(kind):
+    """Params at 0 and a fresh state: the new params are ``-lr * step``
+    (AdamW's decay term is 0, and no moment sum can cancel), so the
+    normalised step itself is held to a few ULP of its own size."""
+    flat_p = {k: np.zeros_like(v) for k, v in _draw(2).items()}
+    grads = {k: (v * 0.01).astype(np.float32) for k, v in _draw(3).items()}
+    jo, to = _pair(kind)
+    jp, tp = _nest(flat_p, jnp.asarray), _nest(flat_p, torch.from_numpy)
+    jg, tg = _nest(grads, jnp.asarray), _nest(grads, torch.from_numpy)
+    jp2, _ = jax.jit(jo.update)(jg, jo.init(jp), jp, jnp.int32(3))
+    tp2, _ = to.update(tg, to.init(tp), tp, torch.tensor(3, dtype=torch.int32))
+    got = convert.params_to_numpy(tp2)
+    for key, want in _jax_flat(jp2).items():
+        assert (want != 0).all(), key
+        assert int(_ulp(got[key], want).max()) <= STEP_ULP[kind], key
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])

@@ -17,7 +17,7 @@ Bands:
   the same weights: the loss within 1e-5 relative, each leaf's gradient
   within 1e-4 x its largest reference value (the forward's rounding,
   carried back through every layer).
-* The protocol's data (``examples/reconstruct_video_torch.make_pairs``):
+* The protocol's data (``repro_torch.train.recon.make_pairs``):
   SAEs and frames bitwise the reference's, the eDRAM reads within 8 ULP
   of them (2 measured: the per-cell planes are ``prng.normal`` within 4
   ULP of ``jax.random.normal``, and ``exp(-dt / tau)`` carries a
@@ -32,7 +32,9 @@ Bands:
   by its outcome.
 * The whole 80-step protocol in each package (the reference's jitted
   step on its own data), 5 times from the port's initial weights jittered
-  by 1e-7: the medians of the held-out SSIMs within 0.02.
+  by 1e-7 (``recon.jitter``), the port on 4 CPU threads
+  (``recon.cpu_threads``: the count moves a run's rounding): the medians
+  of the held-out SSIMs within 0.02.
 """
 import importlib.util
 import pathlib
@@ -54,6 +56,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import module as tmodule
 from repro_torch.models import unet as tunet
+from repro_torch.train import recon
 from repro_torch.train.grad import value_and_grad
 
 jax.config.update("jax_platforms", "cpu")
@@ -63,18 +66,17 @@ TOL = 1e-4
 GRAD_TOL = 1e-4
 LR = 3e-3
 MEMBERS = 5
+CPU_THREADS = 4
 
 
 def _example():
+    """``examples/reconstruct_video_torch.py``, the command line."""
     spec = importlib.util.spec_from_file_location(
         "reconstruct_video_torch", ROOT / "examples" /
         "reconstruct_video_torch.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-EX = _example()
 
 
 def _draw(defs, seed):
@@ -119,13 +121,13 @@ def _ulp(a, b):
 
 @pytest.fixture(scope="module")
 def pairs():
-    return EX.make_pairs(device="cpu")
+    return recon.make_pairs(device="cpu")
 
 
 @pytest.fixture(scope="module")
 def init_flat():
     """The port's protocol weights (``PRNGKey(0)``) as numpy."""
-    params, _, _ = EX.init(80, 12, "cpu")
+    params, _, _ = recon.init(80, 12, "cpu")
     return convert.params_to_numpy(params)
 
 
@@ -199,35 +201,36 @@ def test_unet_l1_grads_match_reference(pairs, init_flat):
                        - jnp.asarray(y)).mean()
 
     jl, jg = jax.jit(jax.value_and_grad(jloss))(_jtree(init_flat))
-    tl, tg = value_and_grad(EX.l1_loss)(_ttree(init_flat), torch.from_numpy(x),
-                                        torch.from_numpy(y))
+    tl, tg = value_and_grad(recon.l1_loss)(
+        _ttree(init_flat), torch.from_numpy(x), torch.from_numpy(y))
     _assert_grads(tl, tg, jl, jg)
 
 
 def test_value_and_grad_runs_float32_direct_and_restores_flags():
     """The backward runs after the forward's ``with`` block, so the rule
-    must hold around it too: cuDNN's TF32 off and cuDNN off (direct
-    convolutions keep exact zeros) while autograd runs, the global
-    flags restored after."""
+    must hold around it too: TF32 off in cuDNN and cuBLAS while autograd
+    runs, on cuDNN's convolutions as at inference, or with cuDNN off when
+    ``direct`` (PyTorch's direct convolution, which keeps exact zeros),
+    the global flags restored after."""
     seen = []
+    flags = lambda: (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.enabled,
+                     torch.backends.cuda.matmul.allow_tf32)
 
     def loss(p, x):
         out = (x * p["w"]).sum()
-        out.register_hook(lambda g: seen.append(
-            (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
-             torch.backends.cuda.matmul.allow_tf32)) or g)
+        out.register_hook(lambda g: seen.append(flags()) or g)
         return out
 
-    before = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
-              torch.backends.cuda.matmul.allow_tf32)
     p = {"w": torch.ones(3)}
-    l, g = value_and_grad(loss)(p, torch.arange(3.0))
-    assert seen == [(False, False, False)]
-    assert before == (torch.backends.cudnn.allow_tf32,
-                      torch.backends.cudnn.enabled,
-                      torch.backends.cuda.matmul.allow_tf32)
-    assert l.item() == 3.0 and torch.equal(g["w"], torch.arange(3.0))
-    assert not p["w"].requires_grad and not l.requires_grad
+    for direct in (False, True):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            before = flags()
+            l, g = value_and_grad(loss, direct=direct)(p, torch.arange(3.0))
+            assert before == flags()
+        assert seen.pop() == (False, not direct, False)
+        assert l.item() == 3.0 and torch.equal(g["w"], torch.arange(3.0))
+        assert not p["w"].requires_grad and not l.requires_grad
 
 
 def test_cnn_cross_entropy_grads_match_reference():
@@ -307,11 +310,11 @@ def test_three_protocol_steps_match_reference(pairs, init_flat):
     x, y = pairs.x.numpy(), pairs.y.numpy()
     jp = _jtree(init_flat)
     js = JOPT.init(jp)
-    _, opt, _ = EX.init(80, 12, "cpu")
+    _, opt, _ = recon.init(80, 12, "cpu")
     tp = _ttree(init_flat)
     ts_ = opt.init(tp)
-    step = EX.make_step(opt)
-    for i, idx in enumerate(EX.batches(pairs.n_train, 3, 16)):
+    step = recon.make_step(opt)
+    for i, idx in enumerate(recon.batches(pairs.n_train, 3, 16)):
         idx = idx.numpy()
         jp, js, jl = JSTEP(jp, js, jnp.asarray(x[idx]), jnp.asarray(y[idx]),
                            jnp.int32(i))
@@ -324,36 +327,25 @@ def test_three_protocol_steps_match_reference(pairs, init_flat):
         assert units.max() <= 5e-3, (k, float(units.max()))
 
 
-def _jitter(flat, m):
-    """Member m's initial weights: ``flat`` times (1 + 1e-7 N(0, 1)) from
-    seed m (member 0 as it is)."""
-    if m == 0:
-        return flat
-    rng = np.random.default_rng(m)
-    return {k: (v * (1 + 1e-7 * rng.standard_normal(v.shape)))
-            .astype(np.float32) for k, v in flat.items()}
-
-
 def test_whole_protocol_ssim_matches_reference(pairs, init_flat):
     """Each package runs the 80-step protocol on its own data from the
-    same initial weights, ``MEMBERS`` times (jittered by 1e-7 after the
-    first); the medians of the held-out SSIMs agree within 0.02.  One run
-    is not a stable statistic: a 1e-7 perturbation, or another thread
-    count, parts the run within ~6 steps, and it ends near 0.340 in ~2
-    of 3 runs, anywhere in 0.28-0.34 in the rest."""
+    same initial weights, ``MEMBERS`` times (``recon.jitter``'s weights:
+    1e-7 after the first); the medians of the held-out SSIMs agree within
+    0.02.  One run is not a stable statistic: a 1e-7 perturbation, or
+    another thread count, parts the run within ~6 steps, and it ends near
+    0.340 in most runs, near 0.323 or lower in the rest."""
     x, y, _ = _jax_pairs()
     n_tr = int(0.75 * len(x))
     got, want = [], []
     for m in range(MEMBERS):
-        flat = _jitter(init_flat, m)
-        _, opt, _ = EX.init(80, 12, "cpu")
-        tp = _ttree(flat)
-        tp, losses, _ = EX.train(pairs, 80, tp, opt, opt.init(tp))
-        assert len(losses) == 80 and all(torch.isfinite(torch.stack(losses)))
-        got.append(EX.held_out_ssim(tp, pairs))
+        with recon.cpu_threads(CPU_THREADS):
+            r = recon.run(80, "cpu", m=m, pairs=pairs)
+        assert len(r["losses"]) == 80 and np.isfinite(r["losses"]).all()
+        got.append(r["ssim"])
+        flat = convert.params_to_numpy(recon.jitter(_ttree(init_flat), m))
         jp = _jtree(flat)
         js = JOPT.init(jp)
-        for i, idx in enumerate(EX.batches(n_tr, 80, 16)):
+        for i, idx in enumerate(recon.batches(n_tr, 80, 16)):
             idx = idx.numpy()
             jp, js, _ = JSTEP(jp, js, jnp.asarray(x[idx]),
                               jnp.asarray(y[idx]), jnp.int32(i))
@@ -364,7 +356,7 @@ def test_whole_protocol_ssim_matches_reference(pairs, init_flat):
 
 
 def test_example_main_runs(capsys):
-    out = EX.main(["--steps", "2", "--device", "cpu"])
+    out = _example().main(["--steps", "2", "--device", "cpu"])
     text = capsys.readouterr().out
     assert "pairs: 30 (8 held out)" in text
     assert "step   0 L1 " in text and "held-out SSIM: " in text
