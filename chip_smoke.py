@@ -19,8 +19,9 @@ analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
 elastic slot pool and live migration, 8 the slot pool over several
 shards, 9 the slot pool over several cards where more than one is
 visible, 10 the paper's reconstruction and classification protocols
-trained on the card; phase 8 (a) and phase 9's loops run straight after
-phase 2, while phase 1's products are held to compare against):
+trained on the card, 11 the LM trainer on the card; phase 8 (a) and
+phase 9's loops run straight after phase 2, while phase 1's products
+are held to compare against):
 
 1. **Engine** -- the time-surface path: a ``TimeSurfaceEngine`` of 64 slots of
    240x320 pixels and 2 polarities (chunks of 2048 events, eDRAM decay)
@@ -68,7 +69,14 @@ phase 2, while phase 1's products are held to compare against):
 4. **decay_scan** -- the kernel at the prefill's shapes (8, chunks,
    655,360) against its plain version on the card, bitwise, with and
    without ``s0``, and timed like the others (no one PyTorch call
-   computes this recurrence, so it has no yardstick).
+   computes this recurrence, so it has no yardstick).  Its backward
+   ``decay_scan_bwd`` at the training microbatch's shape (1, 16,
+   655,360) and the prefill's, with and without ``s0`` and the final
+   state's gradient: bitwise against ``decay_scan_bwd_ref``, equal in
+   value to autograd of ``decay_scan_ref`` on the card (autograd holds
+   +0 where the kernel holds -0 on the cells it sums into a zero buffer;
+   counted), timed at the training shape beside its plain version and
+   its bound.
 5. **Heads and labels** -- the engine phase's configuration and traffic
    served through ``serve_step`` with the FRAME+heads spec: FRAME, a
    second ``Surface(mode="ideal", tau=5 ms)`` named ``fast``,
@@ -215,6 +223,31 @@ phase 2, while phase 1's products are held to compare against):
    ``torch.profiler``.  (d) ``ts_decay``'s (H, W)
    planes form on (b)'s 200 SAEs with their (1, 180, 240) planes,
    through ``surface_read_kernel``: within 2 ULP of ``ts_edram``.
+11. **LM training** -- every time host clock ending in
+   ``torch.cuda.synchronize()``.  (a) The port's ``Trainer`` on
+   mamba2-2.7b at full width and depth (2.83 B float32 master weights
+   from ``PRNGKey(0)``, bf16 activations, remat on, 8 strided
+   microbatches, AdamW updated in place) on ``TokenPipeline(50280,
+   batch=8, seq=2048, seed=0)``: 1 warm-up step, then 3 timed steps with
+   the counters zeroed just before and read just after, then one step
+   under ``torch.profiler`` (the device's activity only).  Prints ms per
+   step, tokens/s, peak allocated memory, launches a step, the device's
+   idle share, the top device kernels and ``decay_scan``'s forward and
+   backward share.  Checks: every loss finite, step 0's within 1.0 of
+   ln 50432; ``decay_scan`` launched 2 x 64 x 8 times a step (the
+   forward and its remat recompute) and ``decay_scan_bwd`` 64 x 8; peak
+   allocated under the card's memory and 80 GB.  (b) The same model at
+   2 layers in float32, one step's gradients (batch 2 x 300, 2
+   microbatches) on the card against the CPU port: loss within 1e-5
+   relative, gradients within rtol 1e-4, atol 1e-4 x max|CPU leaf|,
+   every cell 0 in two CPU runs (at the default thread count and at 1
+   thread, whose sums run in another order) 0 on the card.
+   (c) The reduced config on the card: 30 steps, the mean loss of the
+   last 5 below the first 5's; 4 straight steps == 2 steps, ``save``, a
+   new ``Trainer``'s ``maybe_restore`` and 2 steps, bitwise; 3 finite
+   steps each with int8 and top-k gradient compression; ``python -m
+   repro_torch.launch.train --arch mamba2-2.7b --reduced --steps 3`` in
+   a subprocess.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -261,6 +294,12 @@ LM_PROMPT = (1024, 2048)      # prompt lengths drawn in [lo, hi]
 LM_NEW_TOKENS = 32
 CHECK_LAYERS = 2              # depth of the float32 card-vs-CPU model
 CHECK_BATCH, CHECK_PROMPT = 2, 300
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048   # phase 11 (a): 8 microbatches of 1 row
+TRAIN_TIMED_STEPS = 3
+TRAIN_CHECK = (2, 2, 300)     # phase 11 (b): layers, batch, seq (2 microbatches)
+TRAIN_REDUCED_STEPS = 30      # phase 11 (c)
+TRAIN_REDUCED_BATCH = (8, 64)
+TRAIN_CLI_ARGV = ("--arch", "mamba2-2.7b", "--reduced", "--steps", "3")
 LM_TOL = 1e-4    # rtol; atol x max(1, max|ref|): float32 card vs CPU, recurrent
 
 HEADS_KEY = "chip-smoke-heads"
@@ -984,6 +1023,30 @@ def profiled(fn):
                      and e.self_device_time_total > 0})
 
 
+def profiled_kernels(fn):
+    """Run ``fn`` once under ``torch.profiler`` with the device's activity
+    only, read straight from the trace (a training step launches ~320,000
+    kernels: building the profiler's per-op tables with the host's
+    activity took minutes).  Returns what ``profiled`` does, with the
+    device time by kernel name as ``ops``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            kernels[e.name()] = kernels.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            n += 1
+    return dict(wall_ms=wall, device_ms=sum(kernels.values()),
+                kernels=kernels, launches=n, ops=kernels)
+
+
 def profile_line(what: str, r: dict, step_ms=None) -> None:
     """Log one ``profiled`` run: device time, launches, the device's idle
     share of the profiled host time (and of ``step_ms``, an unprofiled
@@ -1189,7 +1252,7 @@ def lm_checks(dev, cfg, M, T, prng):
 
 def decay_scan_phase(dev, lm):
     """Phase 4: decay_scan at the LM prefill's shapes vs its plain version,
-    and its times."""
+    its backward at the training and prefill shapes, and their times."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decay_scan import decay_scan_cuda
 
@@ -1217,10 +1280,78 @@ def decay_scan_phase(dev, lm):
         f"bound {b_ms:.4f} ms ({nbytes} B); x {lm['launches']['decay_scan']} "
         f"launches = {ms * lm['launches']['decay_scan']:.3f} ms of a "
         f"{lm['prefill_ms']:.3f} ms prefill")
-    return [dict(name="decay_scan", max_abs_err=float(max(
-        (st - st_r).abs().max(), (fin0 - fin0_r).abs().max())), max_ulp=ulp,
-        shape=[b, t, c], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)]
+    err = float(max((st - st_r).abs().max(), (fin0 - fin0_r).abs().max()))
+    del a, x, s0, st, fin, st_r, fin_r, st0, fin0, st0_r, fin0_r
+    torch.cuda.empty_cache()
+    bwd = decay_scan_bwd_phase(dev, [(1, TRAIN_SEQ // 128, c), (b, t, c)])
+    return [dict(name="decay_scan", max_abs_err=err, max_ulp=ulp,
+                 shape=[b, t, c], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None, **bwd)]
+
+
+def decay_scan_bwd_phase(dev, shapes) -> dict:
+    """Phase 4, backward: ``decay_scan_bwd`` at each (B, T, C) of
+    ``shapes`` (the training microbatch's first), with and without ``s0``
+    and the final state's gradient, bitwise against
+    ``decay_scan_bwd_ref`` and equal in value to autograd of
+    ``decay_scan_ref`` on the card (autograd sums each step's slice into
+    a zero buffer, so it may hold +0 where the kernel holds -0; those
+    cells are counted).  Times the first shape's backward beside its plain
+    version and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decay_scan import decay_scan_bwd_cuda
+
+    out = {}
+    for i, (b, t, c) in enumerate(shapes):
+        g = torch.Generator(device=dev).manual_seed(4 + i)
+        a = torch.exp(-torch.rand((b, t, c), generator=g, device=dev))
+        x = torch.randn((b, t, c), generator=g, device=dev)
+        s0 = torch.randn((b, c), generator=g, device=dev)
+        gs = torch.randn((b, t, c), generator=g, device=dev)
+        gf = torch.randn((b, c), generator=g, device=dev)
+        ok, signed, worst = True, 0, 0
+        for with_s0 in (False, True):
+            for with_gf in (False, True):
+                leaves = [v.clone().requires_grad_(True)
+                          for v in (a, x) + ((s0,) if with_s0 else ())]
+                st, fin = ref.decay_scan_ref(*leaves)
+                outs = [st, fin] if with_gf else [st]
+                want = torch.autograd.grad(outs, leaves,
+                                           [gs, gf][:len(outs)])
+                got = decay_scan_bwd_cuda(a, st.detach(),
+                                          s0 if with_s0 else None, gs,
+                                          gf if with_gf else None)
+                plain = ref.decay_scan_bwd_ref(a, st.detach(),
+                                               s0 if with_s0 else None, gs,
+                                               gf if with_gf else None)
+                for u, v, w in zip(got, plain, want):
+                    if u is None:
+                        continue
+                    ok &= same(u, v) and torch.equal(u, w)
+                    signed += int((bits(u) != bits(w)).sum())
+                    worst = max(worst, float((u - w).abs().max()))
+                del leaves, st, fin, want, got, plain
+        check(ok, f"decay_scan_bwd at ({b}, {t}, {c}), with and without s0 "
+              f"and the final-state gradient: == decay_scan_bwd_ref "
+              f"bitwise, == autograd of decay_scan_ref in value "
+              f"(max |d| {worst}; {signed} cells +0 there, -0 here)")
+        if i == 0:
+            st = ref.decay_scan_ref(a, x)[0]
+            timer = Timer(dev)
+            ms = timer(lambda _: decay_scan_bwd_cuda(a, st, None, gs), 30)
+            plain_ms = timer(
+                lambda _: ref.decay_scan_bwd_ref(a, st, None, gs), 10)
+            nbytes = 4 * 5 * b * t * c
+            b_ms, b_by = bound_ms(nbytes, 3 * b * t * c)
+            log(f"decay_scan_bwd: ({b}, {t}, {c}) {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({nbytes} B, "
+                f"{b_by})")
+            out = dict(backward_shape=[b, t, c], backward_ms=ms,
+                       backward_plain_ms=plain_ms, backward_bound_ms=b_ms,
+                       backward_bound_by=b_by)
+        del a, x, s0, gs, gf
+        torch.cuda.empty_cache()
+    return out
 
 
 def label_band(sae, ev, cfg, stcf_mod, edram, ref, ts) -> torch.Tensor:
@@ -2477,24 +2608,42 @@ def sweep_phase(card):
     return dict(verdicts=v, seconds=secs)
 
 
-def grads_agree(loss, grads, cpu_loss, cpu_grads, what: str) -> float:
+def grads_agree(loss, grads, cpu_loss, cpu_grads, what: str,
+                cpu_again=None) -> float:
     """Check a card step's loss and gradients against the CPU port's in the
     CPU tests' band, and every gradient cell that is exactly 0 on the CPU
     0 on the card (Adam's normalised step makes a step of any nonzero);
-    returns the largest error over each leaf's scale."""
+    returns the largest error over each leaf's scale.  ``cpu_again``, the
+    CPU's gradients once more at another thread count, narrows the exact
+    zeros to those the CPU gives in both runs: a cell that is 0 in one
+    order of summation and not in another is a cancellation, not a zero
+    of the function (it is still held to the band)."""
     from repro_torch.models import module as M
 
     worst, broken, zeros = 0.0, 0, 0
     ok = abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
     want = M.flatten(cpu_grads)
+    again = None if cpu_again is None else M.flatten(cpu_again)
     for k, g in M.flatten(grads).items():
         w, g = want[k].float(), g.float().cpu()
         err = (g - w).abs()
         tol = GRAD_TOL * w.abs() + GRAD_TOL * float(w.abs().max())
         ok &= bool((err <= tol).all())
         worst = max(worst, float(err.max()) / max(float(w.abs().max()), 1e-30))
-        zeros += int((w == 0).sum())
-        broken += int(((w == 0) & (g != 0)).sum())
+        zero = w == 0
+        if again is not None:
+            moved = zero & (again[k] != 0)
+            if moved.any():
+                log(f"  {what}: {k}: {int(moved.sum())} cell(s) 0 in one "
+                    f"CPU run and not in the other (a cancellation)")
+            zero &= ~moved
+        zeros += int(zero.sum())
+        bad = zero & (g != 0)
+        broken += int(bad.sum())
+        for idx in bad.nonzero()[:4].tolist():
+            log(f"  {what}: {k}{idx} is 0 on the CPU, "
+                f"{float(g[tuple(idx)]):.3e} on the card (max|CPU leaf| "
+                f"{float(w.abs().max()):.3e})")
     check(ok and not broken,
           f"{what}: loss {float(loss):.7f} (CPU {float(cpu_loss):.7f}) "
           f"and every gradient leaf within rtol {GRAD_TOL}, atol {GRAD_TOL} "
@@ -2805,6 +2954,229 @@ def vision_phase(dev, card) -> dict:
                 planes=planes)
 
 
+def train_full(dev, card) -> dict:
+    """Phase 11 (a): mamba2-2.7b trained at full width and depth through
+    the port's ``Trainer``."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = loop.Trainer(cfg, loop.TrainerConfig(), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in M.flatten(tr.params).values())
+    log(f"train on {card}: {LM_ARCH}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab} padded to {T.padded_vocab(cfg)}, "
+        f"{cfg.activation_dtype}, remat {cfg.remat}, {cfg.n_microbatches} "
+        f"microbatches, {cfg.optimizer}; {n_params} float32 parameters "
+        f"from PRNGKey(0) and the optimizer state in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    check(cfg.remat and cfg.n_microbatches == 8 and cfg.optimizer == "adamw"
+          and n_params > 2.8e9,
+          f"the reference's training configuration: remat on, 8 "
+          f"microbatches, AdamW, {n_params / 1e9:.3f} B parameters")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def one_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(pipe, 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm_ms = one_step()
+    log(f"train: warm-up step {warm_ms:.1f} ms")
+    _lib.reset_launches()
+    step_ms = [one_step() for _ in range(TRAIN_TIMED_STEPS)]
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = statistics.median(step_ms)
+    losses = [h["loss"] for h in tr.history]
+    log(f"train on {card}: step ms {[round(v, 1) for v in step_ms]} -> "
+        f"median {med:.1f} ms, {tokens * 1e3 / med:.1f} tokens/s "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens a step); peak allocated "
+        f"{peak / 2**30:.2f} GiB; losses {[round(v, 4) for v in losses]}")
+    per_step = {k: v / TRAIN_TIMED_STEPS for k, v in launches.items() if v}
+    log(f"train: kernel launches a step on the path: {per_step}")
+    want_fwd = 2 * cfg.n_layers * cfg.n_microbatches
+    want_bwd = cfg.n_layers * cfg.n_microbatches
+    check(launches["decay_scan"] == want_fwd * TRAIN_TIMED_STEPS
+          and launches["decay_scan_bwd"] == want_bwd * TRAIN_TIMED_STEPS,
+          f"decay_scan forward launched 2 x {cfg.n_layers} x "
+          f"{cfg.n_microbatches} = {want_fwd} times a step (the forward and "
+          f"its remat recompute) and the backward {want_bwd} times "
+          f"({launches['decay_scan']}, {launches['decay_scan_bwd']} over "
+          f"{TRAIN_TIMED_STEPS} steps)")
+    ln_v = math.log(T.padded_vocab(cfg))
+    check(all(math.isfinite(v) for v in losses)
+          and abs(losses[0] - ln_v) <= 1.0,
+          f"every loss finite; step 0's {losses[0]:.4f} within 1.0 of "
+          f"ln {T.padded_vocab(cfg)} = {ln_v:.4f}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(peak < min(total, 80e9),
+          f"peak allocated {peak / 1e9:.2f} GB under the card's "
+          f"{total / 1e9:.2f} GB and 80 GB")
+    t0 = time.perf_counter()
+    prof = profiled_kernels(lambda: tr.train(pipe, 1))
+    log(f"train: the profiled step and its trace took "
+        f"{time.perf_counter() - t0:.1f} s")
+    by_name = {}
+    for k, v in prof["kernels"].items():
+        by_name[k[:60]] = by_name.get(k[:60], 0.0) + v
+    profile_line("train profile, one step", {**prof, "ops": by_name}, med)
+    fwd_ms = sum(v for k, v in prof["kernels"].items()
+                 if "decay_scan" in k and "bwd" not in k)
+    bwd_ms = sum(v for k, v in prof["kernels"].items()
+                 if "decay_scan_bwd" in k)
+    dev_ms = max(prof["device_ms"], 1e-9)
+    log(f"train: decay_scan forward {fwd_ms:.3f} ms "
+        f"({100 * fwd_ms / dev_ms:.3f} %), backward "
+        f"{bwd_ms:.3f} ms ({100 * bwd_ms / dev_ms:.3f} %) of "
+        f"{prof['device_ms']:.1f} ms device time in one step")
+    check(bwd_ms > 0, "torch.profiler traced the step's decay_scan_bwd "
+          "kernels")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, median_ms=med,
+                tokens_per_s=tokens * 1e3 / med, peak_gib=peak / 2**30,
+                losses=losses, launches_per_step=per_step,
+                decay_scan_fwd_share=fwd_ms / dev_ms,
+                decay_scan_bwd_share=bwd_ms / dev_ms,
+                device_idle=1 - prof["device_ms"] / prof["wall_ms"],
+                launches=launches)
+
+
+def train_check(dev) -> None:
+    """Phase 11 (b): the full-width model at 2 layers in float32, one
+    step's loss and gradients on the card against the CPU port."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    layers, batch, seq = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=layers,
+                              dtype="float32", n_microbatches=2)
+    card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
+    cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
+    tokens, labels = (torch.from_numpy(v) for v in
+                      next(TokenPipeline(cfg.vocab, batch, seq, seed=1)))
+    fn = loop.make_grad_fn(cfg)
+    t0 = time.perf_counter()
+    grads, met = fn(card, tokens.to(dev), labels.to(dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cgrads, cmet = fn(cpu, tokens, labels)
+    t2 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the sums in their plain sequential order
+    again, _ = fn(cpu, tokens, labels)
+    torch.set_num_threads(threads)
+    t3 = time.perf_counter()
+    grads_agree(met["loss"], grads, cmet["loss"], cgrads,
+                f"{LM_ARCH} full width, {layers} layers, float32, batch "
+                f"{batch} x {seq} in 2 microbatches, one train step's "
+                f"gradients (card {(t1 - t0) * 1e3:.0f} ms, CPU "
+                f"{(t2 - t1) * 1e3:.0f} ms at {threads} threads; the exact "
+                f"zeros those of a second CPU run at 1 thread, "
+                f"{(t3 - t2) * 1e3:.0f} ms)", cpu_again=again)
+
+
+def train_reduced(dev) -> dict:
+    """Phase 11 (c): the trainer's contracts on the card at the reduced
+    config: the loss falls, a save / restore resumes bitwise, both
+    compressions step, and the CLI runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.models import module as M
+    from repro_torch.train import loop
+
+    cfg = get_config(LM_ARCH).reduced()
+    batch, seq = TRAIN_REDUCED_BATCH
+    tcfg = dict(lr=1e-3, decay_steps=100)
+
+    def trainer(**kw):
+        return loop.Trainer(cfg, loop.TrainerConfig(**tcfg, **kw), device=dev)
+
+    tr = trainer()
+    hist = tr.train(TokenPipeline(cfg.vocab, batch, seq, seed=0),
+                    TRAIN_REDUCED_STEPS)["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"reduced {LM_ARCH} on the card: mean loss of the "
+          f"last 5 of {TRAIN_REDUCED_STEPS} steps {last:.4f} below the "
+          f"first 5's {first:.4f}")
+    ckdir = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    straight = trainer()
+    straight.train(TokenPipeline(cfg.vocab, batch, seq, seed=0), 4)
+    first_half = trainer(ckpt_dir=str(ckdir), async_ckpt=False)
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=0)
+    first_half.train(pipe, 2)
+    first_half.save(pipe)
+    resumed = trainer(ckpt_dir=str(ckdir))
+    pipe2 = TokenPipeline(cfg.vocab, batch, seq, seed=7)
+    restored = resumed.maybe_restore(pipe2)
+    resumed.train(pipe2, 2)
+    want = M.flatten((straight.params, straight.opt_state))
+    got = M.flatten((resumed.params, resumed.opt_state))
+    check(restored and resumed.step == 4 and set(got) == set(want)
+          and all(same(got[k], want[k]) for k in want)
+          and [h["loss"] for h in resumed.history]
+          == [h["loss"] for h in straight.history[2:]],
+          f"4 straight steps == 2 steps, save, a new Trainer's "
+          f"maybe_restore, 2 steps: every parameter and moment bitwise "
+          f"({len(want)} leaves), the losses equal")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    comp = {}
+    for kind in ("int8", "topk"):
+        ctr = trainer(grad_compression=kind)
+        comp[kind] = [h["loss"] for h in ctr.train(
+            TokenPipeline(cfg.vocab, batch, seq, seed=0), 3)["history"]]
+    check(all(np.isfinite(v).all() and len(v) == 3 for v in comp.values()),
+          f"3 steps with --grad-compression int8 and topk, every loss "
+          f"finite: {comp}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI_ARGV],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=300)
+    tail = proc.stdout.strip().splitlines()[-3:]
+    check(proc.returncode == 0 and "on cuda" in proc.stdout
+          and "final step 3" in proc.stdout,
+          f"python -m repro_torch.launch.train {' '.join(TRAIN_CLI_ARGV)} "
+          f"on the card in {time.perf_counter() - t0:.1f} s: rc "
+          f"{proc.returncode}, {tail} {proc.stderr[-400:] if proc.returncode else ''}")
+    return dict(losses=losses, compressed=comp)
+
+
+def train_phase(dev, card) -> dict:
+    """Phase 11: the LM trainer on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    full = train_full(dev, card)
+    t1 = time.perf_counter()
+    train_check(dev)
+    t2 = time.perf_counter()
+    reduced = train_reduced(dev)
+    log(f"train: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return dict(full=full, reduced=reduced)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -2904,9 +3276,16 @@ def main() -> int:
     vis = vision_phase(dev, card)
     torch.cuda.synchronize()
     phase_s["vision training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trn = train_phase(dev, card)
+    torch.cuda.synchronize()
+    phase_s["lm training"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
-                    "shards": sh, "cards": cd, "vision": vis}, default=str))
+                    "shards": sh, "cards": cd, "vision": vis,
+                    "training": {**trn, "full": {
+                        k: v for k, v in trn["full"].items()
+                        if k != "launches"}}}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -2923,6 +3302,11 @@ def main() -> int:
                                 per.get(name, 0)
                                 for per in sh["launches_per_shard"]],
                             kernel_ms=row["ms"], **row))
+        if name == "decay_scan":
+            kernels[-1].update(
+                train_path_launches=trn["full"]["launches"]["decay_scan"],
+                train_path_backward_launches=trn["full"]["launches"][
+                    "decay_scan_bwd"])
     log(json.dumps({"kernels": kernels}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed:")

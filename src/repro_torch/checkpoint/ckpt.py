@@ -1,4 +1,4 @@
-"""Atomic, optionally asynchronous checkpoints of nested dicts of tensors.
+"""Atomic, optionally asynchronous checkpoints of trees of tensors.
 
 The port of ``repro.checkpoint.ckpt``, on the same directory layout, so
 one checkpoint directory serves both packages::
@@ -7,9 +7,11 @@ one checkpoint directory serves both packages::
         manifest.msgpack   step, leaf paths, shapes, dtypes, extra state
         <leaf>.npy         one file per leaf (host numpy)
 
-A leaf's path joins its dict keys with ``/``, keys sorted at every level
-as JAX flattens a dict (``inc1/b3a/w``); its file name is the path with
-``/`` -> ``__``.  bfloat16 leaves are stored as
+A tree is nested dicts, tuples and lists.  A leaf's path joins its dict
+keys and sequence indices with ``/``, keys sorted at every level and
+indices in order, as JAX flattens them (``inc1/b3a/w``; a trainer's
+``(params, opt_state)`` as ``0/embed``, ``1/m/embed``); its file name is
+the path with ``/`` -> ``__``.  bfloat16 leaves are stored as
 their uint16 bits.  Writes go to ``step_<N>.tmp`` and are renamed into
 place, so a crash mid-write never shows as a checkpoint; ``keep`` bounds
 how many steps stay on disk.  The manifest is msgpack, written and read by
@@ -48,7 +50,7 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 
 class Checkpointer:
-    """Save and restore nested dicts of tensors under ``directory``,
+    """Save and restore trees of tensors under ``directory``,
     keeping the newest ``keep`` steps."""
 
     def __init__(self, directory: str, keep: int = 3):
@@ -115,14 +117,16 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None, device=None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, template, step: Optional[int] = None, device=None,
+                into: bool = False) -> Tuple[Any, Dict]:
         """Restore step ``step`` (default: the latest) into the structure
         of ``template``, whose leaves give the shape and dtype each stored
         array must have (tensors, or ``ParamDef``s).  Leaves land on
-        ``device`` (default: the CUDA device; raises when there is none).
-        Returns ``(tree, extra)``; raises ``FileNotFoundError`` when there
-        is no such step or leaf file, ``ValueError`` on a shape mismatch."""
+        ``device`` (default: the CUDA device; raises when there is none);
+        with ``into`` each is copied into ``template``'s own tensor, one
+        leaf at a time, and ``template`` is returned.  Returns ``(tree,
+        extra)``; raises ``FileNotFoundError`` when there is no such step
+        or leaf file, ``ValueError`` on a shape mismatch."""
         device = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -141,5 +145,8 @@ class Checkpointer:
                 x = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 x = torch.from_numpy(arr)
-            leaves[k] = x.to(device=device, dtype=tmpl.dtype)
-        return M.unflatten(leaves, sep="/"), manifest["extra"]
+            x = x.to(device=device, dtype=tmpl.dtype)
+            if into:
+                tmpl.copy_(x)
+            leaves[k] = tmpl if into else x
+        return M.unflatten_like(template, leaves, sep="/"), manifest["extra"]

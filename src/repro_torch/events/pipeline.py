@@ -1,12 +1,16 @@
-"""Host event streams -> fixed-capacity ``EventBatch`` tensors.
+"""Host event streams -> fixed-capacity ``EventBatch`` tensors, and the
+synthetic LM token pipeline.
 
-The port of ``to_event_batch`` and ``window_chunks`` from
-``repro.events.pipeline``.  Padding is ``valid=False`` zeros; the scatter
-writes nothing for invalid events, so pad values never reach a surface.
+The port of ``to_event_batch``, ``window_chunks``, ``TokenPipelineState``
+and ``TokenPipeline`` from ``repro.events.pipeline``.  Padding is
+``valid=False`` zeros; the scatter writes nothing for invalid events, so
+pad values never reach a surface.  The token pipeline is numpy only and
+yields the reference's tokens bitwise.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -72,3 +76,53 @@ def window_chunks(s: syn.EventStream, window_s: float,
     valid[idx[keep], pos[keep]] = True
     return _batch((fill(s.x, np.int32), fill(s.y, np.int32),
                    fill(s.t, np.float32), fill(s.p, np.int32), valid), device)
+
+
+@dataclasses.dataclass
+class TokenPipelineState:
+    """Checkpointable state of the synthetic LM token pipeline."""
+
+    seed: int
+    step: int = 0
+
+    def to_dict(self) -> Dict[str, int]:
+        return {"seed": self.seed, "step": self.step}
+
+    @classmethod
+    def from_dict(cls, d) -> "TokenPipelineState":
+        return cls(seed=int(d["seed"]), step=int(d["step"]))
+
+
+class TokenPipeline:
+    """Deterministic synthetic LM tokens: (tokens, labels), int32 numpy
+    arrays of shape (batch, seq), from an RNG keyed on (seed, step), so
+    restoring ``state.step`` resumes exactly.  Each row weaves a repeated
+    motif (period 16 + step % 7) into uniform tokens, 70 % motif, so a
+    model has structure to learn."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0):
+        self.vocab, self.batch, self.seq = vocab, batch, seq
+        self.state = TokenPipelineState(seed=seed)
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        s = self.state
+        rng = np.random.default_rng((s.seed, s.step))
+        base = rng.integers(0, self.vocab, size=(self.batch, self.seq + 1),
+                            dtype=np.int64)
+        period = 16 + (s.step % 7)
+        ar = np.arange(self.seq + 1)
+        motif = rng.integers(0, self.vocab, size=(self.batch, period),
+                             dtype=np.int64)
+        use_motif = rng.random((self.batch, self.seq + 1)) < 0.7
+        woven = np.where(use_motif, motif[:, ar % period], base)
+        self.state = dataclasses.replace(s, step=s.step + 1)
+        return woven[:, :-1].astype(np.int32), woven[:, 1:].astype(np.int32)
+
+    def state_dict(self) -> Dict[str, int]:
+        return self.state.to_dict()
+
+    def load_state_dict(self, d) -> None:
+        self.state = TokenPipelineState.from_dict(d)

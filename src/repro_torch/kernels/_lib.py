@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"ts_decay": 0, "stcf_support": 0,
-                            "chunk_scatter": 0, "decay_scan": 0}
+                            "chunk_scatter": 0, "decay_scan": 0,
+                            "decay_scan_bwd": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ULL = ctypes.c_ulonglong
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "chunk_scatter": [_P] + [_I] * 4 + [_P] * 6 + [_I, _I, _P, _I, _I]
     + [_P] * 4,
     "decay_scan": [_P] * 5 + [_LL] * 3 + [_P],
+    "decay_scan_bwd": [_P] * 8 + [_LL] * 3 + [_P],
     "stcf_max_radius": [],
 }
 

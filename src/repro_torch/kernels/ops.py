@@ -128,11 +128,15 @@ def ts_fused(sae, ev, t_now, params, v_tw_static: Optional[float] = None):
 def decay_scan(a: torch.Tensor, x: torch.Tensor,
                s0: Optional[torch.Tensor] = None):
     """``s_t = a_t*s_{t-1} + x_t`` over (B, T, C) in float32, from ``s0``
-    (B, C) or zeros.  Returns (states (B, T, C), final (B, C))."""
-    if _on_card(a):
-        from repro_torch.kernels.decay_scan import decay_scan_cuda
+    (B, C) or zeros.  Returns (states (B, T, C), final (B, C)).
 
-        return decay_scan_cuda(a, x, s0)
+    Differentiable on either device: on the card through ``DecayScan``
+    (the forward kernel, and the backward kernel for its gradients), on
+    the CPU through autograd of the plain version."""
+    if _on_card(a):
+        from repro_torch.kernels.decay_scan import DecayScan
+
+        return DecayScan.apply(a, x, s0)
     return _ref.decay_scan_ref(a, x, s0)
 
 

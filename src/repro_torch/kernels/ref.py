@@ -212,3 +212,34 @@ def decay_scan_ref(a: torch.Tensor, x: torch.Tensor,
         s = a[:, i] * s + x[:, i]
         out[:, i] = s
     return out, s
+
+
+def decay_scan_bwd_ref(a: torch.Tensor, states: torch.Tensor,
+                       s0: Optional[torch.Tensor], g: torch.Tensor,
+                       g_final: Optional[torch.Tensor] = None):
+    """The backward of ``decay_scan_ref``: from the gradients ``g`` of the
+    states (B, T, C) and ``g_final`` of the final state (B, C; None for
+    none), walk ``lam_t = g_t + a_{t+1} * lam_{t+1}`` from t = T-1 down
+    (``lam_{T-1} = g_{T-1} + g_final``) and return ``(da, dx, ds0)``:
+    ``dx_t = lam_t``, ``da_t = lam_t * s_{t-1}`` (``s_{-1}`` = ``s0``, or
+    0) and ``ds0 = a_0 * lam_0`` (None when ``s0`` is None).  Every
+    product and two-term sum is one op, rounded once, as in the kernel's
+    ``decay_scan_bwd``, so the two agree bitwise."""
+    a, states, g = (v.to(torch.float32) for v in (a, states, g))
+    b, t, c = a.shape
+    da = torch.empty_like(states)
+    dx = torch.empty_like(states)
+    if t == 0:
+        ds0 = None if s0 is None else (
+            torch.zeros((b, c), dtype=torch.float32, device=a.device)
+            if g_final is None else g_final.to(torch.float32, copy=True))
+        return da, dx, ds0
+    lam = g[:, t - 1] if g_final is None else g[:, t - 1] + g_final
+    for i in range(t - 1, -1, -1):
+        if i < t - 1:
+            lam = g[:, i] + a[:, i + 1] * lam
+        prev = (states[:, i - 1] if i else
+                torch.zeros_like(lam) if s0 is None else s0.to(torch.float32))
+        dx[:, i] = lam
+        da[:, i] = lam * prev
+    return da, dx, None if s0 is None else a[:, 0] * lam

@@ -90,16 +90,21 @@ def _inception(p, x: torch.Tensor) -> torch.Tensor:
 @contextlib.contextmanager
 def float32_math():
     """Full float32 convolutions and matmuls for the block: TF32 off in
-    cuDNN and cuBLAS, the global flags restored after."""
+    cuDNN and cuBLAS, and bf16 products summed in float32 (no reduced-
+    precision split-K), the global flags restored after."""
+    mm_flags = torch.backends.cuda.matmul
     conv = torch.backends.cudnn.allow_tf32
-    mm = torch.backends.cuda.matmul.allow_tf32
+    mm = mm_flags.allow_tf32
+    bf16 = mm_flags.allow_bf16_reduced_precision_reduction
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm_flags.allow_tf32 = False
+    mm_flags.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        mm_flags.allow_tf32 = mm
+        mm_flags.allow_bf16_reduced_precision_reduction = bf16
 
 
 def cnn_apply(params, x: torch.Tensor) -> torch.Tensor:

@@ -65,14 +65,26 @@ def _initialize(key: torch.Tensor, d: ParamDef, device) -> torch.Tensor:
     return out.view(d.shape)
 
 
+def _children(tree):
+    """A node's (key, child) pairs in JAX's flattening order -- a dict's
+    keys sorted, a tuple's or list's indices in order -- or None for a
+    leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if type(tree) in (tuple, list):
+        return list(enumerate(tree))
+    return None
+
+
 def flatten(tree, sep: str = ".", prefix: str = "") -> Dict[str, Any]:
-    """``{leaf path: leaf}`` of a nested dict, paths joined with ``sep``
-    and keys sorted at every level (the order ``init_params`` draws in,
-    and JAX's flattening order of a dict)."""
+    """``{leaf path: leaf}`` of a tree of dicts, tuples and lists, paths
+    joined with ``sep``: dict keys sorted at every level (the order
+    ``init_params`` draws in, and JAX's flattening order of a dict), a
+    tuple's or list's entries by index, as JAX names them (``0/embed``)."""
     out: Dict[str, Any] = {}
-    for k in sorted(tree):
-        v, path = tree[k], f"{prefix}{k}"
-        if isinstance(v, dict):
+    for k, v in _children(tree):
+        path = f"{prefix}{k}"
+        if _children(v) is not None:
             out.update(flatten(v, sep, path + sep))
         else:
             out[path] = v
@@ -80,7 +92,8 @@ def flatten(tree, sep: str = ".", prefix: str = "") -> Dict[str, Any]:
 
 
 def unflatten(flat, sep: str = ".") -> dict:
-    """The nested dict of ``{leaf path: leaf}`` (inverse of ``flatten``)."""
+    """The nested dict of ``{leaf path: leaf}`` (inverse of ``flatten`` on
+    a tree of dicts; ``unflatten_like`` rebuilds tuples and lists)."""
     out: dict = {}
     for path, v in flat.items():
         *parents, leaf = path.split(sep)
@@ -89,6 +102,19 @@ def unflatten(flat, sep: str = ".") -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return out
+
+
+def unflatten_like(template, flat, sep: str = ".", prefix: str = ""):
+    """The tree of ``template``'s structure whose leaf at each path is
+    ``flat[path]`` (inverse of ``flatten`` on any tree)."""
+    kids = _children(template)
+    if kids is None:
+        return flat[prefix[:-len(sep)]]
+    out = {k: unflatten_like(v, flat, sep, f"{prefix}{k}{sep}")
+           for k, v in kids}
+    if isinstance(template, dict):
+        return {k: out[k] for k in template}
+    return type(template)(out[i] for i in range(len(template)))
 
 
 def _map(fn, tree):

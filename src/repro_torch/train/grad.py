@@ -40,17 +40,44 @@ def direct_convolutions(direct: bool = True):
         torch.backends.cudnn.enabled = enabled
 
 
-def value_and_grad(fn, direct: bool = False):
-    """``fn(params, *args) -> scalar loss`` -> a function ``(params, *args)
-    -> (loss, grads)``, ``grads`` a tree like ``params``; forward and
-    backward in full float32 (on direct convolutions if ``direct``), the
-    inputs left untouched."""
+def value_and_grad(fn, direct: bool = False, has_aux: bool = False,
+                   into=None):
+    """``fn(params, *args) -> scalar loss`` (``-> (loss, aux dict)`` with
+    ``has_aux``) -> a function ``(params, *args) -> (loss, grads)``
+    (``((loss, aux), grads)`` with ``has_aux``, as ``jax.value_and_grad``),
+    ``grads`` a tree like ``params``; forward and backward in full float32
+    (on direct convolutions if ``direct``), the inputs left untouched.
+
+    With ``into``, a tree of tensors like ``params`` (same paths, shapes
+    and dtypes), each gradient is added in place into ``into``'s leaf by
+    autograd's own accumulation as the backward produces it (no second
+    copy of the gradients is held) and ``grads`` is ``into``.  A leaf
+    that gets no gradient keeps its value."""
     def wrapped(params, *args):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in M.flatten(params).items()}
+        sinks = None if into is None else M.flatten(into)
+        if sinks is not None:
+            for k, v in leaves.items():
+                v.grad = sinks[k]
         with torch.enable_grad(), float32_math(), direct_convolutions(direct):
-            loss = fn(M.unflatten(leaves), *args)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), M.unflatten(dict(zip(leaves, grads)))
+            out = fn(M.unflatten_like(params, leaves), *args)
+            loss, aux = out if has_aux else (out, None)
+            if sinks is None:
+                grads = M.unflatten_like(params, dict(zip(
+                    leaves, torch.autograd.grad(loss, list(leaves.values())))))
+            else:
+                loss.backward()
+                moved = [k for k, v in leaves.items()
+                         if v.grad is not sinks[k]]
+                if moved:
+                    raise RuntimeError(
+                        f"autograd replaced the gradient buffers of {moved} "
+                        "instead of accumulating into them")
+                grads = into
+        loss = loss.detach()
+        if has_aux:
+            return (loss, {k: v.detach() for k, v in aux.items()}), grads
+        return loss, grads
 
     return wrapped

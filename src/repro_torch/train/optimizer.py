@@ -1,8 +1,13 @@
 """Optimizers built from scratch: AdamW and Adafactor.
 
-The port of ``repro.train.optimizer``.  Both are (init, update) pairs over
-nested dicts of tensors, functional like the reference's: ``update``
-returns new parameter and state trees under ``torch.no_grad()``.
+The port of ``repro.train.optimizer``, over nested dicts of float32
+tensors.  Each optimizer is written once, as ``update_``: it writes the
+new parameters and state into the old tensors leaf by leaf (the gradients
+are overwritten), its temporaries freed as it goes -- the port's
+counterpart of the reference trainer's ``donate_argnums``, without which
+a 2.8 B-parameter model's old and new parameters and moments would not
+fit one card together.  ``update``, the reference's functional form, is
+``update_`` on copies.
 
 Every scalar operand is a float32 tensor on the parameters' device
 (``device.f32``), computed in the reference's order: ``b1 ** t`` with
@@ -16,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -51,11 +56,27 @@ class Schedule(NamedTuple):
             c(self.min_ratio) + c(1 - self.min_ratio) * cos)
 
 
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, Any], Tuple[Any, Any]]
-    # update(grads, state, params, step) -> (new_params, new_state)
+    update_: Callable[[Any, Any, Any, Any], None]
+    # update_(grads, state, params, step): the new params and state written
+    # into ``params`` and ``state`` (``grads`` are overwritten)
+
+    @torch.no_grad()
+    def update(self, grads, state, params, step):
+        """(new_params, new_state), the arguments left as they were."""
+        new_params, new_state = _clone(params), _clone(state)
+        self.update_(_clone(grads), new_state, new_params, step)
+        return new_params, new_state
 
 
 def _map(fn, tree, *rest):
@@ -65,14 +86,6 @@ def _map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     return fn(tree, *rest)
-
-
-def _unzip(tree, n: int):
-    """A tree of n-tuples -> n trees."""
-    if isinstance(tree, dict):
-        parts = {k: _unzip(v, n) for k, v in tree.items()}
-        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
-    return tree
 
 
 def _device(tree) -> torch.device:
@@ -86,14 +99,33 @@ def global_norm(tree) -> torch.Tensor:
                           for x in M.flatten(tree).values()))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale ``grads`` by ``min(1, max_norm / max(norm, 1e-9))``; returns
-    (clipped grads, norm)."""
+def _clip_scale(grads, max_norm: float):
     norm = global_norm(grads)
     dev = norm.device
-    scale = torch.minimum(
-        f32(1.0, dev), f32(max_norm, dev) / torch.maximum(norm, f32(1e-9, dev)))
+    return torch.minimum(
+        f32(1.0, dev),
+        f32(max_norm, dev) / torch.maximum(norm, f32(1e-9, dev))), norm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` by ``min(1, max_norm / max(norm, 1e-9))``; returns
+    (clipped grads, norm).  The updates scale their gradients in place by
+    the same factor."""
+    scale, norm = _clip_scale(grads, max_norm)
     return _map(lambda g: g * scale, grads), norm
+
+
+def _leafwise(*trees):
+    """The leaves of ``trees`` side by side, one tuple per path of the
+    first (a whole subtree of the others where it has a leaf)."""
+    if isinstance(trees[0], dict):
+        for k in trees[0]:
+            yield from _leafwise(*(t[k] for t in trees))
+    elif isinstance(trees[0], list):
+        for i in range(len(trees[0])):
+            yield from _leafwise(*(t[i] for t in trees))
+    else:
+        yield trees
 
 
 def adamw(
@@ -110,8 +142,8 @@ def adamw(
         return {"m": _map(zeros, params), "v": _map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    def update_(grads, state, params, step):
+        scale, _ = _clip_scale(grads, max_grad_norm)
         dev = _device(params)
         c = lambda x: f32(x, dev)
         step = torch.as_tensor(step, device=dev)
@@ -119,23 +151,22 @@ def adamw(
         t = step.to(torch.float32) + c(1.0)
         c1 = c(1.0) - torch.pow(c(b1), t)
         c2 = c(1.0) - torch.pow(c(b2), t)
+        for g, m, v, p in _leafwise(grads, state["m"], state["v"], params):
+            if g.dtype != torch.float32 or p.dtype != torch.float32:
+                raise TypeError("update_ takes float32 grads and params")
+            g.mul_(scale)
+            tmp = g * c(1 - b1)
+            m.mul_(c(b1)).add_(tmp)
+            torch.mul(g, c(1 - b2), out=tmp).mul_(g)
+            v.mul_(c(b2)).add_(tmp)
+            torch.div(v, c2, out=tmp).sqrt_().add_(c(eps))
+            st = torch.div(m, c1).div_(tmp)
+            if p.dim() >= 2:
+                st.add_(torch.mul(p, c(weight_decay), out=tmp))
+            del tmp
+            p.sub_(st.mul_(lr))
 
-        def upd(g, m, v, p):
-            g = g.to(torch.float32)
-            m = c(b1) * m + c(1 - b1) * g
-            v = c(b2) * v + c(1 - b2) * g * g
-            mh = m / c1
-            vh = v / c2
-            step_ = mh / (torch.sqrt(vh) + c(eps))
-            if p.dim() >= 2:  # decoupled weight decay on matrices only
-                step_ = step_ + c(weight_decay) * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * step_).to(p.dtype), m, v
-
-        new_p, new_m, new_v = _unzip(
-            _map(upd, grads, state["m"], state["v"], params), 3)
-        return new_p, {"m": new_m, "v": new_v}
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_)
 
 
 def adafactor(
@@ -166,36 +197,36 @@ def adafactor(
         return _map(one, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    def update_(grads, state, params, step):
+        scale, _ = _clip_scale(grads, max_grad_norm)
         dev = _device(params)
         c = lambda x: f32(x, dev)
         lr = schedule(torch.as_tensor(step, device=dev))
-
-        def one(g, s, p):
-            g = g.to(torch.float32)
-            g2 = g * g + c(eps)
+        for g, s, p in _leafwise(grads, state, params):
+            if g.dtype != torch.float32 or p.dtype != torch.float32:
+                raise TypeError("update_ takes float32 grads and params")
+            g.mul_(scale)
+            g2 = (g * g).add_(c(eps))
             if _factored(p):
-                vr = c(decay) * s["vr"] + c(1 - decay) * g2.mean(dim=-1)
-                vc = c(decay) * s["vc"] + c(1 - decay) * g2.mean(dim=-2)
-                denom = (vr[..., :, None] * vc[..., None, :]
-                         / torch.maximum(vr.mean(dim=-1)[..., None, None],
-                                         c(eps)))
-                u = g * torch.rsqrt(torch.maximum(denom, c(eps)))
-                new_s = {"vr": vr, "vc": vc}
+                s["vr"].mul_(c(decay)).add_(g2.mean(dim=-1).mul_(c(1 - decay)))
+                s["vc"].mul_(c(decay)).add_(g2.mean(dim=-2).mul_(c(1 - decay)))
+                del g2
+                vr = s["vr"]
+                u = vr[..., :, None] * s["vc"][..., None, :]
+                u.div_(torch.maximum(vr.mean(dim=-1)[..., None, None], c(eps)))
             else:
-                v = c(decay) * s["v"] + c(1 - decay) * g2
-                u = g * torch.rsqrt(torch.maximum(v, c(eps)))
-                new_s = {"v": v}
+                s["v"].mul_(c(decay)).add_(g2.mul_(c(1 - decay)))
+                del g2
+                u = s["v"].clone()
+            torch.maximum(u, c(eps), out=u).rsqrt_().mul_(g)
             rms_u = torch.sqrt(torch.mean(u * u) + c(eps))
-            u = u / torch.maximum(c(1.0), rms_u / c(clip_threshold))
-            m = c(b1) * s["m"].to(torch.float32) + c(1 - b1) * u
-            new_s["m"] = m.to(torch.bfloat16)
-            return (p.to(torch.float32) - lr * m).to(p.dtype), new_s
+            u.div_(torch.maximum(c(1.0), rms_u / c(clip_threshold)))
+            m = s["m"].to(torch.float32).mul_(c(b1)).add_(u.mul_(c(1 - b1)))
+            del u
+            s["m"].copy_(m)
+            p.sub_(m.mul_(lr))
 
-        return _unzip(_map(one, grads, state, params), 2)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_)
 
 
 def make_optimizer(kind: str, schedule: Schedule, **kw) -> Optimizer:

@@ -889,3 +889,104 @@ def test_optimizer_update_on_card_matches_cpu(cuda, kind):
         tol = 2 ** -7 if w.dtype == torch.bfloat16 else 1e-5
         assert (got - w.float()).abs().max() <= tol * float(
             w.float().abs().max()), k
+
+
+def _scan_grad_inputs(cuda, b, t, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.exp(-0.3 * torch.rand((b, t, c), generator=g))
+    x, gs = torch.randn((b, t, c), generator=g), torch.randn((b, t, c),
+                                                             generator=g)
+    s0, gf = torch.randn((b, c), generator=g), torch.randn((b, c), generator=g)
+    return [v.to(cuda) for v in (a, x, s0, gs, gf)]
+
+
+@pytest.mark.parametrize("c", [1001, 1024])       # scalar path, float4 path
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("with_gf", [False, True])
+def test_decay_scan_grads_match_autograd_of_plain(cuda, c, with_s0, with_gf):
+    """``DecayScan`` on the card: states carry a ``grad_fn``; the backward
+    kernel launches once and its gradients are bitwise
+    ``decay_scan_bwd_ref``'s and equal in value to autograd of
+    ``decay_scan_ref`` (which may give +0 where the kernel gives -0)."""
+    a, x, s0, gs, gf = _scan_grad_inputs(cuda, 3, 7, c, 8)
+    leaves = [v.clone().requires_grad_(True)
+              for v in (a, x) + ((s0,) if with_s0 else ())]
+    st, fin = ops.decay_scan(*leaves)
+    assert st.grad_fn is not None
+    outs, grads = [st], [gs]
+    if with_gf:
+        outs.append(fin)
+        grads.append(gf)
+    before = _lib.LAUNCHES["decay_scan_bwd"]
+    got = torch.autograd.grad(outs, leaves, grads)
+    assert _lib.LAUNCHES["decay_scan_bwd"] == before + 1
+    plain = ref.decay_scan_bwd_ref(a, st.detach(), s0 if with_s0 else None,
+                                   gs, gf if with_gf else None)
+    for u, v in zip(got, [p for p in plain if p is not None]):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    st_r, fin_r = ref.decay_scan_ref(*leaves)
+    want = torch.autograd.grad([st_r, fin_r][:len(outs)], leaves, grads)
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+
+
+def test_decay_scan_grads_central_difference(cuda):
+    """The kernel's gradients against float64 central differences of the
+    plain forward (the kernel is float32 only): each directional
+    derivative within 1e-3 relative."""
+    a, x, s0, gs, _ = _scan_grad_inputs(cuda, 2, 6, 64, 9)
+    leaves = [v.clone().requires_grad_(True) for v in (a, x, s0)]
+    st, _ = ops.decay_scan(*leaves)
+    got = torch.autograd.grad(st, leaves, gs)
+    g = torch.Generator().manual_seed(10)
+    eps = 1e-4
+    for i, grad in enumerate(got):
+        d = torch.randn(grad.shape, generator=g).to(cuda, torch.float64)
+
+        def f(sign, i=i, d=d):
+            args = [v.double() for v in (a, x, s0)]
+            args[i] = args[i] + sign * eps * d
+            s, total = args[2], 0.0
+            for t in range(a.shape[1]):
+                s = args[0][:, t] * s + args[1][:, t]
+                total = total + (s * gs[:, t].double()).sum()
+            return total
+
+        numeric = float(f(1) - f(-1)) / (2 * eps)
+        analytic = float((grad.double() * d).sum())
+        assert abs(analytic - numeric) <= 1e-3 * abs(numeric), i
+
+
+def test_reduced_lm_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` of the reduced LM at n_microbatches = 2 on
+    the card against the CPU port: loss within 1e-5 relative, gradients
+    within rtol 1e-4, atol 1e-4 x max|CPU leaf|, exact zeros kept, and the
+    backward kernel launched once a layer a microbatch (the forward twice:
+    remat recomputes it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              n_microbatches=2)
+    cpu = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), "cpu")
+    card = M.unflatten({k: v.to(cuda) for k, v in M.flatten(cpu).items()})
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (4, 40), generator=g)
+    labels = torch.randint(0, cfg.vocab, (4, 40), generator=g)
+    fn = loop.make_grad_fn(cfg)
+    _lib.reset_launches()
+    grads, met = fn(card, tokens.to(cuda), labels.to(cuda))
+    assert _lib.LAUNCHES["decay_scan"] == 2 * 2 * cfg.n_layers
+    assert _lib.LAUNCHES["decay_scan_bwd"] == 2 * cfg.n_layers
+    cgrads, cmet = fn(cpu, tokens, labels)
+    assert abs(float(met["loss"]) - float(cmet["loss"])) <= 1e-5 * float(
+        cmet["loss"])
+    for k, w in M.flatten(cgrads).items():
+        got = M.flatten(grads)[k].cpu()
+        torch.testing.assert_close(got, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+        assert not bool(((w == 0) & (got != 0)).any()), k

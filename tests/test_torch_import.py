@@ -67,6 +67,9 @@ REQUIRED = (
     "repro_torch.launch.mesh",
     "repro_torch.train", "repro_torch.train.optimizer",
     "repro_torch.train.grad", "repro_torch.models.unet",
+    "repro_torch.train.loop", "repro_torch.train.compression",
+    "repro_torch.distributed.fault", "repro_torch.launch.train",
+    "repro_torch.events.pipeline",
 )
 
 
