@@ -19,7 +19,8 @@ analog-fidelity reads, the streaming runtime and the ``sweep`` CLI, 7 the
 elastic slot pool and live migration, 8 the slot pool over several
 shards, 9 the slot pool over several cards where more than one is
 visible, 10 the paper's reconstruction and classification protocols
-trained on the card, 11 the LM trainer on the card; phase 8 (a) and
+trained on the card, 11 the LM trainer on the card, 12 the dense LM
+family on the card; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -248,6 +249,48 @@ are held to compare against):
    steps each with int8 and top-k gradient compression; ``python -m
    repro_torch.launch.train --arch mamba2-2.7b --reduced --steps 3`` in
    a subprocess.
+12. **Dense LM family** -- every time host clock ending in
+   ``torch.cuda.synchronize()``; TF32 off.  (a) ``qwen3-8b`` uncut (36
+   layers, d_model 4096, 32 query and 8 KV heads of 128, d_ff 12288,
+   vocab 151,936 padded to 152,064; 8.19 B float32 parameters from
+   ``PRNGKey(0)``, bf16 activations and KV cache) served through
+   ``ServeEngine`` on the LM phase's traffic (8 requests of 1024-2048
+   prompt tokens, left-padded, 32 greedy tokens each) after a warm-up
+   serve.  Prints prefill tokens/s, decode ms per step p50/p99, peak
+   allocated memory, and a prefill and two decode steps under
+   ``torch.profiler`` (device ms by op, launches, the device's idle
+   share).  Checks: the widths, the parameter count, every logit finite,
+   every token inside the true vocab, and none of the port's CUDA
+   kernels launched (this path runs on PyTorch ops).  (b) The same for
+   ``gemma3-4b`` uncut (34 layers, 5:1 local (window 1024):global, 8
+   query and 4 KV heads of 256, vocab 262,144, final softcap 30): the
+   prompts are longer than the window, so the local rings wrap in
+   prefill and again in decode.  (c) The card against the CPU
+   port on ``PRNGKey(1)`` weights (the attention projections scaled to
+   their true fan-in: ``dense_check`` says why) in float32 at full
+   widths, batch 2: ``qwen3-8b``, ``glm4-9b`` and ``gemma2-27b`` at 2
+   layers, ``gemma3-4b`` at 6; a prefill of 300 tokens (last logits and
+   caches), then 8 decode steps (logits, caches); ``qwen3-8b`` with an
+   int8 KV cache decoding 8 steps from empty caches (the reference's
+   prefill builds unquantized ones); band rtol 1e-4, atol 1e-4 x max(1,
+   max|CPU|), positions bitwise; int8 codes within 1 on at most 1 in
+   1000 of a step's new cells, bf16 scales within one bf16 ulp, and the
+   batch rows whose codes differ in a step held to 3e-3 in that step
+   (``DENSE_INT8_TOL`` says why), the card's codes carried over to the
+   CPU after each step.  Then
+   one training step's gradients of ``qwen3-8b`` at 2 layers in float32 (``fsdp=True`` from
+   its config, no mesh; batch 2 x 300, 2 microbatches) against the CPU
+   port in phase 11 (b)'s band, with its exact-zero rule.  (d) The
+   event-LM example's protocol (``repro_torch.train.event_lm``: 30 AdamW
+   steps) on the card and on the CPU port: the loss curve, the held-out
+   accuracies, ms per step; checks every loss finite and step 0's within
+   1e-5 relative of the CPU's.  Then step 0's batch once more at the
+   example's weights with the attention projections at their true
+   fan-in (at the example's own, the reference's gradients move by more
+   than the band when the weights move by half an ulp): loss and
+   gradients, through the decoder, the embeds and the event frontend,
+   card against the CPU port in phase 11 (b)'s band with its exact-zero
+   rule.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -301,6 +344,26 @@ TRAIN_REDUCED_STEPS = 30      # phase 11 (c)
 TRAIN_REDUCED_BATCH = (8, 64)
 TRAIN_CLI_ARGV = ("--arch", "mamba2-2.7b", "--reduced", "--steps", "3")
 LM_TOL = 1e-4    # rtol; atol x max(1, max|ref|): float32 card vs CPU, recurrent
+DENSE_ARCH = "qwen3-8b"
+DENSE_SERVE = ("qwen3-8b", "gemma3-4b")   # phase 12 (a), (b), uncut
+#: d_model, heads, KV heads, head_dim, d_ff, vocab, padded vocab, window,
+#: final softcap: the published widths phase 12 (a), (b) serve at
+DENSE_WIDTHS = {
+    "qwen3-8b": (4096, 32, 8, 128, 12288, 151936, 152064, 4096, None),
+    "gemma3-4b": (2560, 8, 4, 256, 10240, 262144, 262144, 1024, 30.0),
+}
+DENSE_CHECK = (("qwen3-8b", 2), ("glm4-9b", 2), ("gemma2-27b", 2),
+               ("gemma3-4b", 6))   # phase 12 (c): arch, layers
+DENSE_CHECK_DECODE = 8
+DENSE_TOL = 1e-4  # rtol; atol x max(1, max|CPU|): float32 card vs CPU port
+#: the band of a batch row's logits in an int8 decode step whose new codes
+#: differ between the devices in that row: a code one apart moves its K/V
+#: cell by a quantization step, 1/127 (0.8 %) of its row's max, which
+#: float32 rounding alone does not (measured on an H100: one such cell
+#: moved its row's logits 9.8e-4, 40x the float steps' largest error);
+#: the other rows keep DENSE_TOL
+DENSE_INT8_TOL = 3e-3
+EVENT_LM_STEPS = 30
 
 HEADS_KEY = "chip-smoke-heads"
 HEADS_CLASSES, HEADS_WIDTH = 10, 32
@@ -1070,6 +1133,34 @@ def lm_requests(cfg, request_cls):
                         max_new_tokens=LM_NEW_TOKENS) for n in lens]
 
 
+def timed_engine(engine):
+    """Wrap a ``ServeEngine``'s prefill and decode so that each call is
+    timed on the host clock ending in a synchronize.  Returns the list the
+    calls land in, as (kind, seconds, decay_scan launches, logits finite),
+    and the unwrapped prefill and decode."""
+    from repro_torch.kernels import _lib
+
+    calls = []
+    plain_prefill, plain_decode = engine._prefill, engine._decode
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            n0 = _lib.LAUNCHES["decay_scan"]
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            calls.append((kind, dt, _lib.LAUNCHES["decay_scan"] - n0,
+                          bool(torch.isfinite(out[0]).all())))
+            return out
+        return run
+
+    engine._prefill = timed("prefill", plain_prefill)
+    engine._decode = timed("decode", plain_decode)
+    return calls, plain_prefill, plain_decode
+
+
 def run_lm(dev, card):
     """Phase 3: Mamba-2 token serving at full width and depth, bf16.
     Returns what the decay_scan kernel phase needs."""
@@ -1104,25 +1195,7 @@ def run_lm(dev, card):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     engine = ServeEngine(cfg, params, max_len=LM_PROMPT[1] + LM_NEW_TOKENS)
     reqs = lm_requests(cfg, Request)
-
-    calls = []   # (kind, seconds, decay_scan launches, logits finite)
-    plain_prefill, plain_decode = engine._prefill, engine._decode
-
-    def timed(kind, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            n0 = _lib.LAUNCHES["decay_scan"]
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            calls.append((kind, dt, _lib.LAUNCHES["decay_scan"] - n0,
-                          bool(torch.isfinite(out[0]).all())))
-            return out
-        return run
-
-    engine._prefill = timed("prefill", plain_prefill)
-    engine._decode = timed("decode", plain_decode)
+    calls, plain_prefill, plain_decode = timed_engine(engine)
     t0 = time.perf_counter()
     engine.serve([Request(r.prompt, max_new_tokens=2) for r in reqs])
     log(f"lm: warm-up serve (same prompts, 2 tokens) "
@@ -3177,6 +3250,400 @@ def train_phase(dev, card) -> dict:
     return dict(full=full, reduced=reduced)
 
 
+def close(a, b, tol):
+    """max |a - b|, and whether a is within rtol = ``tol``, atol = ``tol``
+    x max(1, max|b|) of b (sums of terms of b's size cancel near 0)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    scale = max(1.0, float(b.abs().max()))
+    return (float((a - b).abs().max()),
+            bool(torch.allclose(a, b, rtol=tol, atol=tol * scale)))
+
+
+def dense_serve(dev, card, arch) -> dict:
+    """Phase 12 (a), (b): ``arch`` served uncut through ``ServeEngine`` on
+    the LM phase's traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels import _lib
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    shape = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab, T.padded_vocab(cfg), cfg.window,
+             cfg.final_logit_softcap)
+    check(shape == DENSE_WIDTHS[arch]
+          and cfg.activation_dtype == torch.bfloat16
+          and cfg.kv_cache_dtype == "bfloat16",
+          f"{arch} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{T.padded_vocab(cfg)}, kinds {sorted(set(cfg.layer_kinds()))}, "
+          f"window {cfg.window}, softcaps {cfg.attn_logit_softcap} / "
+          f"{cfg.final_logit_softcap}, bf16 activations and KV cache")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in M.flatten(params).values())
+    # n_params() counts neither the vocab pad nor ln_f and the qk-norm gains
+    extra = (2 * (T.padded_vocab(cfg) - cfg.vocab) * cfg.d_model
+             + cfg.d_model + 2 * cfg.n_layers * cfg.head_dim * cfg.qk_norm)
+    check(n_params == cfg.n_params() + extra,
+          f"{arch}: {n_params} float32 parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB) drawn on the card from PRNGKey(0) in "
+          f"{time.perf_counter() - t0:.2f} s == n_params() "
+          f"{cfg.n_params()} ({cfg.n_params() / 1e9:.2f} B) + {extra} (the "
+          f"vocab pad, ln_f, the qk-norm gains)")
+    engine = ServeEngine(cfg, params, max_len=LM_PROMPT[1] + LM_NEW_TOKENS)
+    reqs = lm_requests(cfg, Request)
+    calls, plain_prefill, plain_decode = timed_engine(engine)
+    t0 = time.perf_counter()
+    engine.serve([Request(r.prompt, max_new_tokens=2) for r in reqs])
+    log(f"dense {arch}: warm-up serve (same prompts, 2 tokens) "
+        f"{time.perf_counter() - t0:.2f} s")
+    calls.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    s_max = max(len(r.prompt) for r in reqs)
+    pf_s = [c[1] for c in calls if c[0] == "prefill"]
+    dec_ms = [c[1] * 1e3 for c in calls if c[0] == "decode"]
+    p50 = float(np.percentile(dec_ms, 50))
+    log(f"dense {arch} on {card}: {LM_REQUESTS} requests, prompts "
+        f"{sorted(len(r.prompt) for r in reqs)} (left-padded to {s_max}), "
+        f"{LM_NEW_TOKENS} new tokens each; serve {wall:.3f} s")
+    log(f"dense {arch} on {card}: prefill {pf_s[0] * 1e3:.3f} ms -> "
+        f"{LM_REQUESTS * s_max / pf_s[0]:.1f} tokens/s computed; decode "
+        f"step p50 {p50:.3f} ms, p99 {np.percentile(dec_ms, 99):.3f} ms over "
+        f"{len(dec_ms)} steps of batch {LM_REQUESTS}; peak allocated "
+        f"{peak:.2f} GiB")
+    check(len(pf_s) == 1 and len(dec_ms) == LM_NEW_TOKENS - 1
+          and all(c[3] for c in calls),
+          f"dense {arch}: one prefill and {LM_NEW_TOKENS - 1} decode steps, "
+          f"every logit finite")
+    toks = np.stack([r.tokens for r in results])
+    check(toks.shape == (LM_REQUESTS, LM_NEW_TOKENS) and toks.min() >= 0
+          and toks.max() < cfg.vocab,
+          f"dense {arch}: tokens {toks.shape} within the true vocab "
+          f"[0, {cfg.vocab})")
+    check(not any(launches.values()),
+          f"dense {arch}: the path launched none of the port's CUDA kernels "
+          f"(attention, the MLP and the KV rings run on PyTorch ops): "
+          f"{launches}")
+
+    tokens = torch.zeros((LM_REQUESTS, s_max), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        tokens[i, s_max - len(r.prompt):] = torch.from_numpy(r.prompt)
+    tokens = tokens.to(dev)
+    with torch.inference_mode():
+        pf = profiled(lambda: plain_prefill(params, tokens))
+        _, caches, pos = plain_prefill(params, tokens)
+        cur = tokens[:, -1:]
+        dc = profiled(lambda: [plain_decode(params, cur, caches, pos + i)
+                               for i in range(2)])
+    profile_line(f"dense {arch} profile, one prefill", pf, pf_s[0] * 1e3)
+    profile_line(f"dense {arch} profile, two decode steps", dc, 2 * p50)
+    del engine, params, caches
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params,
+                prefill_ms=pf_s[0] * 1e3,
+                prefill_tokens_per_s=LM_REQUESTS * s_max / pf_s[0],
+                decode_ms=dec_ms, decode_p50_ms=p50, peak_gib=peak,
+                launches=launches,
+                prefill_device_idle=1 - pf["device_ms"] / pf["wall_ms"],
+                decode_device_idle=1 - dc["device_ms"] / dc["wall_ms"],
+                prefill_kernels=pf["launches"], decode_kernels=dc["launches"])
+
+
+def true_fan_in_(lm, cfg) -> None:
+    """Scale the attention projections of the LM params ``lm`` in place to
+    their true fan-in (d_model; heads x head_dim for ``wo``), as the CPU
+    tests draw them.  The reference's initialiser takes a 3-D leaf's
+    last-but-one dim (the heads) as its fan-in, so at full widths the
+    attention logits of a config without qk-norm or a softcap have a std
+    of ~100-300 and the softmax is one-hot: a float32 rounding difference
+    between two devices then picks another key in a few rows, and no band
+    holds."""
+    attn = lm["layers"]["attn"]
+    for w, ref_fan, fan in (("wq", cfg.n_heads, cfg.d_model),
+                            ("wk", cfg.n_kv_heads, cfg.d_model),
+                            ("wv", cfg.n_kv_heads, cfg.d_model),
+                            ("wo", cfg.head_dim, cfg.n_heads * cfg.head_dim)):
+        attn[w].mul_((ref_fan / fan) ** 0.5)
+
+
+def dense_check(dev, arch, layers, **kw) -> None:
+    """Phase 12 (c), one config: the full widths at ``layers`` layers in
+    float32 on the card against the CPU port on the same weights: the
+    prefill's last logits and caches, then DENSE_CHECK_DECODE decode
+    steps' logits and the caches after them (int8 ones decode from empty
+    caches: the reference's prefill builds unquantized ones)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              dtype="float32", **kw)
+    card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
+    true_fan_in_(card, cfg)
+    cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
+    g = torch.Generator().manual_seed(2)
+    n_dec = DENSE_CHECK_DECODE
+    tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_PROMPT + n_dec),
+                           generator=g, dtype=torch.int32)
+    max_len = CHECK_PROMPT + n_dec
+    int8 = cfg.kv_cache_dtype == "int8"
+    what = (f"{arch} full width, {layers} layers, float32"
+            f"{', int8 KV cache' if int8 else ''}, batch {CHECK_BATCH}")
+    errs = []
+
+    def caches_agree(cg, cc):
+        """(ok, max |d| of float K/V, int8 codes that differ by batch
+        row): positions bitwise, float K/V in the band, int8 codes within
+        1, bf16 scales within one bf16 ulp."""
+        worst, flips, ok = 0.0, torch.zeros(CHECK_BATCH, dtype=torch.long), True
+        for a, b in zip(cg, cc):
+            for k in a:
+                x, y = a[k].cpu(), b[k]
+                if k == "pos":
+                    ok &= torch.equal(x, y)
+                elif x.dtype == torch.int8:
+                    d = (x.int() - y.int()).abs()
+                    ok &= int(d.max()) <= 1
+                    flips += (d != 0).flatten(1).sum(1)
+                elif x.dtype == torch.bfloat16:
+                    ok &= bool(((x.float() - y.float()).abs()
+                                <= y.float().abs() * 2.0 ** -7).all())
+                else:
+                    e, good = close(x, y, DENSE_TOL)
+                    worst, ok = max(worst, e), ok and good
+        return ok, worst, flips
+
+    def check_caches(cg, cc, when):
+        ok, worst, _ = caches_agree(cg, cc)
+        check(ok, f"{what}: caches {when} card == CPU port: positions "
+              f"bitwise, float K/V within the band (max |d| {worst:.3e})")
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        if int8:
+            cg = T.init_decode_caches(cfg, CHECK_BATCH, max_len, device=dev)
+            cc = T.init_decode_caches(cfg, CHECK_BATCH, max_len,
+                                      device="cpu")
+            start = 0
+        else:
+            lg, cg, start = T.prefill(card, tokens[:, :CHECK_PROMPT].to(dev),
+                                      cfg, max_len, last_logits_only=True)
+            lc, cc, _ = T.prefill(cpu, tokens[:, :CHECK_PROMPT], cfg,
+                                  max_len, last_logits_only=True)
+            errs.append(close(lg, lc, DENSE_TOL))
+            check_caches(cg, cc, f"after a prefill of {CHECK_PROMPT} tokens")
+        flipped, codes_ok = [], True
+        for i in range(n_dec):
+            pos = start + i
+            tok = tokens[:, pos:pos + 1]
+            lg, cg = T.decode_step(card, tok.to(dev), cg, pos, cfg)
+            lc, cc = T.decode_step(cpu, tok, cc, pos, cfg)
+            if int8:
+                ok, _, flips = caches_agree(cg, cc)
+                codes_ok &= ok
+                flipped.append(int(flips.sum()))
+                # the card's codes carry over, so that a code one apart
+                # moves only the step that wrote it
+                for a, b in zip(cg, cc):
+                    for k in a:
+                        b[k].copy_(a[k])
+                # a row whose codes differ gets the int8 band, the rest
+                # DENSE_TOL
+                rows = [close(lg[r], lc[r],
+                              DENSE_INT8_TOL if flips[r] else DENSE_TOL)
+                        for r in range(CHECK_BATCH)]
+                errs.append((max(e for e, _ in rows),
+                             all(ok for _, ok in rows)))
+            else:
+                errs.append(close(lg, lc, DENSE_TOL))
+        if int8:
+            new = layers * 2 * CHECK_BATCH * cfg.n_kv_heads * cfg.head_dim
+            check(codes_ok and max(flipped) <= new // 1000,
+                  f"{what}: each step's int8 codes within 1 of the CPU's, "
+                  f"one apart in at most 1 in 1000 of its {new} new cells "
+                  f"(by step: {flipped}), bf16 scales within one bf16 ulp, "
+                  f"positions bitwise")
+        else:
+            check_caches(cg, cc, f"after {n_dec} decode steps")
+    check(all(ok for _, ok in errs),
+          f"{what}: {'' if int8 else f'the prefill last logits and '}"
+          f"{n_dec} decode steps' logits card == CPU port within rtol = "
+          f"{DENSE_TOL}, atol = {DENSE_TOL} x max(1, max|CPU|)"
+          f"{f' ({DENSE_INT8_TOL} on a row whose codes differ in that step)' if int8 else ''}"
+          f" (max |d| {[f'{e:.3e}' for e, _ in errs]}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+
+def dense_train_check(dev) -> None:
+    """Phase 12 (c), the gradient check: qwen3-8b's widths at 2 layers in
+    float32, one step's gradients (batch 2 x 300, 2 microbatches) on the
+    card against the CPU port, with phase 11 (b)'s exact-zero rule (a CPU
+    run at 1 thread, whose sums run in another order, is taken only when
+    a zero of the first CPU run is nonzero on the card: a cell that moves
+    between the two is a cancellation)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    layers, batch, seq = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=layers,
+                              dtype="float32", n_microbatches=2)
+    check(cfg.fsdp, f"{DENSE_ARCH} trains with its config's fsdp=True and no "
+          f"mesh (the reference ignores fsdp without one)")
+    card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
+    cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
+    tokens, labels = (torch.from_numpy(v) for v in
+                      next(TokenPipeline(cfg.vocab, batch, seq, seed=1)))
+    fn = loop.make_grad_fn(cfg)
+    t0 = time.perf_counter()
+    grads, met = fn(card, tokens.to(dev), labels.to(dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cgrads, cmet = fn(cpu, tokens, labels)
+    t2 = time.perf_counter()
+    want = M.flatten(cgrads)
+    moved = sum(int(((want[k] == 0) & (g.cpu() != 0)).sum())
+                for k, g in M.flatten(grads).items())
+    again = None
+    if moved:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        again, _ = fn(cpu, tokens, labels)
+        torch.set_num_threads(threads)
+    t3 = time.perf_counter()
+    grads_agree(met["loss"], grads, cmet["loss"], cgrads,
+                f"{DENSE_ARCH} full width, {layers} layers, float32, batch "
+                f"{batch} x {seq} in 2 microbatches, one train step's "
+                f"gradients (card {(t1 - t0) * 1e3:.0f} ms, CPU "
+                f"{(t2 - t1) * 1e3:.0f} ms; {moved} zero(s) of the CPU run "
+                f"nonzero on the card"
+                f"{f', rechecked at 1 thread in {t3 - t2:.1f} s' if moved else ''})",
+                cpu_again=again)
+
+
+def event_lm_phase(dev, card) -> dict:
+    """Phase 12 (d): the event-LM example's protocol on the card and on
+    the CPU port from the same seed."""
+    from repro_torch.train import event_lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = event_lm.run(EVENT_LM_STEPS, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = event_lm.run(EVENT_LM_STEPS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    curve = [round(v, 4) for v in on_card["losses"]]
+    log(f"event-LM on {card}: {EVENT_LM_STEPS} steps, "
+        f"{1e3 * on_card['s_per_step']:.2f} ms per step "
+        f"({card_s:.2f} s with the data and weights; CPU port "
+        f"{1e3 * on_cpu['s_per_step']:.2f} ms per step, {cpu_s:.2f} s); "
+        f"losses {curve}")
+    log(f"event-LM: held-out accuracy {on_card['accuracy']:.2f} on the card, "
+        f"{on_cpu['accuracy']:.2f} on the CPU port (the reference's split "
+        f"holds out the first fifth of the streams: 5 of class 0, which no "
+        f"training batch holds, and 1 of class 1)")
+    e0 = abs(on_card["losses"][0] - on_cpu["losses"][0])
+    check(np.isfinite(on_card["losses"]).all()
+          and e0 <= 1e-5 * abs(on_cpu["losses"][0]),
+          f"event-LM: every loss finite; step 0's {on_card['losses'][0]:.7f} "
+          f"within 1e-5 relative of the CPU port's "
+          f"{on_cpu['losses'][0]:.7f}")
+    event_lm_grads(dev)
+    return dict(losses=on_card["losses"], cpu_losses=on_cpu["losses"],
+                accuracy=on_card["accuracy"], cpu_accuracy=on_cpu["accuracy"],
+                ms_per_step=1e3 * on_card["s_per_step"])
+
+
+def event_lm_grads(dev) -> None:
+    """Phase 12 (d), the gradient check: step 0's batch at the example's
+    weights, the attention projections at their true fan-in
+    (``true_fan_in_``; at the example's own weights the reference's
+    gradients move by more than the band when the weights move by half an
+    ulp: ``tests/test_torch_event_lm.py``), card against the CPU port
+    with phase 11 (b)'s exact-zero rule."""
+    from repro_torch.models import module as M
+    from repro_torch.train import event_lm
+    from repro_torch.train.grad import value_and_grad
+
+    classes, batch = 6, 8          # the example's defaults, as run() has them
+    cfg = event_lm.config(classes=classes)
+    grad_fn = value_and_grad(
+        lambda p, x, y: event_lm.apply(p, x, y, cfg, classes), has_aux=True)
+
+    def step0(device):
+        params = event_lm.init(cfg, device)
+        true_fan_in_(params["lm"], cfg)
+        saes, labels, n_test = event_lm.dataset(classes, device)
+        sel = torch.from_numpy(np.random.default_rng(0).choice(
+            np.arange(n_test, len(labels)), batch)).to(device)
+        (loss, _), grads = grad_fn(params, saes[sel], labels[sel])
+        return float(loss), grads
+
+    t0 = time.perf_counter()
+    loss, grads = step0(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_loss, cpu_grads = step0("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the sums in their plain sequential order
+    _, again = step0("cpu")
+    torch.set_num_threads(threads)
+    t2 = time.perf_counter()
+    check(any(k.startswith("frontend.") for k in M.flatten(grads)),
+          "event-LM: the gradients reach the event frontend")
+    grads_agree(loss, grads, cpu_loss, cpu_grads,
+                f"event-LM step 0's batch, attention projections at their "
+                f"true fan-in: loss and gradients through the decoder, the "
+                f"embeds and the event frontend (card {(t1 - t0) * 1e3:.0f} "
+                f"ms, CPU at {threads} and at 1 thread {(t2 - t1) * 1e3:.0f} "
+                f"ms)", cpu_again=again)
+
+
+def dense_phase(dev, card) -> dict:
+    """Phase 12: the dense LM family on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    times, served = {}, {}
+    for arch in DENSE_SERVE:
+        t0 = time.perf_counter()
+        served[arch] = dense_serve(dev, card, arch)
+        times[arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch, layers in DENSE_CHECK:
+        dense_check(dev, arch, layers)
+    dense_check(dev, DENSE_ARCH, 2, kv_cache_dtype="int8")
+    times["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_train_check(dev)
+    times["train check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = event_lm_phase(dev, card)
+    times["event_lm"] = time.perf_counter() - t0
+    log(f"dense: phase 12 seconds by part "
+        f"{ {k: round(v, 1) for k, v in times.items()} }")
+    return dict(served=served, event_lm=ev, seconds=times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -3280,12 +3747,16 @@ def main() -> int:
     trn = train_phase(dev, card)
     torch.cuda.synchronize()
     phase_s["lm training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = dense_phase(dev, card)
+    torch.cuda.synchronize()
+    phase_s["dense lm"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
                     "training": {**trn, "full": {
                         k: v for k, v in trn["full"].items()
-                        if k != "launches"}}}, default=str))
+                        if k != "launches"}}, "dense": dense}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -3301,6 +3772,9 @@ def main() -> int:
                             shard_path_launches_per_shard=[
                                 per.get(name, 0)
                                 for per in sh["launches_per_shard"]],
+                            dense_path_launches=sum(
+                                r["launches"].get(name, 0)
+                                for r in dense["served"].values()),
                             kernel_ms=row["ms"], **row))
         if name == "decay_scan":
             kernels[-1].update(

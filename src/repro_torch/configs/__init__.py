@@ -8,14 +8,17 @@ queue 1).
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec  # noqa: F401
 
 _ARCH_MODULES = {
+    "gemma2-27b": "gemma2_27b",
+    "glm4-9b": "glm4_9b",
+    "gemma3-4b": "gemma3_4b",
+    "qwen3-8b": "qwen3_8b",
     "mamba2-2.7b": "mamba2_2p7b",
 }
 
 #: architectures of the reference's registry not ported yet
 NOT_PORTED = (
-    "kimi-k2-1t-a32b", "grok-1-314b", "musicgen-large", "gemma2-27b",
-    "glm4-9b", "gemma3-4b", "qwen3-8b", "internvl2-26b", "hymba-1.5b",
-    "isc-qvga",
+    "kimi-k2-1t-a32b", "grok-1-314b", "musicgen-large", "internvl2-26b",
+    "hymba-1.5b", "isc-qvga",
 )
 
 ARCH_NAMES = list(_ARCH_MODULES)

@@ -7,10 +7,14 @@ with ``.``, and maps one to one onto the port's tensors and back:
     generations, which key the analog noise draws, included);
   * an ``ISCArray``'s ``ISCState`` (``sae``, ``droop``, ``params.<name>``
     as planes or 0-d scalars);
-  * an LM's parameters (``embed``, ``layers.ln1``, ``layers.ssm.<name>``
+  * an LM's parameters (``embed``, ``layers.ln1``, ``layers.ln2``,
+    ``layers.attn.{wq,wk,wv,wo,q_norm,k_norm}``,
+    ``layers.mlp.{wi_gate,wi_up,wo}``, ``layers.ssm.<name>``, each
     stacked on a leading layer dim, ``ln_f``, ``unembed``);
-  * an LM's decode caches, one dict per layer (``ssm.conv.x``,
-    ``ssm.conv.b``, ``ssm.conv.c``, ``ssm.state``);
+  * an LM's decode caches, one dict per layer: an attention layer's
+    ``k``, ``v``, ``pos`` (with ``k_scale``, ``v_scale`` for an int8
+    cache), an SSM layer's ``ssm.conv.x``, ``ssm.conv.b``,
+    ``ssm.conv.c``, ``ssm.state``;
   * a ``Classify`` head's CNN parameters, whose paths are joined with
     ``/`` instead (``inc1/b3a/w``), as a checkpoint names its leaves;
   * any model's parameters against its ``ParamDef`` tree (the UNet's,
@@ -34,7 +38,6 @@ from repro_torch.core.isc_array import ISCState
 from repro_torch.core import time_surface as ts
 from repro_torch.device import resolve_device
 from repro_torch.models import module as M
-from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.serve import heads
 from repro_torch.serve.ts_engine import EngineState, ReadoutCache
@@ -191,20 +194,28 @@ def lm_params_to_numpy(params) -> Dict[str, np.ndarray]:
 def decode_caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]],
                              cfg: ModelConfig, device) -> List[dict]:
     """Per-layer decode caches on ``device`` from the reference's
-    ``[{leaf path: array}]``: the conv rings in the activation dtype, the
-    SSM state in float32."""
-    want = M.flatten({"ssm": SSM.init_ssm_cache(cfg, 1, cfg.activation_dtype,
-                                                "cpu")})
+    ``[{leaf path: array}]``, each leaf in the dtype ``init_decode_caches``
+    gives it: an SSM layer's conv rings in the activation dtype and its
+    state in float32; an attention layer's ``k`` / ``v`` in the
+    activation dtype, or int8 with bf16 scales for an int8 cache, and
+    ``pos`` int32.  A prefilled int8 config's caches hold unquantized
+    ``k`` / ``v`` and no scales (the reference's prefill builds them so)
+    and cross as such."""
     if len(caches) != cfg.n_layers:
         raise ValueError(f"{len(caches)} layer caches for "
                          f"{cfg.n_layers} layers")
     out = []
-    for layer in caches:
+    for layer, like in zip(caches, T.init_decode_caches(cfg, 1, 1,
+                                                        device="cpu")):
+        want = {k: t.dtype for k, t in M.flatten(like).items()}
+        if "k_scale" in want and set(layer) == {"k", "v", "pos"}:
+            want = {"k": cfg.activation_dtype, "v": cfg.activation_dtype,
+                    "pos": torch.int32}
         if set(layer) != set(want):
             raise KeyError(f"cache leaf paths {sorted(layer)} != "
                            f"{sorted(want)}")
-        out.append(M.unflatten({k: _tensor(layer[k], want[k].dtype, device)
-                                for k in want}))
+        out.append(M.unflatten({k: _tensor(layer[k], dt, device)
+                                for k, dt in want.items()}))
     return out
 
 

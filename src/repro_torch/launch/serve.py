@@ -27,6 +27,8 @@
         --arch mamba2-2.7b --requests 4 --new-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve tokens \\
         --arch mamba2-2.7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve tokens \\
+        --arch qwen3-8b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve sensors \\
         --sensors 4 --hw 240x320 --classify 10
     PYTHONPATH=src python -m repro_torch.launch.serve sensors \\

@@ -2,6 +2,12 @@
 
     python -m repro_torch.launch.train --arch mamba2-2.7b --reduced \\
         --steps 20 --batch 8 --seq 128 --ckpt-dir /tmp/run1
+    python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
+        --steps 3 --device cpu
+
+``--arch`` takes the port's registry: ``mamba2-2.7b`` and the dense
+``qwen3-8b``, ``gemma3-4b``, ``gemma2-27b`` and ``glm4-9b`` (whose
+``fsdp=True`` changes nothing without a mesh, as in the reference).
 
 Runs on the CUDA device unless ``--device`` names another (``--device
 cpu`` runs the plain PyTorch versions on the CPU).  ``--platform`` maps

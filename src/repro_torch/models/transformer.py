@@ -1,26 +1,38 @@
-"""Decoder LM stack, the ``ssm`` family (Mamba-2).
+"""Decoder LM stack: the ``dense`` family (GQA attention and the gated
+MLP) and the ``ssm`` family (Mamba-2).
 
-The port of ``repro.models.transformer`` as far as the Mamba-2 serving
-and training paths need it: parameter definitions, embedding, the
-full-sequence ``forward`` and its ``loss_fn``, ``prefill`` (which also
-builds the decode caches) and the O(1) ``decode_step``.  Layers run as an
-unrolled Python loop over the stacked parameters (no scan or mesh); under
-autograd with ``cfg.remat`` each layer is a non-reentrant
-``torch.utils.checkpoint`` that keeps only its input and recomputes the
-rest in the backward, as the reference's per-layer ``nothing_saveable``
-remat does.  Any other family raises ``NotImplementedError`` (attention,
-MoE and hybrid stacks are ROADMAP work).
+The port of ``repro.models.transformer`` as far as these two families
+need it: parameter definitions, embedding (with a frontend's ``embeds``
+prepended), the full-sequence ``forward`` and its ``loss_fn``,
+``prefill`` (which also builds the decode caches) and ``decode_step``.
+Layers run as an unrolled Python loop over the stacked parameters (no
+scan or mesh); under autograd with ``cfg.remat`` each layer is a
+non-reentrant ``torch.utils.checkpoint`` that keeps only its input and
+recomputes the rest in the backward, as the reference's per-layer
+``nothing_saveable`` remat does.  The ``moe`` and ``hybrid`` families
+and expert layers raise ``NotImplementedError`` (ROADMAP.md, queue 1
+item 3).
+
+Decode caches, one dict per layer: an attention layer keeps ``k``, ``v``
+(B, S, K, D) and ``pos`` (B, S) int32, a ring of ``min(window, max_len)``
+slots for a local layer (slot ``p % S`` holds position ``p``; an empty
+slot's position is -1) and ``max_len`` for a global one; with
+``kv_cache_dtype="int8"`` ``k`` and ``v`` are int8 with bf16
+``k_scale`` / ``v_scale`` (B, S, K, 1).  ``decode_step`` writes the new
+token into the caches it is given, in place, and returns them.  An SSM
+layer keeps ``{"ssm": {"conv": {x, b, c}, "state"}}``.
 
 Parameters are a nested dict of float32 master tensors with the
-reference's leaf paths (``embed``, ``layers.ln1``, ``layers.ssm.z_proj``,
-``ln_f``, ``unembed``), each cast to the activation dtype where it is
-used.  ``params["layers"]`` is either the stacked dict or, from
+reference's leaf paths (``embed``, ``layers.ln1``, ``layers.attn.wq``,
+``layers.mlp.wi_gate``, ``layers.ssm.z_proj``, ``ln_f``, ``unembed``),
+each cast to the activation dtype where it is used.
+``params["layers"]`` is either the stacked dict or, from
 ``unstack_layers``, a list of per-layer dicts of views, which a trainer
 differentiates leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,24 +40,39 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import f32, resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import module as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.module import ParamDef, stack_layer_defs
 
 
-def _require_ssm(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+def _refuse_unported(cfg: ModelConfig) -> None:
+    if cfg.family in ("moe", "hybrid") or cfg.n_experts:
         raise NotImplementedError(
-            f"repro_torch serves the 'ssm' family only; {cfg.name!r} is "
-            f"{cfg.family!r} (see ROADMAP.md, queue 1)")
+            f"repro_torch ports the dense and ssm families; {cfg.name!r} is "
+            f"{cfg.family!r} with {cfg.n_experts} experts (the MoE and "
+            f"hybrid families are ROADMAP.md, queue 1 item 3)")
 
 
 def _layer_defs(cfg: ModelConfig) -> dict:
-    _require_ssm(cfg)
+    _refuse_unported(cfg)
     d = cfg.d_model
-    return {"ln1": ParamDef((d,), ("embed",), init="zeros"),
-            "ssm": SSM.ssm_defs(cfg)}
+    defs = {"ln1": ParamDef((d,), ("embed",), init="zeros")}
+    if cfg.family == "ssm":
+        defs["ssm"] = SSM.ssm_defs(cfg)
+        return defs
+    defs["attn"] = L.attention_defs(cfg)
+    defs["ln2"] = ParamDef((d,), ("embed",), init="zeros")
+    if cfg.d_ff:
+        defs["mlp"] = L.mlp_defs(cfg)
+    return defs
+
+
+def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
+    """Each layer's attention window (None = global)."""
+    return [None if k in ("global", "hybrid_global") else cfg.window
+            for k in cfg.layer_kinds()]
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -86,12 +113,17 @@ def unstack_layers(params) -> dict:
     return {**params, "layers": [layer_params(params, i) for i in range(n)]}
 
 
-def embed_tokens(params, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of the embedding in the activation dtype (``F.embedding``,
-    whose backward sums duplicate tokens in a fixed order)."""
-    return F.embedding(tokens.long(), params["embed"]).to(
-        cfg.activation_dtype)
+    whose backward sums duplicate tokens in a fixed order), with a
+    frontend's ``embeds`` (B, F, D) prepended when the config has a
+    frontend (without one, ``embeds`` is ignored, as in the
+    reference)."""
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.activation_dtype)
+    if cfg.frontend != "none" and embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -105,36 +137,42 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    y, _ = SSM.ssm_block(lp["ssm"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                         cfg)
-    return x + y
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + L.mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _layer(lp, x: torch.Tensor, cfg: ModelConfig, kind: str,
+           positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        y, _ = SSM.ssm_block(lp["ssm"], h, cfg)
+        return x + y
+    x = x + L.attention_block(lp["attn"], h, cfg, kind, positions)
+    return _ffn(lp, x, cfg)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             embeds: Optional[torch.Tensor] = None, mesh=None,
             unroll: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (logits (B, S, V) float32, aux losses dict).  ``unroll`` is
-    accepted and changes nothing (the layers are a Python loop already)."""
-    _require_ssm(cfg)
-    if embeds is not None:
-        raise NotImplementedError(
-            "embeds: repro_torch ports no modality frontend for the LM "
-            "stack (see ROADMAP.md, queue 1)")
+    """Returns (logits (B, F + S, V) float32, aux losses dict), F the
+    frontend positions of ``embeds``.  ``unroll`` is accepted and changes
+    nothing (the layers are a Python loop already)."""
+    _refuse_unported(cfg)
     if mesh is not None:
         raise NotImplementedError(
             "mesh: repro_torch runs the LM stack on one device (model "
             "sharding is ROADMAP.md, queue 1)")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
         lp = layer_params(params, i)
         if remat:
-            x = checkpoint(_layer, lp, x, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_layer, lp, x, cfg, kind, positions,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer(lp, x, cfg)
+            x = _layer(lp, x, cfg, kind, positions)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, x, cfg), {"lb_loss": zero, "z_loss": zero}
@@ -144,8 +182,9 @@ def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ModelConfig, embeds=None, mesh=None,
             lb_coef: float = 0.01, z_coef: float = 1e-3):
     """Mean next-token NLL from a float32 ``log_softmax`` of the token
-    positions' logits, plus ``lb_coef * lb_loss + z_coef * z_loss``.
-    Returns ``(total, {"loss", "lb_loss", "z_loss"})``."""
+    positions' logits (a frontend's positions predict nothing), plus
+    ``lb_coef * lb_loss + z_coef * z_loss``.  Returns ``(total, {"loss",
+    "lb_loss", "z_loss"})``."""
     logits, aux = forward(params, tokens, cfg, embeds=embeds, mesh=mesh)
     tok_logits = logits[:, -tokens.shape[1]:, :]
     lp = torch.log_softmax(tok_logits.to(torch.float32), dim=-1)
@@ -158,53 +197,164 @@ def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
                    "z_loss": aux["z_loss"]}
 
 
+# ------------------------------------------------------------- serving
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization per (token, head) of K or V: the codes
+    ``round(x / scale)`` (half to even) clipped to [-127, 127], and the
+    scale ``max(max|x| / 127, 1e-8)`` in bf16."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(-1, keepdim=True) / f32(127.0, x.device)
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
+
+
+def _cache_len(window: Optional[int], max_len: int) -> int:
+    return max_len if window is None else min(window, max_len)
+
+
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=None, device=None) -> List[dict]:
-    """Per-layer cache dicts ``{"ssm": {"conv": {x, b, c}, "state"}}`` on
-    ``device`` (default: the CUDA device).  ``max_len`` sizes attention
-    caches, which the ssm family has none of."""
-    _require_ssm(cfg)
+    """Per-layer empty cache dicts (see the module docstring) on
+    ``device`` (default: the CUDA device; raises when there is none)."""
+    _refuse_unported(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    return [{"ssm": SSM.init_ssm_cache(cfg, batch, dtype, device)}
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for window in layer_windows(cfg):
+        if cfg.family == "ssm":
+            caches.append({"ssm": SSM.init_ssm_cache(cfg, batch, dtype,
+                                                     device)})
+            continue
+        s = _cache_len(window, max_len)
+        kh, hd = cfg.n_kv_heads, cfg.head_dim
+        z = lambda dt, last=hd: torch.zeros((batch, s, kh, last), dtype=dt,
+                                            device=device)
+        if cfg.kv_cache_dtype == "int8":
+            c = {"k": z(torch.int8), "v": z(torch.int8),
+                 "k_scale": z(torch.bfloat16, 1),
+                 "v_scale": z(torch.bfloat16, 1)}
+        else:
+            c = {"k": z(dtype), "v": z(dtype)}
+        c["pos"] = torch.full((batch, s), -1, dtype=torch.int32,
+                              device=device)
+        caches.append(c)
+    return caches
+
+
+def _decode_attn(ap, h: torch.Tensor, c: dict, position: int,
+                 positions: torch.Tensor, cfg: ModelConfig,
+                 window: Optional[int]) -> torch.Tensor:
+    """The attention branch of one decode step: the token's K and V go
+    into slot ``position % S`` of the layer's cache ``c`` (in place), then
+    the query attends over the cache.  ``positions`` is ``position`` as a
+    (1,) tensor on the data's device."""
+    q, k, v = L.attention_qkv(ap, h, cfg, positions)
+    slot = position % c["k"].shape[1]
+    if cfg.kv_cache_dtype == "int8":
+        if c["k"].dtype != torch.int8:
+            raise TypeError(
+                f"an int8 kv cache decodes from init_decode_caches' int8 "
+                f"layout; this cache holds {c['k'].dtype} K/V (prefill "
+                f"builds unquantized caches, as the reference's does)")
+        (c["k"][:, slot], c["k_scale"][:, slot]) = kv_quantize(k[:, 0])
+        (c["v"][:, slot], c["v_scale"][:, slot]) = kv_quantize(v[:, 0])
+        k_full = kv_dequantize(c["k"], c["k_scale"], h.dtype)
+        v_full = kv_dequantize(c["v"], c["v_scale"], h.dtype)
+    else:
+        c["k"][:, slot] = k[:, 0]
+        c["v"][:, slot] = v[:, 0]
+        k_full, v_full = c["k"], c["v"]
+    c["pos"][:, slot] = position
+    out = L.decode_attention(q, k_full, v_full, c["pos"], position,
+                             window=window, softcap=cfg.attn_logit_softcap)
+    return L.attention_out(out, ap["wo"])
 
 
 def decode_step(params, tokens: torch.Tensor, caches: List[dict], position,
                 cfg: ModelConfig):
-    """One token for the whole batch.  ``tokens`` (B, 1); ``position``,
-    the absolute position of this token, is unused by the ssm family.
-    Returns (logits (B, 1, V), caches)."""
-    _require_ssm(cfg)
+    """One token for the whole batch.  ``tokens`` (B, 1); ``position``
+    (an int) is the absolute position of this token.  Attention caches are
+    updated in place.  Returns (logits (B, 1, V), caches)."""
+    _refuse_unported(cfg)
+    position = int(position)
     x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(position, position + 1, device=x.device)
     new_caches = []
-    for i in range(cfg.n_layers):
+    for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
-        c = caches[i]["ssm"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, (conv, state) = SSM.ssm_decode_step(lp["ssm"], h, cfg, c["conv"],
-                                               c["state"])
-        x = x + y
-        new_caches.append({"ssm": {"conv": conv, "state": state}})
+        if cfg.family == "ssm":
+            c = caches[i]["ssm"]
+            y, (conv, state) = SSM.ssm_decode_step(lp["ssm"], h, cfg,
+                                                   c["conv"], c["state"])
+            x = x + y
+            new_caches.append({"ssm": {"conv": conv, "state": state}})
+            continue
+        x = x + _decode_attn(lp["attn"], h, caches[i], position, positions,
+                             cfg, window)
+        x = _ffn(lp, x, cfg)
+        new_caches.append(caches[i])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, x, cfg), new_caches
 
 
+def _fill_ring(k: torch.Tensor, v: torch.Tensor, s_total: int,
+               s_cache: int) -> dict:
+    """The prefilled K/V (B, S, K, D) as a cache of ``s_cache`` slots whose
+    slot ``p % s_cache`` holds position ``p``: the whole prompt padded
+    with empty slots (position -1), or its last ``s_cache`` positions
+    rolled into place."""
+    b = k.shape[0]
+    pos = torch.arange(s_total, dtype=torch.int32, device=k.device)
+    if s_total <= s_cache:
+        pad = s_cache - s_total
+        kk = F.pad(k, (0, 0, 0, 0, 0, pad))
+        vv = F.pad(v, (0, 0, 0, 0, 0, pad))
+        pp = F.pad(pos, (0, pad), value=-1)
+    else:
+        tail = s_total - s_cache
+        shift = tail % s_cache
+        kk = torch.roll(k[:, tail:], shift, dims=1)
+        vv = torch.roll(v[:, tail:], shift, dims=1)
+        pp = torch.roll(pos[tail:], shift)
+    return {"k": kk, "v": vv, "pos": pp[None].expand(b, s_cache).clone()}
+
+
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            embeds: Optional[torch.Tensor] = None,
             last_logits_only: bool = False):
-    """Forward pass that also builds the decode caches (each layer's conv
-    ring and SSM state).  ``last_logits_only`` unembeds just the final
-    position.  Returns (logits, caches, next_position)."""
-    _require_ssm(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    """Forward pass that also builds the decode caches: each attention
+    layer's K/V as a ring (``_fill_ring``; unquantized whatever
+    ``kv_cache_dtype`` says, as in the reference), each SSM layer's conv
+    ring and state.  Positions count ``embeds``' frontend positions first.
+    ``last_logits_only`` unembeds just the final position.  Returns
+    (logits, caches, next_position)."""
+    _refuse_unported(cfg)
+    x = embed_tokens(params, tokens, cfg, embeds)
     s_total = x.shape[1]
-    caches: List[Dict[str, Any]] = []
-    for i in range(cfg.n_layers):
+    positions = torch.arange(s_total, device=x.device)
+    caches: List[dict] = []
+    for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg)
-        x = x + y
-        caches.append({"ssm": {"conv": conv, "state": state}})
+        if cfg.family == "ssm":
+            y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg)
+            x = x + y
+            caches.append({"ssm": {"conv": conv, "state": state}})
+            continue
+        ap = lp["attn"]
+        q, k, v = L.attention_qkv(ap, h, cfg, positions)
+        out = L.blockwise_attention(q, k, v, causal=True, window=window,
+                                    softcap=cfg.attn_logit_softcap)
+        x = _ffn(lp, x + L.attention_out(out, ap["wo"]), cfg)
+        caches.append(_fill_ring(k, v, s_total, _cache_len(window, max_len)))
     if last_logits_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)

@@ -14,8 +14,9 @@ one by one (``transformer.unstack_layers``): the gradient of the stacked
 tensor is its layers' gradients side by side, as the reference's scan
 stacks them.
 
-A mesh, ``fsdp`` and ``fsdp_gather_once`` raise ``NotImplementedError``
-(model sharding is ROADMAP.md, queue 1).
+A mesh raises ``NotImplementedError`` (model sharding is ROADMAP.md,
+queue 1).  ``fsdp`` and ``fsdp_gather_once`` change nothing without a
+mesh, as in the reference, which shards only over one.
 """
 from __future__ import annotations
 
@@ -53,26 +54,27 @@ class TrainerConfig:
     straggler_threshold: float = 3.0
 
 
-def _refuse_sharding(cfg: ModelConfig, mesh) -> None:
-    if mesh is not None or cfg.fsdp or cfg.fsdp_gather_once:
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
         raise NotImplementedError(
-            "mesh / fsdp / fsdp_gather_once: repro_torch trains on one "
-            "device; model sharding is ROADMAP.md, queue 1")
+            "mesh: repro_torch trains on one device; model sharding is "
+            "ROADMAP.md, queue 1")
 
 
 def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
-    """``(params, tokens, labels) -> (grads, metrics)``: the gradient of
-    ``loss_fn`` averaged over ``cfg.n_microbatches`` strided microbatches
-    (microbatch i takes rows i, i + n, i + 2n, ...), summed from zeros in
+    """``(params, tokens, labels, embeds=None) -> (grads, metrics)``: the
+    gradient of ``loss_fn`` averaged over ``cfg.n_microbatches`` strided
+    microbatches (microbatch i takes rows i, i + n, i + 2n, ... of the
+    tokens, the labels and a frontend's ``embeds``), summed from zeros in
     ``cfg.accum_dtype`` and divided by n in float32, and the metrics
     averaged the same way, as the reference's step computes them."""
-    _refuse_sharding(cfg, mesh)
+    _refuse_mesh(mesh)
     acc_dt = torch.bfloat16 if cfg.accum_dtype == "bfloat16" else torch.float32
 
-    def lf(p, tokens, labels):
-        return T.loss_fn(p, tokens, labels, cfg)
+    def lf(p, tokens, labels, embeds):
+        return T.loss_fn(p, tokens, labels, cfg, embeds=embeds)
 
-    def grads_and_metrics(params, tokens, labels):
+    def grads_and_metrics(params, tokens, labels, embeds=None):
         n = max(cfg.n_microbatches, 1)
         b = tokens.shape[0]
         if b % n:
@@ -89,7 +91,8 @@ def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
         dev = tokens.device
         mets = {k: f32(0.0, dev) for k in _METRICS}
         for i in range(n):
-            (_, m), g = vg(layers, tokens[i::n], labels[i::n])
+            (_, m), g = vg(layers, tokens[i::n], labels[i::n],
+                           None if embeds is None else embeds[i::n])
             if n == 1:
                 return acc, m
             if into is None:
@@ -110,14 +113,14 @@ def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None
                     ) -> Callable:
-    """``(params, opt_state, tokens, labels, step) -> (params, opt_state,
-    metrics)``.  The parameters and state are updated in place and
+    """``(params, opt_state, tokens, labels, step, embeds=None) ->
+    (params, opt_state, metrics)``.  The parameters and state are updated in place and
     returned (the inputs are consumed, as the reference's donated buffers
     are)."""
     grads_and_metrics = make_grad_fn(cfg, mesh)
 
-    def train_step(params, opt_state, tokens, labels, step):
-        grads, metrics = grads_and_metrics(params, tokens, labels)
+    def train_step(params, opt_state, tokens, labels, step, embeds=None):
+        grads, metrics = grads_and_metrics(params, tokens, labels, embeds)
         opt.update_(grads, opt_state, params, step)
         return params, opt_state, metrics
 
@@ -132,7 +135,7 @@ class Trainer:
     def __init__(self, cfg: ModelConfig,
                  tcfg: TrainerConfig = TrainerConfig(), mesh=None,
                  seed: int = 0, device=None):
-        _refuse_sharding(cfg, mesh)
+        _refuse_mesh(mesh)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.device = resolve_device(device)
         sched = Schedule(tcfg.lr, tcfg.warmup_steps, tcfg.decay_steps)

@@ -345,6 +345,54 @@ def test_init_params_on_card_matches_cpu(cuda):
         assert int(ref.ulp_distance(card[k].cpu(), v).max()) <= 4, k
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-4b"])
+def test_reduced_dense_lm_on_card_matches_cpu_port(cuda, arch):
+    """The dense family at ``reduced()`` (gemma3-4b at 6 layers) on the
+    card against the CPU port: a prefill past the window of 32 (the local
+    rings wrap) and 6 decode steps, logits and caches in the band of
+    ``test_reduced_lm_on_card_matches_cpu_port``, positions bitwise, and
+    none of the port's kernels launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced(
+        **({"n_layers": 6} if arch == "gemma3-4b" else {}))
+    cpu = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), "cpu")
+    # attention projections at their true fan-in, as chip_smoke.dense_check
+    # scales them (at the initialiser's the softmax is one-hot)
+    attn = cpu["layers"]["attn"]
+    for w, ref_fan, fan in (("wq", cfg.n_heads, cfg.d_model),
+                            ("wk", cfg.n_kv_heads, cfg.d_model),
+                            ("wv", cfg.n_kv_heads, cfg.d_model),
+                            ("wo", cfg.head_dim, cfg.n_heads * cfg.head_dim)):
+        attn[w].mul_((ref_fan / fan) ** 0.5)
+    card = M.unflatten({k: v.to(cuda) for k, v in M.flatten(cpu).items()})
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (3, 46), generator=g)
+
+    def close(a, b):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale)
+
+    _lib.reset_launches()
+    with torch.inference_mode():
+        lg, cg, pos = T.prefill(card, tokens[:, :40].to(cuda), cfg, 48)
+        lc, cc, _ = T.prefill(cpu, tokens[:, :40], cfg, 48)
+        close(lg, lc)
+        for i in range(40, 46):
+            lg, cg = T.decode_step(card, tokens[:, i:i + 1].to(cuda), cg, i,
+                                   cfg)
+            lc, cc = T.decode_step(cpu, tokens[:, i:i + 1], cc, i, cfg)
+            close(lg, lc)
+    for a, b in zip(cg, cc):
+        assert torch.equal(a["pos"].cpu(), b["pos"])
+        close(a["k"], b["k"])
+        close(a["v"], b["v"])
+    assert not any(_lib.LAUNCHES.values())
+
+
 def test_reduced_lm_on_card_matches_cpu_port(cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import module as M

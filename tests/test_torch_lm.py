@@ -282,13 +282,15 @@ def test_config_registry_matches_reference():
                 == jmodule.count_params(jT.param_defs(jcfg)))
         assert tT.padded_vocab(c) == jT.padded_vocab(jcfg)
     assert tT.padded_vocab(tc) == 50432
-    for name in ("gemma3-4b", "qwen3-8b", "hymba-1.5b", "isc-qvga"):
+    for name in ("kimi-k2-1t-a32b", "grok-1-314b", "musicgen-large",
+                 "internvl2-26b", "hymba-1.5b", "isc-qvga"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget_config(name)
     with pytest.raises(KeyError):
         tget_config("no-such-arch")
-    with pytest.raises(NotImplementedError):
-        tT.param_defs(dataclasses.replace(TCFG, family="dense"))
+    for family in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            tT.param_defs(dataclasses.replace(TCFG, family=family))
 
 
 def test_lm_convert_round_trips(weights):
@@ -389,5 +391,5 @@ def test_launch_tokens_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("req ") == 2 and "6 tokens in" in out and "CPU" in out
     with pytest.raises(NotImplementedError):
-        serve.main(["tokens", "--arch", "gemma3-4b", "--reduced",
+        serve.main(["tokens", "--arch", "hymba-1.5b", "--reduced",
                     "--device", "cpu"])

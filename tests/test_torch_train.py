@@ -51,6 +51,7 @@ from repro.train import optimizer as jopt
 from repro_torch import convert
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import fault
 from repro_torch.events.pipeline import TokenPipeline
 from repro_torch.kernels import ops as tops
@@ -71,8 +72,17 @@ SCAN_TOL = 2e-5     # decay_scan's band in tests/test_kernels.py
 GRAD_TOL = 1e-4
 JCFG = jget_config("mamba2-2.7b").reduced()
 TCFG = tget_config("mamba2-2.7b").reduced()
-_NOISED = {"ln1", "ln_f", "norm", "a_log", "dt_bias", "d_skip", "conv_x_b",
-           "conv_b_b", "conv_c_b"}
+_NOISED = {"ln1", "ln2", "ln_f", "norm", "a_log", "dt_bias", "d_skip",
+           "conv_x_b", "conv_b_b", "conv_c_b", "q_norm", "k_norm"}
+#: the dense family's reduced config (qk-norm, GQA) and the substrate
+#: tests' TINY dense config
+JDENSE = jget_config("qwen3-8b").reduced()
+TDENSE = tget_config("qwen3-8b").reduced()
+TINY = ModelConfig(
+    name="tiny", family="dense", n_layers=2, d_model=48, n_heads=4,
+    n_kv_heads=2, head_dim=12, d_ff=96, vocab=128, dtype="float32",
+    remat=False,
+)
 
 
 def _is_def(v):
@@ -265,10 +275,11 @@ def test_loss_fn_and_grads_match_reference(remat):
 
 
 def test_forward_refuses_embeds_and_mesh():
+    """A mesh is refused and ``unroll`` changes nothing; ``embeds`` are
+    taken since the dense slice (held against the reference in
+    ``test_train_step_with_embeds_matches_reference``)."""
     _, tp = _pair(JCFG, TCFG)
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="embeds"):
-        tT.forward(tp, tok, TCFG, embeds=torch.zeros((1, 2, 64)))
     with pytest.raises(NotImplementedError, match="mesh"):
         tT.forward(tp, tok, TCFG, mesh=object())
     a, _ = tT.forward(tp, tok, TCFG, unroll=True)
@@ -285,23 +296,31 @@ def test_train_step_with_microbatches_matches_reference(accum):
     scale, two bfloat16 roundings of the sum)."""
     jcfg = dataclasses.replace(JCFG, n_microbatches=2, accum_dtype=accum)
     tcfg = dataclasses.replace(TCFG, n_microbatches=2, accum_dtype=accum)
-    tol = GRAD_TOL if accum == "float32" else 2.0 ** -7
+    _step_against_reference(jcfg, tcfg,
+                            GRAD_TOL if accum == "float32" else 2.0 ** -7)
+
+
+def _step_against_reference(jcfg, tcfg, tol, embeds=None):
+    """One train step of both packages from the same params, state and
+    batch (and ``embeds``), held as the microbatch test holds it."""
     jp, tp = _pair(jcfg, tcfg, seed=4)
     tokens, labels = _tokens(6, 4, 24)
+    temb = None if embeds is None else torch.from_numpy(embeds)
     sched = (1e-3, 5, 100)
     jo = jopt.make_optimizer("adamw", jopt.Schedule(*sched))
     to = topt.make_optimizer("adamw", topt.Schedule(*sched))
     step = 10
     # the gradients the step uses, for the band of its update
     grads, tmet = tloop.make_grad_fn(tcfg)(tp, torch.from_numpy(tokens),
-                                          torch.from_numpy(labels))
+                                          torch.from_numpy(labels), temb)
     gflat = {k: v.clone() for k, v in tmodule.flatten(grads).items()}
     jstep = jax.jit(jloop.make_train_step(jcfg, jo))
     jnew, jstate, jmet = jstep(jp, jo.init(jp), tokens, labels,
-                               jnp.int32(step))
+                               jnp.int32(step), embeds)
     tstate = to.init(tp)
     tnew, tstate, tmet2 = tloop.make_train_step(tcfg, to)(
-        tp, tstate, torch.from_numpy(tokens), torch.from_numpy(labels), step)
+        tp, tstate, torch.from_numpy(tokens), torch.from_numpy(labels), step,
+        temb)
     for k in ("loss", "lb_loss", "z_loss"):
         np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
                                    rtol=LOSS_RTOL)
@@ -321,11 +340,36 @@ def test_train_step_with_microbatches_matches_reference(accum):
 
 
 def test_train_step_refuses_sharding():
+    """A mesh is refused; ``fsdp`` and ``fsdp_gather_once`` without one
+    change nothing, as in the reference (which shards only over a
+    mesh)."""
     with pytest.raises(NotImplementedError, match="queue 1"):
         tloop.make_train_step(TCFG, topt.make_optimizer(
             "adamw", topt.Schedule(1e-3)), mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1"):
-        tloop.make_grad_fn(dataclasses.replace(TCFG, fsdp=True))
+        tloop.Trainer(TCFG, mesh=object(), device="cpu")
+    for kw in ({"fsdp": True}, {"fsdp": True, "fsdp_gather_once": True}):
+        assert callable(tloop.make_grad_fn(dataclasses.replace(TCFG, **kw)))
+
+
+def test_fsdp_dense_step_without_a_mesh_matches_reference():
+    """A dense config with ``fsdp=True`` (every dense config of the
+    registry sets it) and no mesh trains one step through
+    ``make_train_step``, equal to the reference's step."""
+    jcfg = dataclasses.replace(JDENSE, fsdp=True, n_microbatches=2)
+    tcfg = dataclasses.replace(TDENSE, fsdp=True, n_microbatches=2)
+    _step_against_reference(jcfg, tcfg, GRAD_TOL)
+
+
+def test_train_step_with_embeds_matches_reference():
+    """The dense step with a frontend's ``embeds`` (B, F, D), split into
+    the strided microbatches with the tokens, against the reference's."""
+    kw = dict(frontend="event_ts", frontend_seq=4, n_microbatches=2)
+    jcfg = dataclasses.replace(JDENSE, **kw)
+    tcfg = dataclasses.replace(TDENSE, **kw)
+    embeds = np.random.default_rng(9).standard_normal(
+        (4, 4, TDENSE.d_model)).astype(np.float32)
+    _step_against_reference(jcfg, tcfg, GRAD_TOL, embeds)
 
 
 # ------------------------------------------------ the in-place optimizer
@@ -533,6 +577,76 @@ def test_trainer_restart_supervision():
 
         final = fault.run_with_restarts(attempt, max_restarts=2)
         assert crashes["n"] == 1 and final >= 4
+
+
+def test_dense_trainer_preemption_saves_and_stops():
+    """``tests/test_substrate.py``'s TINY dense case on the port."""
+    with tempfile.TemporaryDirectory() as td:
+        tr = tloop.Trainer(TINY, tloop.TrainerConfig(ckpt_dir=td,
+                                                     ckpt_every=1000),
+                           device="cpu")
+        pipe = TokenPipeline(TINY.vocab, batch=4, seq=16, seed=0)
+        tr.preempt = fault.PreemptionHandler(signals=(signal.SIGUSR1,))
+        try:
+            os.kill(os.getpid(), signal.SIGUSR1)
+            out = tr.train(pipe, 50, pipeline=pipe)
+        finally:
+            tr.preempt.restore()
+        assert out["final_step"] == 1
+        assert tr.ckpt.latest_step() == 1
+
+
+def test_dense_trainer_restart_supervision():
+    """run_with_restarts + checkpoint restore on the TINY dense config."""
+    with tempfile.TemporaryDirectory() as td:
+        crashes = {"n": 0}
+
+        def attempt(i):
+            tr = tloop.Trainer(TINY, tloop.TrainerConfig(
+                ckpt_dir=td, ckpt_every=2, async_ckpt=False), device="cpu")
+            pipe = TokenPipeline(TINY.vocab, batch=4, seq=16, seed=0)
+            tr.maybe_restore(pipe)
+            start = tr.step
+            tr.train(pipe, 4 - start if start < 4 else 0, pipeline=pipe)
+            if i == 0:
+                crashes["n"] += 1
+                raise RuntimeError("injected node failure")
+            return tr.step
+
+        final = fault.run_with_restarts(attempt, max_restarts=2)
+        assert crashes["n"] == 1 and final >= 4
+
+
+def test_dense_serve_engine_batched():
+    from repro_torch.core import prng
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    params = tmodule.init_params(tT.param_defs(TINY), prng.PRNGKey(0), "cpu")
+    eng = ServeEngine(TINY, params, max_len=48, device="cpu")
+    res = eng.serve([
+        Request(np.array([1, 2, 3], np.int32), max_new_tokens=4),
+        Request(np.array([9, 8], np.int32), max_new_tokens=6),
+    ])
+    assert res[0].tokens.shape == (4,)
+    assert res[1].tokens.shape == (6,)
+    assert all((r.tokens < TINY.vocab).all() for r in res)
+
+
+def test_dense_serve_matches_forward_greedy():
+    """Greedy generation equals repeated full-forward argmax."""
+    from repro_torch.core import prng
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    params = tmodule.init_params(tT.param_defs(TINY), prng.PRNGKey(3), "cpu")
+    prompt = np.array([5, 17, 40], np.int32)
+    eng = ServeEngine(TINY, params, max_len=32, device="cpu")
+    got = eng.serve([Request(prompt, max_new_tokens=4)])[0].tokens
+    seq = list(prompt)
+    with torch.no_grad():
+        for _ in range(4):
+            logits, _ = tT.forward(params, torch.tensor([seq]), TINY)
+            seq.append(int(torch.argmax(logits[0, -1, :TINY.vocab])))
+    np.testing.assert_array_equal(got, np.array(seq[len(prompt):]))
 
 
 # ------------------------------------------------- checkpoints and resume
