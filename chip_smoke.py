@@ -20,7 +20,7 @@ elastic slot pool and live migration, 8 the slot pool over several
 shards, 9 the slot pool over several cards where more than one is
 visible, 10 the paper's reconstruction and classification protocols
 trained on the card, 11 the LM trainer on the card, 12 the dense LM
-family on the card; phase 8 (a) and
+family on the card, 13 the hybrid and MoE LM families; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -291,6 +291,44 @@ are held to compare against):
    gradients, through the decoder, the embeds and the event frontend,
    card against the CPU port in phase 11 (b)'s band with its exact-zero
    rule.
+13. **Hybrid and MoE LM families** -- TF32 off; every time host clock
+   ending in ``torch.cuda.synchronize()``.  (a) ``hymba-1.5b`` uncut (32
+   layers, each GQA attention of 25 query and 5 KV heads of 64 beside a
+   Mamba-2 head of 25 SSD heads x 64, state 16, the two normalised and
+   averaged; layers 0, 15 and 31 global, the others a window of 1024;
+   d_model 1600, d_ff 5504, vocab 32,001 padded to 32,256; 1.394 B
+   float32 parameters from ``PRNGKey(0)``, bf16 activations) served
+   through ``ServeEngine`` on the LM phase's traffic after a warm-up
+   serve, as phase 12 (a) serves (``serve_lm``): prefill tokens/s, decode
+   p50/p99, peak allocated, a profiled prefill (``decay_scan``'s share)
+   and two decode steps (launches a step).  Checks: the widths and the
+   parameter count, ``decay_scan`` launched 32 times by the prefill and
+   never by a decode step, logits finite, tokens inside the vocab.
+   (b) ``grok-1-314b`` at its full widths and 2 of its 64 layers (d_model
+   6144, 48 query and 8 KV heads of 128, 8 experts top-2 of d_ff 32,768,
+   vocab 131,072; 11.45 B float32 parameters, each expert's weights cast
+   to bf16 one expert at a time in ``moe_dense``) served the same way;
+   then the tokens each expert took in one more prefill and ``lb_loss``
+   / ``z_loss`` of one ``forward`` of 2 x 512 tokens.  Checks: the
+   widths, the parameter count, the peak inside the card, none of the
+   port's kernels launched, the aux losses finite.  (c) The card against
+   the CPU port in float32 on ``PRNGKey(1)`` weights with the attention
+   projections at their true fan-in, each through ``dense_check``
+   (``forward``, a prefill and 8 decode steps: logits, K/V rings, conv
+   rings and SSM states): ``hymba-1.5b`` at full widths and 2 layers
+   (one global, one local), batch 2 x 1100 (the window wraps);
+   ``grok-1-314b`` at full widths and 1 layer, batch 1 x 256 (26 GB of
+   float32 weights on each device); ``kimi-k2-1t-a32b`` at ``reduced()``
+   (its one layer is 16.9 B parameters), batch 2 x 300.  Expert choices
+   equal in every layer (a batch row where a token's choice differs, a
+   near tie, is printed with its router-probability gap and left out of
+   the logits and caches from that call on; more than 1 in 1000 of the
+   routed tokens fails), logits in phase 12 (c)'s band, ``forward``'s
+   ``lb_loss`` and ``z_loss`` within 1e-4 relative; one gradient step (``loss_fn``'s
+   total with its aux terms; batch 2 x 300 in 2 microbatches) of hymba
+   at 2 layers and kimi at ``reduced()`` in phase 11 (b)'s band.
+   (d) ``decay_scan`` at hymba's prefill shape (8, 15, 25,600) as phase 4
+   runs it: bitwise against its plain version, timed beside its bound.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -364,6 +402,26 @@ DENSE_TOL = 1e-4  # rtol; atol x max(1, max|CPU|): float32 card vs CPU port
 #: the other rows keep DENSE_TOL
 DENSE_INT8_TOL = 3e-3
 EVENT_LM_STEPS = 30
+HYBRID_ARCH = "hymba-1.5b"      # phase 13 (a), uncut
+#: d_model, query / KV heads, head_dim, d_ff, vocab, padded vocab, window,
+#: global layers, SSM (d_inner, heads, headdim, state): the published
+#: widths phase 13 (a) serves at
+HYBRID_WIDTHS = (1600, 25, 5, 64, 5504, 32001, 32256, 1024, (0, 15, 31),
+                 (1600, 25, 64, 16))
+MOE_ARCH = "grok-1-314b"        # phase 13 (b), full widths
+MOE_LAYERS = 2                  # of 64: 11.45 B float32 parameters
+#: d_model, query / KV heads, head_dim, experts, top-k, d_ff_expert,
+#: vocab, padded vocab
+MOE_WIDTHS = (6144, 48, 8, 128, 8, 2, 32768, 131072, 131072)
+MOE_AUX_SEQ = (2, 512)          # (b): the batch of the forward whose aux is printed
+HYBRID_CHECK = (2, 1100)        # (c): hymba layers, prompt (past the window)
+MOE_CHECK = (1, 1, 256)         # (c): grok layers, batch, tokens
+#: the share of routed tokens whose expert choices may differ between the
+#: card and the CPU port: a token whose k-th and (k+1)-th router
+#: probabilities lie within float32 rounding of each other may route
+#: either way on two devices that sum in other orders; more than this
+#: many is a fault, not rounding
+ROUTE_FLIPS = 1e-3
 
 HEADS_KEY = "chip-smoke-heads"
 HEADS_CLASSES, HEADS_WIDTH = 10, 32
@@ -1326,10 +1384,25 @@ def lm_checks(dev, cfg, M, T, prng):
 def decay_scan_phase(dev, lm):
     """Phase 4: decay_scan at the LM prefill's shapes vs its plain version,
     its backward at the training and prefill shapes, and their times."""
+    b, t, c = lm["b"], lm["nc"], lm["c"]
+    row = scan_forward(dev, b, t, c)
+    log(f"decay_scan: ({b}, {t}, {c}) {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row.pop('nbytes')} B); x {lm['launches']['decay_scan']} "
+        f"launches = {row['ms'] * lm['launches']['decay_scan']:.3f} ms of a "
+        f"{lm['prefill_ms']:.3f} ms prefill")
+    torch.cuda.empty_cache()
+    bwd = decay_scan_bwd_phase(dev, [(1, TRAIN_SEQ // 128, c), (b, t, c)])
+    return [dict(name="decay_scan", **row, library_ms=None, **bwd)]
+
+
+def scan_forward(dev, b, t, c) -> dict:
+    """``decay_scan`` at (b, t, c) on seeded inputs: bitwise against its
+    plain version on the card, with and without ``s0``, and timed (L2
+    flushed) beside the plain version and its bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decay_scan import decay_scan_cuda
 
-    b, t, c = lm["b"], lm["nc"], lm["c"]
     g = torch.Generator(device=dev).manual_seed(3)
     a = torch.exp(-torch.rand((b, t, c), generator=g, device=dev))
     x = torch.randn((b, t, c), generator=g, device=dev)
@@ -1349,17 +1422,9 @@ def decay_scan_phase(dev, lm):
     plain = timer(lambda _: ref.decay_scan_ref(a, x), 10)
     nbytes = 4 * (3 * b * t * c + b * c)
     b_ms, b_by = bound_ms(nbytes, 2 * b * t * c)
-    log(f"decay_scan: ({b}, {t}, {c}) {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({nbytes} B); x {lm['launches']['decay_scan']} "
-        f"launches = {ms * lm['launches']['decay_scan']:.3f} ms of a "
-        f"{lm['prefill_ms']:.3f} ms prefill")
     err = float(max((st - st_r).abs().max(), (fin0 - fin0_r).abs().max()))
-    del a, x, s0, st, fin, st_r, fin_r, st0, fin0, st0_r, fin0_r
-    torch.cuda.empty_cache()
-    bwd = decay_scan_bwd_phase(dev, [(1, TRAIN_SEQ // 128, c), (b, t, c)])
-    return [dict(name="decay_scan", max_abs_err=err, max_ulp=ulp,
-                 shape=[b, t, c], ms=ms, plain_ms=plain, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=None, **bwd)]
+    return dict(max_abs_err=err, max_ulp=ulp, shape=[b, t, c], ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, nbytes=nbytes)
 
 
 def decay_scan_bwd_phase(dev, shapes) -> dict:
@@ -3259,50 +3324,34 @@ def close(a, b, tol):
             bool(torch.allclose(a, b, rtol=tol, atol=tol * scale)))
 
 
-def dense_serve(dev, card, arch) -> dict:
-    """Phase 12 (a), (b): ``arch`` served uncut through ``ServeEngine`` on
-    the LM phase's traffic."""
-    from repro_torch.configs import get_config
+def serve_lm(dev, card, cfg, what: str, profile=None) -> dict:
+    """``cfg`` served through ``ServeEngine`` on the LM phase's traffic,
+    its float32 weights drawn on the card from ``PRNGKey(0)``: a warm-up
+    serve, the timed serve (counters zeroed just before, read just after,
+    peak memory over it), then a prefill and two decode steps under
+    ``torch.profiler`` (``profile``: ``profiled``, by PyTorch op, or
+    ``profiled_kernels``, by kernel).  Checks one prefill and
+    LM_NEW_TOKENS - 1 decode steps with every logit finite, and every
+    token inside the true vocab."""
     from repro_torch.core import prng
     from repro_torch.kernels import _lib
     from repro_torch.models import module as M
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config(arch)
-    shape = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-             cfg.d_ff, cfg.vocab, T.padded_vocab(cfg), cfg.window,
-             cfg.final_logit_softcap)
-    check(shape == DENSE_WIDTHS[arch]
-          and cfg.activation_dtype == torch.bfloat16
-          and cfg.kv_cache_dtype == "bfloat16",
-          f"{arch} at full width: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
-          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
-          f"{T.padded_vocab(cfg)}, kinds {sorted(set(cfg.layer_kinds()))}, "
-          f"window {cfg.window}, softcaps {cfg.attn_logit_softcap} / "
-          f"{cfg.final_logit_softcap}, bf16 activations and KV cache")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), dev)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in M.flatten(params).values())
-    # n_params() counts neither the vocab pad nor ln_f and the qk-norm gains
-    extra = (2 * (T.padded_vocab(cfg) - cfg.vocab) * cfg.d_model
-             + cfg.d_model + 2 * cfg.n_layers * cfg.head_dim * cfg.qk_norm)
-    check(n_params == cfg.n_params() + extra,
-          f"{arch}: {n_params} float32 parameters ({n_params * 4 / 1e9:.2f} "
-          f"GB) drawn on the card from PRNGKey(0) in "
-          f"{time.perf_counter() - t0:.2f} s == n_params() "
-          f"{cfg.n_params()} ({cfg.n_params() / 1e9:.2f} B) + {extra} (the "
-          f"vocab pad, ln_f, the qk-norm gains)")
     engine = ServeEngine(cfg, params, max_len=LM_PROMPT[1] + LM_NEW_TOKENS)
     reqs = lm_requests(cfg, Request)
     calls, plain_prefill, plain_decode = timed_engine(engine)
     t0 = time.perf_counter()
     engine.serve([Request(r.prompt, max_new_tokens=2) for r in reqs])
-    log(f"dense {arch}: warm-up serve (same prompts, 2 tokens) "
+    log(f"{what}: warm-up serve (same prompts, 2 tokens) "
         f"{time.perf_counter() - t0:.2f} s")
     calls.clear()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3317,50 +3366,92 @@ def dense_serve(dev, card, arch) -> dict:
     pf_s = [c[1] for c in calls if c[0] == "prefill"]
     dec_ms = [c[1] * 1e3 for c in calls if c[0] == "decode"]
     p50 = float(np.percentile(dec_ms, 50))
-    log(f"dense {arch} on {card}: {LM_REQUESTS} requests, prompts "
+    log(f"{what} on {card}: {LM_REQUESTS} requests, prompts "
         f"{sorted(len(r.prompt) for r in reqs)} (left-padded to {s_max}), "
         f"{LM_NEW_TOKENS} new tokens each; serve {wall:.3f} s")
-    log(f"dense {arch} on {card}: prefill {pf_s[0] * 1e3:.3f} ms -> "
+    log(f"{what} on {card}: prefill {pf_s[0] * 1e3:.3f} ms -> "
         f"{LM_REQUESTS * s_max / pf_s[0]:.1f} tokens/s computed; decode "
         f"step p50 {p50:.3f} ms, p99 {np.percentile(dec_ms, 99):.3f} ms over "
         f"{len(dec_ms)} steps of batch {LM_REQUESTS}; peak allocated "
         f"{peak:.2f} GiB")
     check(len(pf_s) == 1 and len(dec_ms) == LM_NEW_TOKENS - 1
           and all(c[3] for c in calls),
-          f"dense {arch}: one prefill and {LM_NEW_TOKENS - 1} decode steps, "
+          f"{what}: one prefill and {LM_NEW_TOKENS - 1} decode steps, "
           f"every logit finite")
     toks = np.stack([r.tokens for r in results])
     check(toks.shape == (LM_REQUESTS, LM_NEW_TOKENS) and toks.min() >= 0
           and toks.max() < cfg.vocab,
-          f"dense {arch}: tokens {toks.shape} within the true vocab "
+          f"{what}: tokens {toks.shape} within the true vocab "
           f"[0, {cfg.vocab})")
-    check(not any(launches.values()),
-          f"dense {arch}: the path launched none of the port's CUDA kernels "
-          f"(attention, the MLP and the KV rings run on PyTorch ops): "
-          f"{launches}")
 
     tokens = torch.zeros((LM_REQUESTS, s_max), dtype=torch.int32)
     for i, r in enumerate(reqs):
         tokens[i, s_max - len(r.prompt):] = torch.from_numpy(r.prompt)
     tokens = tokens.to(dev)
     with torch.inference_mode():
-        pf = profiled(lambda: plain_prefill(params, tokens))
+        profile = profile or profiled
+        pf = profile(lambda: plain_prefill(params, tokens))
         _, caches, pos = plain_prefill(params, tokens)
         cur = tokens[:, -1:]
-        dc = profiled(lambda: [plain_decode(params, cur, caches, pos + i)
-                               for i in range(2)])
-    profile_line(f"dense {arch} profile, one prefill", pf, pf_s[0] * 1e3)
-    profile_line(f"dense {arch} profile, two decode steps", dc, 2 * p50)
-    del engine, params, caches
-    torch.cuda.empty_cache()
-    return dict(layers=cfg.n_layers, params=n_params,
+        dc = profile(lambda: [plain_decode(params, cur, caches, pos + i)
+                              for i in range(2)])
+    profile_line(f"{what} profile, one prefill", pf, pf_s[0] * 1e3)
+    profile_line(f"{what} profile, two decode steps", dc, 2 * p50)
+    del engine, caches
+    return dict(layers=cfg.n_layers, params=n_params, init_s=init_s,
                 prefill_ms=pf_s[0] * 1e3,
                 prefill_tokens_per_s=LM_REQUESTS * s_max / pf_s[0],
                 decode_ms=dec_ms, decode_p50_ms=p50, peak_gib=peak,
-                launches=launches,
+                launches=launches, calls=list(calls),
                 prefill_device_idle=1 - pf["device_ms"] / pf["wall_ms"],
                 decode_device_idle=1 - dc["device_ms"] / dc["wall_ms"],
-                prefill_kernels=pf["launches"], decode_kernels=dc["launches"])
+                prefill_kernels=pf["launches"], decode_kernels=dc["launches"],
+                prefill_profile=pf, tokens=tokens, model=params)
+
+
+def dense_serve(dev, card, arch) -> dict:
+    """Phase 12 (a), (b): ``arch`` served uncut through ``ServeEngine`` on
+    the LM phase's traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    shape = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab, T.padded_vocab(cfg), cfg.window,
+             cfg.final_logit_softcap)
+    check(shape == DENSE_WIDTHS[arch]
+          and cfg.activation_dtype == torch.bfloat16
+          and cfg.kv_cache_dtype == "bfloat16",
+          f"{arch} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{T.padded_vocab(cfg)}, kinds {sorted(set(cfg.layer_kinds()))}, "
+          f"window {cfg.window}, softcaps {cfg.attn_logit_softcap} / "
+          f"{cfg.final_logit_softcap}, bf16 activations and KV cache")
+    r = served(serve_lm(dev, card, cfg, f"dense {arch}"))
+    # n_params() counts neither the vocab pad nor ln_f and the qk-norm gains
+    extra = (2 * (T.padded_vocab(cfg) - cfg.vocab) * cfg.d_model
+             + cfg.d_model + 2 * cfg.n_layers * cfg.head_dim * cfg.qk_norm)
+    check(r["params"] == cfg.n_params() + extra,
+          f"{arch}: {r['params']} float32 parameters "
+          f"({r['params'] * 4 / 1e9:.2f} GB) drawn on the card from "
+          f"PRNGKey(0) in {r['init_s']:.2f} s == n_params() "
+          f"{cfg.n_params()} ({cfg.n_params() / 1e9:.2f} B) + {extra} (the "
+          f"vocab pad, ln_f, the qk-norm gains)")
+    check(not any(r["launches"].values()),
+          f"dense {arch}: the path launched none of the port's CUDA kernels "
+          f"(attention, the MLP and the KV rings run on PyTorch ops): "
+          f"{r['launches']}")
+    return r
+
+
+def served(r: dict) -> dict:
+    """``serve_lm``'s result without the model, its tokens and the
+    per-call records, the card's memory released."""
+    for k in ("model", "tokens", "calls", "prefill_profile"):
+        r.pop(k)
+    torch.cuda.empty_cache()
+    return r
 
 
 def true_fan_in_(lm, cfg) -> None:
@@ -3380,46 +3471,86 @@ def true_fan_in_(lm, cfg) -> None:
         attn[w].mul_((ref_fan / fan) ** 0.5)
 
 
-def dense_check(dev, arch, layers, **kw) -> None:
-    """Phase 12 (c), one config: the full widths at ``layers`` layers in
-    float32 on the card against the CPU port on the same weights: the
-    prefill's last logits and caches, then DENSE_CHECK_DECODE decode
-    steps' logits and the caches after them (int8 ones decode from empty
-    caches: the reference's prefill builds unquantized ones)."""
+def dense_check(dev, arch, layers, prompt=CHECK_PROMPT, reduced=False,
+                batch=CHECK_BATCH, **kw) -> None:
+    """Phase 12 (c) and 13 (c), one config: the full widths (``reduced()``
+    ones with ``reduced``) at ``layers`` layers in float32 on the card
+    against the CPU port on the same weights, ``batch`` rows of
+    ``prompt`` tokens: a hybrid or expert config's ``forward`` logits and
+    aux losses (z_loss within DENSE_TOL relative, lb_loss too when no
+    routing differs), the prefill's last logits and caches (K/V rings, an
+    SSM's conv rings and state), then DENSE_CHECK_DECODE decode steps'
+    logits and the caches after them (int8 ones decode from empty caches:
+    the reference's prefill builds unquantized ones).  With experts, each
+    device's routing is recorded (``routes``): a batch row where a
+    token's experts differ between the devices (a near tie) leaves the
+    logits and caches compared from that call on, and more than
+    ROUTE_FLIPS of the routed tokens fails."""
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.models import module as M
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
-                              dtype="float32", **kw)
+    base = get_config(arch).reduced() if reduced else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers, dtype="float32", **kw)
     card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
     true_fan_in_(card, cfg)
     cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
     g = torch.Generator().manual_seed(2)
     n_dec = DENSE_CHECK_DECODE
-    tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_PROMPT + n_dec),
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt + n_dec),
                            generator=g, dtype=torch.int32)
-    max_len = CHECK_PROMPT + n_dec
+    max_len = prompt + n_dec
     int8 = cfg.kv_cache_dtype == "int8"
-    what = (f"{arch} full width, {layers} layers, float32"
-            f"{', int8 KV cache' if int8 else ''}, batch {CHECK_BATCH}")
+    what = (f"{arch} {'reduced' if reduced else 'full'} width, {layers} "
+            f"layers, float32{', int8 KV cache' if int8 else ''}, batch "
+            f"{batch} x {prompt}")
     errs = []
+    keep = torch.ones(batch, dtype=torch.bool)
+    flipped, routed = [], 0
+
+    def both(on_card, on_cpu):
+        """The same call on the card and on the CPU port; with experts,
+        the batch rows whose routing differs drop out of ``keep``."""
+        nonlocal routed
+        with routes() as rg:
+            out_g = on_card()
+        with routes() as rc:
+            out_c = on_cpu()
+        for (ig, _), (ic, gap) in zip(rg, rc):
+            flip = (ig != ic).any(-1)
+            routed += flip.numel()
+            if flip.any():
+                rows = flip.view(batch, -1).any(-1)
+                keep.mul_(~rows)
+                flipped.append((int(flip.sum()), float(gap[flip].max())))
+        return out_g, out_c
+
+    def close_kept(a, b):
+        """``close`` over the batch rows kept (none kept: nothing to
+        compare; the routing check fails then)."""
+        if not keep.any():
+            return 0.0, True
+        return close(a.cpu()[keep], b[keep], DENSE_TOL)
 
     def caches_agree(cg, cc):
-        """(ok, max |d| of float K/V, int8 codes that differ by batch
-        row): positions bitwise, float K/V in the band, int8 codes within
-        1, bf16 scales within one bf16 ulp."""
-        worst, flips, ok = 0.0, torch.zeros(CHECK_BATCH, dtype=torch.long), True
+        """(ok, max |d| of float leaves, int8 codes that differ by batch
+        row) over the kept rows: positions bitwise, float K/V, conv rings
+        and SSM states in the band, int8 codes within 1, bf16 scales
+        within one bf16 ulp."""
+        worst, flips, ok = 0.0, torch.zeros(batch, dtype=torch.long), True
         for a, b in zip(cg, cc):
-            for k in a:
-                x, y = a[k].cpu(), b[k]
-                if k == "pos":
+            fb = M.flatten(b)
+            for k, x in M.flatten(a).items():
+                if not keep.any():
+                    continue
+                x, y = x.cpu()[keep], fb[k][keep]
+                if k.endswith("pos"):
                     ok &= torch.equal(x, y)
                 elif x.dtype == torch.int8:
                     d = (x.int() - y.int()).abs()
                     ok &= int(d.max()) <= 1
-                    flips += (d != 0).flatten(1).sum(1)
+                    flips[keep] += (d != 0).flatten(1).sum(1)
                 elif x.dtype == torch.bfloat16:
                     ok &= bool(((x.float() - y.float()).abs()
                                 <= y.float().abs() * 2.0 ** -7).all())
@@ -3431,32 +3562,53 @@ def dense_check(dev, arch, layers, **kw) -> None:
     def check_caches(cg, cc, when):
         ok, worst, _ = caches_agree(cg, cc)
         check(ok, f"{what}: caches {when} card == CPU port: positions "
-              f"bitwise, float K/V within the band (max |d| {worst:.3e})")
+              f"bitwise, float leaves within the band (max |d| {worst:.3e})")
 
     with torch.inference_mode():
         t0 = time.perf_counter()
+        if cfg.family != "dense":
+            n_flipped = len(flipped)
+            (fg, ag), (fc, ac) = both(
+                lambda: T.forward(card, tokens[:, :prompt].to(dev), cfg),
+                lambda: T.forward(cpu, tokens[:, :prompt], cfg))
+            errs.append(close_kept(fg, fc))
+            del fg, fc
+            if cfg.n_experts:
+                rel = {k: abs(float(ag[k]) - float(ac[k])) / float(ac[k])
+                       for k in ("lb_loss", "z_loss")}
+                check(rel["z_loss"] <= DENSE_TOL and (
+                          len(flipped) > n_flipped
+                          or rel["lb_loss"] <= DENSE_TOL),
+                      f"{what}: forward's lb_loss {float(ag['lb_loss']):.7f} "
+                      f"(CPU {float(ac['lb_loss']):.7f}), z_loss "
+                      f"{float(ag['z_loss']):.7f} (CPU "
+                      f"{float(ac['z_loss']):.7f}) within {DENSE_TOL} "
+                      f"relative ({rel}; lb_loss only when no routing "
+                      f"differs)")
         if int8:
-            cg = T.init_decode_caches(cfg, CHECK_BATCH, max_len, device=dev)
-            cc = T.init_decode_caches(cfg, CHECK_BATCH, max_len,
+            cg = T.init_decode_caches(cfg, batch, max_len, device=dev)
+            cc = T.init_decode_caches(cfg, batch, max_len,
                                       device="cpu")
             start = 0
         else:
-            lg, cg, start = T.prefill(card, tokens[:, :CHECK_PROMPT].to(dev),
-                                      cfg, max_len, last_logits_only=True)
-            lc, cc, _ = T.prefill(cpu, tokens[:, :CHECK_PROMPT], cfg,
-                                  max_len, last_logits_only=True)
-            errs.append(close(lg, lc, DENSE_TOL))
-            check_caches(cg, cc, f"after a prefill of {CHECK_PROMPT} tokens")
-        flipped, codes_ok = [], True
+            (lg, cg, start), (lc, cc, _) = both(
+                lambda: T.prefill(card, tokens[:, :prompt].to(dev), cfg,
+                                  max_len, last_logits_only=True),
+                lambda: T.prefill(cpu, tokens[:, :prompt], cfg, max_len,
+                                  last_logits_only=True))
+            errs.append(close_kept(lg, lc))
+            check_caches(cg, cc, f"after a prefill of {prompt} tokens")
+        code_flips, codes_ok = [], True
         for i in range(n_dec):
             pos = start + i
             tok = tokens[:, pos:pos + 1]
-            lg, cg = T.decode_step(card, tok.to(dev), cg, pos, cfg)
-            lc, cc = T.decode_step(cpu, tok, cc, pos, cfg)
+            (lg, cg), (lc, cc) = both(
+                lambda: T.decode_step(card, tok.to(dev), cg, pos, cfg),
+                lambda: T.decode_step(cpu, tok, cc, pos, cfg))
             if int8:
                 ok, _, flips = caches_agree(cg, cc)
                 codes_ok &= ok
-                flipped.append(int(flips.sum()))
+                code_flips.append(int(flips.sum()))
                 # the card's codes carry over, so that a code one apart
                 # moves only the step that wrote it
                 for a, b in zip(cg, cc):
@@ -3466,22 +3618,30 @@ def dense_check(dev, arch, layers, **kw) -> None:
                 # DENSE_TOL
                 rows = [close(lg[r], lc[r],
                               DENSE_INT8_TOL if flips[r] else DENSE_TOL)
-                        for r in range(CHECK_BATCH)]
+                        for r in range(batch)]
                 errs.append((max(e for e, _ in rows),
                              all(ok for _, ok in rows)))
             else:
-                errs.append(close(lg, lc, DENSE_TOL))
+                errs.append(close_kept(lg, lc))
         if int8:
-            new = layers * 2 * CHECK_BATCH * cfg.n_kv_heads * cfg.head_dim
-            check(codes_ok and max(flipped) <= new // 1000,
+            new = layers * 2 * batch * cfg.n_kv_heads * cfg.head_dim
+            check(codes_ok and max(code_flips) <= new // 1000,
                   f"{what}: each step's int8 codes within 1 of the CPU's, "
                   f"one apart in at most 1 in 1000 of its {new} new cells "
-                  f"(by step: {flipped}), bf16 scales within one bf16 ulp, "
-                  f"positions bitwise")
+                  f"(by step: {code_flips}), bf16 scales within one bf16 "
+                  f"ulp, positions bitwise")
         else:
             check_caches(cg, cc, f"after {n_dec} decode steps")
+    if cfg.n_experts:
+        n_flip = sum(n for n, _ in flipped)
+        check(n_flip <= ROUTE_FLIPS * routed and bool(keep.any()),
+              f"{what}: expert choices equal on the card and the CPU for "
+              f"{routed - n_flip} of {routed} routed tokens (flips, gap of "
+              f"the k-th to the (k+1)-th router probability: {flipped}; "
+              f"batch rows compared {keep.tolist()})")
     check(all(ok for _, ok in errs),
-          f"{what}: {'' if int8 else f'the prefill last logits and '}"
+          f"{what}: {'' if cfg.family == 'dense' else 'forward logits, '}"
+          f"{'' if int8 else f'the prefill last logits and '}"
           f"{n_dec} decode steps' logits card == CPU port within rtol = "
           f"{DENSE_TOL}, atol = {DENSE_TOL} x max(1, max|CPU|)"
           f"{f' ({DENSE_INT8_TOL} on a row whose codes differ in that step)' if int8 else ''}"
@@ -3489,13 +3649,43 @@ def dense_check(dev, arch, layers, **kw) -> None:
           f"{time.perf_counter() - t0:.1f} s)")
 
 
-def dense_train_check(dev) -> None:
-    """Phase 12 (c), the gradient check: qwen3-8b's widths at 2 layers in
-    float32, one step's gradients (batch 2 x 300, 2 microbatches) on the
-    card against the CPU port, with phase 11 (b)'s exact-zero rule (a CPU
-    run at 1 thread, whose sums run in another order, is taken only when
-    a zero of the first CPU run is nonzero on the card: a cell that moves
-    between the two is a cancellation)."""
+@contextlib.contextmanager
+def routes():
+    """Record every ``moe.route`` call inside the block: its expert
+    choices and, per token, the gap between the k-th and the (k+1)-th
+    router probability (how near a tie the choice was), on the host."""
+    from repro_torch.models import moe
+
+    plain, seen = moe.route, []
+
+    def recorded(router_w, x_flat, cfg):
+        out = plain(router_w, x_flat, cfg)
+        with torch.no_grad():
+            p = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+            top = p.topk(min(cfg.top_k + 1, cfg.n_experts), dim=-1).values
+            gap = (top[:, cfg.top_k - 1] - top[:, -1]
+                   if cfg.top_k < cfg.n_experts else torch.ones_like(p[:, 0]))
+        seen.append((out[0].cpu(), gap.cpu()))
+        return out
+
+    moe.route = recorded
+    try:
+        yield seen
+    finally:
+        moe.route = plain
+
+
+def dense_train_check(dev, arch=DENSE_ARCH, layers=TRAIN_CHECK[0],
+                      reduced=False) -> None:
+    """Phase 12 (c) and 13 (c), the gradient check: ``arch``'s widths
+    (``reduced()`` ones with ``reduced``) at ``layers`` layers in float32,
+    one step's gradients (batch 2 x 300, 2 microbatches summed in
+    float32) of ``loss_fn``'s total, its ``lb_loss`` and ``z_loss`` terms
+    included, on the card against the CPU port, with phase 11 (b)'s
+    exact-zero rule (a CPU run at 1 thread, whose sums run in another
+    order, is taken only when a zero of the first CPU run is nonzero on
+    the card: a cell that moves between the two is a cancellation); the
+    aux losses within DENSE_TOL relative."""
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.events.pipeline import TokenPipeline
@@ -3503,12 +3693,16 @@ def dense_train_check(dev) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.train import loop
 
-    layers, batch, seq = TRAIN_CHECK
-    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=layers,
-                              dtype="float32", n_microbatches=2)
-    check(cfg.fsdp, f"{DENSE_ARCH} trains with its config's fsdp=True and no "
-          f"mesh (the reference ignores fsdp without one)")
+    _, batch, seq = TRAIN_CHECK
+    base = get_config(arch).reduced() if reduced else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers, dtype="float32",
+                              n_microbatches=2, accum_dtype="float32")
+    if arch == DENSE_ARCH:
+        check(cfg.fsdp, f"{arch} trains with its config's fsdp=True and no "
+              f"mesh (the reference ignores fsdp without one)")
     card = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
+    if not cfg.qk_norm:      # qk-norm bounds the attention logits itself
+        true_fan_in_(card, cfg)
     cpu = M.unflatten({k: v.cpu() for k, v in M.flatten(card).items()})
     tokens, labels = (torch.from_numpy(v) for v in
                       next(TokenPipeline(cfg.vocab, batch, seq, seed=1)))
@@ -3529,14 +3723,22 @@ def dense_train_check(dev) -> None:
         again, _ = fn(cpu, tokens, labels)
         torch.set_num_threads(threads)
     t3 = time.perf_counter()
+    what = (f"{arch} {'reduced' if reduced else 'full'} width, {layers} "
+            f"layers, float32, batch {batch} x {seq} in 2 microbatches")
     grads_agree(met["loss"], grads, cmet["loss"], cgrads,
-                f"{DENSE_ARCH} full width, {layers} layers, float32, batch "
-                f"{batch} x {seq} in 2 microbatches, one train step's "
-                f"gradients (card {(t1 - t0) * 1e3:.0f} ms, CPU "
-                f"{(t2 - t1) * 1e3:.0f} ms; {moved} zero(s) of the CPU run "
-                f"nonzero on the card"
+                f"{what}, one train step's gradients (card "
+                f"{(t1 - t0) * 1e3:.0f} ms, CPU {(t2 - t1) * 1e3:.0f} ms; "
+                f"{moved} zero(s) of the CPU run nonzero on the card"
                 f"{f', rechecked at 1 thread in {t3 - t2:.1f} s' if moved else ''})",
                 cpu_again=again)
+    if cfg.n_experts:
+        errs = {k: abs(float(met[k]) - float(cmet[k])) / float(cmet[k])
+                for k in ("lb_loss", "z_loss")}
+        check(all(e <= DENSE_TOL for e in errs.values()),
+              f"{what}: the step's aux losses lb_loss {float(met['lb_loss']):.7f}"
+              f" (CPU {float(cmet['lb_loss']):.7f}), z_loss "
+              f"{float(met['z_loss']):.7f} (CPU {float(cmet['z_loss']):.7f}) "
+              f"within {DENSE_TOL} relative ({errs})")
 
 
 def event_lm_phase(dev, card) -> dict:
@@ -3642,6 +3844,155 @@ def dense_phase(dev, card) -> dict:
     log(f"dense: phase 12 seconds by part "
         f"{ {k: round(v, 1) for k, v in times.items()} }")
     return dict(served=served, event_lm=ev, seconds=times)
+
+
+def hybrid_serve(dev, card) -> dict:
+    """Phase 13 (a): hymba-1.5b served uncut through ``ServeEngine`` on
+    the LM phase's traffic: its SSD heads reach ``decay_scan`` once a
+    layer per prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(HYBRID_ARCH)
+    wins = T.layer_windows(cfg)
+    shape = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab, T.padded_vocab(cfg), cfg.window,
+             tuple(i for i, w in enumerate(wins) if w is None),
+             SSM.ssm_dims(cfg))
+    check(shape == HYBRID_WIDTHS and cfg.n_layers == 32
+          and cfg.activation_dtype == torch.bfloat16,
+          f"{HYBRID_ARCH} uncut: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim} beside SSD (d_inner, heads, headdim, state) "
+          f"{SSM.ssm_dims(cfg)} in every layer, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab} padded to {T.padded_vocab(cfg)}, global layers "
+          f"{shape[8]}, the others a window of {cfg.window}, bf16")
+    # by kernel: with the host's activity, the per-op tables of a prefill
+    # and two decode steps (~35,000 launches) took most of the ~44 s this
+    # part took on an H100
+    r = serve_lm(dev, card, cfg, f"hybrid {HYBRID_ARCH}",
+                 profile=profiled_kernels)
+    # n_params() counts neither the vocab pad, ln_f nor the branch norms
+    extra = (2 * (T.padded_vocab(cfg) - cfg.vocab) * cfg.d_model
+             + cfg.d_model + 2 * cfg.n_layers * cfg.d_model)
+    check(r["params"] == cfg.n_params() + extra,
+          f"{HYBRID_ARCH}: {r['params']} float32 parameters "
+          f"({r['params'] * 4 / 1e9:.2f} GB) drawn on the card from "
+          f"PRNGKey(0) in {r['init_s']:.2f} s == n_params() "
+          f"{cfg.n_params()} + {extra} (the vocab pad, ln_f, the two "
+          f"branch norms a layer)")
+    per = [c[2] for c in r["calls"] if c[0] == "prefill"]
+    dec = [c[2] for c in r["calls"] if c[0] == "decode"]
+    check(per == [cfg.n_layers] and r["launches"]["decay_scan"] == cfg.n_layers
+          and not any(dec),
+          f"hybrid {HYBRID_ARCH}: decay_scan launched n_layers = "
+          f"{cfg.n_layers} times by the one prefill ({per}) and never by "
+          f"the {len(dec)} decode steps; launches on the path "
+          f"{r['launches']}")
+    pf = r["prefill_profile"]
+    scan_ms = sum(v for k, v in pf["kernels"].items() if "decay_scan" in k)
+    check(scan_ms > 0, "torch.profiler traced the hybrid prefill's "
+          "decay_scan kernels")
+    log(f"hybrid {HYBRID_ARCH}: decay_scan kernels inside one prefill: "
+        f"{scan_ms:.3f} ms of {pf['device_ms']:.3f} ms device time "
+        f"({100 * scan_ms / pf['device_ms']:.2f} %; "
+        f"{100 * scan_ms / r['prefill_ms']:.2f} % of the "
+        f"{r['prefill_ms']:.3f} ms prefill); "
+        f"{r['decode_kernels'] / 2:.0f} kernel launches per decode step")
+    s_max = r["tokens"].shape[1]
+    _, h, p, n = SSM.ssm_dims(cfg)
+    out = served(r)
+    out.update(decay_scan_ms=scan_ms,
+               scan_shape=(LM_REQUESTS, -(-s_max // cfg.ssm_chunk), h * p * n))
+    return out
+
+
+def moe_serve(dev, card) -> dict:
+    """Phase 13 (b): grok-1-314b at its full widths and MOE_LAYERS layers
+    served through ``ServeEngine`` on the LM phase's traffic; then the
+    tokens each expert took in one more prefill, and the aux losses of
+    one ``forward``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    shape = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.n_experts, cfg.top_k, cfg.d_ff_expert, cfg.vocab,
+             T.padded_vocab(cfg))
+    check(shape == MOE_WIDTHS and cfg.activation_dtype == torch.bfloat16,
+          f"{MOE_ARCH} at full widths, {cfg.n_layers} of 64 layers: d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} of "
+          f"d_ff {cfg.d_ff_expert}, vocab {cfg.vocab}, bf16")
+    r = serve_lm(dev, card, cfg, f"moe {MOE_ARCH}")
+    check(r["params"] == cfg.n_params() + cfg.d_model,
+          f"{MOE_ARCH}: {r['params']} float32 parameters "
+          f"({r['params'] * 4 / 1e9:.2f} GB) drawn on the card from "
+          f"PRNGKey(0) in {r['init_s']:.2f} s == n_params() + ln_f")
+    check(r["peak_gib"] * 2**30 < torch.cuda.get_device_properties(dev)
+          .total_memory and not any(r["launches"].values()),
+          f"moe {MOE_ARCH}: peak {r['peak_gib']:.2f} GiB within the card's "
+          f"memory; the path launched none of the port's CUDA kernels "
+          f"({r['launches']})")
+    params, tokens = r["model"], r["tokens"]
+    with torch.inference_mode(), routes() as seen:
+        T.prefill(params, tokens, cfg, tokens.shape[1],
+                  last_logits_only=True)
+    per_expert = [torch.bincount(idx.flatten(), minlength=cfg.n_experts)
+                  .tolist() for idx, _ in seen]
+    log(f"moe {MOE_ARCH}: tokens per expert in one prefill of "
+        f"{tokens.numel()} tokens (top-{cfg.top_k}), by layer: {per_expert}")
+    b, sq = MOE_AUX_SEQ
+    with torch.inference_mode():
+        logits, aux = T.forward(params, tokens[:b, -sq:], cfg)
+    aux = {k: float(v) for k, v in aux.items()}
+    check(bool(torch.isfinite(logits).all()) and all(
+        np.isfinite(v) and v > 0 for v in aux.values()),
+          f"moe {MOE_ARCH}: one forward of {b} x {sq} tokens: logits finite, "
+          f"lb_loss {aux['lb_loss']:.6f} (1.0 at a perfect balance), z_loss "
+          f"{aux['z_loss']:.6f}")
+    del logits
+    out = served(r)
+    out.update(tokens_per_expert=per_expert, aux=aux)
+    return out
+
+
+def hybrid_phase(dev, card) -> dict:
+    """Phase 13: the hybrid and MoE families on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    times = {}
+    t0 = time.perf_counter()
+    hy = hybrid_serve(dev, card)
+    times["hybrid serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mo = moe_serve(dev, card)
+    times["moe serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_check(dev, HYBRID_ARCH, HYBRID_CHECK[0], prompt=HYBRID_CHECK[1])
+    layers, batch, seq = MOE_CHECK
+    dense_check(dev, MOE_ARCH, layers, prompt=seq, batch=batch)
+    dense_check(dev, "kimi-k2-1t-a32b", 2, reduced=True)
+    times["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_train_check(dev, HYBRID_ARCH, HYBRID_CHECK[0])
+    dense_train_check(dev, "kimi-k2-1t-a32b", 2, reduced=True)
+    times["train checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b, t, c = hy["scan_shape"]
+    scan = scan_forward(dev, b, t, c)
+    n = hy["launches"]["decay_scan"]
+    log(f"decay_scan at {HYBRID_ARCH}'s prefill shape ({b}, {t}, {c}): "
+        f"{scan['ms']:.4f} ms, plain {scan['plain_ms']:.4f} ms, bound "
+        f"{scan['bound_ms']:.4f} ms ({scan.pop('nbytes')} B, "
+        f"{scan['bound_by']}; {100 * scan['bound_ms'] / scan['ms']:.1f} % of "
+        f"it); x {n} launches = {scan['ms'] * n:.3f} ms of a "
+        f"{hy['prefill_ms']:.3f} ms prefill")
+    times["decay_scan"] = time.perf_counter() - t0
+    log(f"hybrid and moe: phase 13 seconds by part "
+        f"{ {k: round(v, 1) for k, v in times.items()} }")
+    return dict(hybrid=hy, moe=mo, decay_scan=scan, seconds=times)
 
 
 def main() -> int:
@@ -3751,12 +4102,17 @@ def main() -> int:
     dense = dense_phase(dev, card)
     torch.cuda.synchronize()
     phase_s["dense lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid = hybrid_phase(dev, card)
+    torch.cuda.synchronize()
+    phase_s["hybrid and moe lm"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
                     "training": {**trn, "full": {
                         k: v for k, v in trn["full"].items()
-                        if k != "launches"}}, "dense": dense}, default=str))
+                        if k != "launches"}}, "dense": dense,
+                    "hybrid": hybrid}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -3775,12 +4131,21 @@ def main() -> int:
                             dense_path_launches=sum(
                                 r["launches"].get(name, 0)
                                 for r in dense["served"].values()),
+                            hybrid_path_launches=hybrid["hybrid"][
+                                "launches"].get(name, 0),
+                            moe_path_launches=hybrid["moe"][
+                                "launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
         if name == "decay_scan":
+            hs = hybrid["decay_scan"]
             kernels[-1].update(
                 train_path_launches=trn["full"]["launches"]["decay_scan"],
                 train_path_backward_launches=trn["full"]["launches"][
-                    "decay_scan_bwd"])
+                    "decay_scan_bwd"],
+                hybrid_shape=hs["shape"], hybrid_ms=hs["ms"],
+                hybrid_plain_ms=hs["plain_ms"],
+                hybrid_bound_ms=hs["bound_ms"],
+                hybrid_max_abs_err=hs["max_abs_err"])
     log(json.dumps({"kernels": kernels}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed:")

@@ -138,7 +138,12 @@ def isc_state_to_numpy(state: ISCState) -> Dict[str, np.ndarray]:
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+    """``a`` as a tensor; a bfloat16 array (the reference's, which numpy
+    knows only through ``ml_dtypes``) crosses exactly through float32."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 def _to_numpy(tree) -> Dict[str, np.ndarray]:
@@ -198,7 +203,7 @@ def decode_caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]],
     gives it: an SSM layer's conv rings in the activation dtype and its
     state in float32; an attention layer's ``k`` / ``v`` in the
     activation dtype, or int8 with bf16 scales for an int8 cache, and
-    ``pos`` int32.  A prefilled int8 config's caches hold unquantized
+    ``pos`` int32; a hybrid layer's both, in one dict.  A prefilled int8 config's caches hold unquantized
     ``k`` / ``v`` and no scales (the reference's prefill builds them so)
     and cross as such."""
     if len(caches) != cfg.n_layers:
@@ -208,9 +213,9 @@ def decode_caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]],
     for layer, like in zip(caches, T.init_decode_caches(cfg, 1, 1,
                                                         device="cpu")):
         want = {k: t.dtype for k, t in M.flatten(like).items()}
-        if "k_scale" in want and set(layer) == {"k", "v", "pos"}:
-            want = {"k": cfg.activation_dtype, "v": cfg.activation_dtype,
-                    "pos": torch.int32}
+        if "k_scale" in want and "k_scale" not in layer:
+            del want["k_scale"], want["v_scale"]
+            want.update(k=cfg.activation_dtype, v=cfg.activation_dtype)
         if set(layer) != set(want):
             raise KeyError(f"cache leaf paths {sorted(layer)} != "
                            f"{sorted(want)}")

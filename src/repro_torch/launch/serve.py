@@ -29,6 +29,8 @@
         --arch mamba2-2.7b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve tokens \\
         --arch qwen3-8b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve tokens \\
+        --arch hymba-1.5b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve sensors \\
         --sensors 4 --hw 240x320 --classify 10
     PYTHONPATH=src python -m repro_torch.launch.serve sensors \\

@@ -4,10 +4,15 @@
         --steps 20 --batch 8 --seq 128 --ckpt-dir /tmp/run1
     python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
         --steps 3 --device cpu
+    python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --reduced \\
+        --steps 3 --device cpu
 
-``--arch`` takes the port's registry: ``mamba2-2.7b`` and the dense
-``qwen3-8b``, ``gemma3-4b``, ``gemma2-27b`` and ``glm4-9b`` (whose
-``fsdp=True`` changes nothing without a mesh, as in the reference).
+``--arch`` takes the port's registry: every LM architecture of the
+reference's (the ssm, dense, hybrid and MoE families, and the vlm /
+audio backbones), whose ``fsdp=True`` changes nothing without a mesh, as
+in the reference.  An expert config's ``lb_loss`` and ``z_loss`` enter
+the loss and the metrics; kimi-k2 and grok-1 train with Adafactor and a
+bf16 gradient accumulator, as their configs say.
 
 Runs on the CUDA device unless ``--device`` names another (``--device
 cpu`` runs the plain PyTorch versions on the CPU).  ``--platform`` maps

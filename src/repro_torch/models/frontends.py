@@ -1,18 +1,19 @@
-"""Modality frontends: the paper's time surfaces as model inputs.
+"""Modality frontends: the vlm / audio stubs and the paper's time
+surfaces as model inputs.
 
-The port of the time-surface half of ``repro.models.frontends``:
+The port of ``repro.models.frontends``:
 
+  * ``stub_embeddings_spec`` -- the shape and dtype of the precomputed
+    patch / frame embeddings that stand in for the vlm and audio
+    families' frontends (the backbone is what those configs specify);
   * ``event_ts_frontend`` -- SAE -> (eDRAM or ideal) TS -> non-overlapping
     patches -> LM token embeddings;
   * ``ts_stack_frontend`` -- K surface reads stacked on the channel axis
     of a conv head (``models.cnn``), the input of the ``Classify`` head.
-
-The reference's ``stub_embeddings_spec`` (precomputed embeddings of the
-vlm/audio families) is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +22,14 @@ from repro_torch.core import edram
 from repro_torch.core import time_surface as ts
 from repro_torch.models.cnn import float32_math
 from repro_torch.models.module import ParamDef
+
+
+def stub_embeddings_spec(cfg: ModelConfig, batch: int
+                         ) -> Tuple[Tuple[int, int, int], torch.dtype]:
+    """(shape, dtype) of precomputed frontend embeddings (vlm/audio):
+    ``(batch, frontend_seq, d_model)`` in the activation dtype, what
+    ``transformer.forward`` takes as ``embeds``."""
+    return (batch, cfg.frontend_seq, cfg.d_model), cfg.activation_dtype
 
 
 def event_ts_frontend_defs(cfg: ModelConfig, patch: int = 8,

@@ -265,17 +265,6 @@ def attention_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def attention_block(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                    positions) -> torch.Tensor:
-    """Full causal self-attention (the prefill and training path); a
-    ``local`` layer sees ``cfg.window`` keys back."""
-    q, k, v = attention_qkv(params, x, cfg, positions)
-    out = blockwise_attention(
-        q, k, v, causal=True, window=cfg.window if kind == "local" else None,
-        softcap=cfg.attn_logit_softcap)
-    return attention_out(out, params["wo"])
-
-
 # ----------------------------------------------------------- gated MLP
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:

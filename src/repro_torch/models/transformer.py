@@ -1,17 +1,24 @@
 """Decoder LM stack: the ``dense`` family (GQA attention and the gated
-MLP) and the ``ssm`` family (Mamba-2).
+MLP), the ``moe`` family (attention and a top-k mixture of experts), the
+``ssm`` family (Mamba-2) and the ``hybrid`` family (hymba: attention and
+a Mamba-2 head side by side in every layer).
 
-The port of ``repro.models.transformer`` as far as these two families
-need it: parameter definitions, embedding (with a frontend's ``embeds``
-prepended), the full-sequence ``forward`` and its ``loss_fn``,
-``prefill`` (which also builds the decode caches) and ``decode_step``.
-Layers run as an unrolled Python loop over the stacked parameters (no
-scan or mesh); under autograd with ``cfg.remat`` each layer is a
-non-reentrant ``torch.utils.checkpoint`` that keeps only its input and
-recomputes the rest in the backward, as the reference's per-layer
-``nothing_saveable`` remat does.  The ``moe`` and ``hybrid`` families
-and expert layers raise ``NotImplementedError`` (ROADMAP.md, queue 1
-item 3).
+The port of ``repro.models.transformer`` on one device: parameter
+definitions, embedding (with a frontend's ``embeds`` prepended), the
+full-sequence ``forward`` and its ``loss_fn``, ``prefill`` (which also
+builds the decode caches) and ``decode_step``.  Layers run as an
+unrolled Python loop over the stacked parameters (no scan or mesh);
+under autograd with ``cfg.remat`` each layer is a non-reentrant
+``torch.utils.checkpoint`` that keeps only its input and recomputes the
+rest in the backward, as the reference's per-layer ``nothing_saveable``
+remat does.
+
+A hybrid layer normalises both branches and averages them,
+``0.5 * (rms_norm(attn) + rms_norm(ssm))``, attention first.  An expert
+layer runs ``moe.moe_dense`` (the reference's single-device form) and
+``forward`` returns the mean over the expert layers of each of its aux
+losses (``lb_loss``, ``z_loss``; 0 without experts), as both of the
+reference's modes do; ``prefill`` and ``decode_step`` drop them.
 
 Decode caches, one dict per layer: an attention layer keeps ``k``, ``v``
 (B, S, K, D) and ``pos`` (B, S) int32, a ring of ``min(window, max_len)``
@@ -20,13 +27,14 @@ slot's position is -1) and ``max_len`` for a global one; with
 ``kv_cache_dtype="int8"`` ``k`` and ``v`` are int8 with bf16
 ``k_scale`` / ``v_scale`` (B, S, K, 1).  ``decode_step`` writes the new
 token into the caches it is given, in place, and returns them.  An SSM
-layer keeps ``{"ssm": {"conv": {x, b, c}, "state"}}``.
+layer keeps ``{"ssm": {"conv": {x, b, c}, "state"}}``; a hybrid layer
+keeps both in one dict.
 
 Parameters are a nested dict of float32 master tensors with the
 reference's leaf paths (``embed``, ``layers.ln1``, ``layers.attn.wq``,
-``layers.mlp.wi_gate``, ``layers.ssm.z_proj``, ``ln_f``, ``unembed``),
-each cast to the activation dtype where it is used.
-``params["layers"]`` is either the stacked dict or, from
+``layers.mlp.wi_gate``, ``layers.moe.we_gate``, ``layers.ssm.z_proj``,
+``ln_f``, ``unembed``), each cast to the activation dtype where it is
+used.  ``params["layers"]`` is either the stacked dict or, from
 ``unstack_layers``, a list of per-layer dicts of views, which a trainer
 differentiates leaf by leaf.
 """
@@ -42,29 +50,28 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import f32, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.module import ParamDef, stack_layer_defs
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    if cfg.family in ("moe", "hybrid") or cfg.n_experts:
-        raise NotImplementedError(
-            f"repro_torch ports the dense and ssm families; {cfg.name!r} is "
-            f"{cfg.family!r} with {cfg.n_experts} experts (the MoE and "
-            f"hybrid families are ROADMAP.md, queue 1 item 3)")
-
-
 def _layer_defs(cfg: ModelConfig) -> dict:
-    _refuse_unported(cfg)
     d = cfg.d_model
-    defs = {"ln1": ParamDef((d,), ("embed",), init="zeros")}
+    norm = lambda: ParamDef((d,), ("embed",), init="zeros")
+    defs = {"ln1": norm()}
     if cfg.family == "ssm":
         defs["ssm"] = SSM.ssm_defs(cfg)
         return defs
     defs["attn"] = L.attention_defs(cfg)
-    defs["ln2"] = ParamDef((d,), ("embed",), init="zeros")
-    if cfg.d_ff:
+    if cfg.family == "hybrid":
+        defs["ssm"] = SSM.ssm_defs(cfg)
+        defs["attn_out_norm"] = norm()
+        defs["ssm_out_norm"] = norm()
+    defs["ln2"] = norm()
+    if cfg.n_experts:
+        defs["moe"] = MOE.moe_defs(cfg)
+    elif cfg.d_ff:
         defs["mlp"] = L.mlp_defs(cfg)
     return defs
 
@@ -137,28 +144,76 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + L.mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-
-
-def _layer(lp, x: torch.Tensor, cfg: ModelConfig, kind: str,
-           positions: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, aux_sink=None
+         ) -> torch.Tensor:
+    """x plus the layer's feed-forward of ``rms_norm(x)``: the gated MLP,
+    or the expert mixture, whose aux losses go to ``aux_sink`` when one
+    is given; an SSM layer has none."""
     if cfg.family == "ssm":
-        y, _ = SSM.ssm_block(lp["ssm"], h, cfg)
-        return x + y
-    x = x + L.attention_block(lp["attn"], h, cfg, kind, positions)
-    return _ffn(lp, x, cfg)
+        return x
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        y, aux = MOE.moe_dense(lp["moe"], h, cfg)
+        if aux_sink is not None:
+            aux_sink.append(aux)
+    else:
+        y = L.mlp_block(lp["mlp"], h)
+    return x + y
+
+
+def _fuse(lp, branches: List[torch.Tensor], cfg: ModelConfig
+          ) -> torch.Tensor:
+    """The token mixer's output from its branches (attention, SSM): the
+    one branch, or hymba's ``0.5 * (rms_norm(attn) + rms_norm(ssm))``."""
+    if cfg.family != "hybrid":
+        return branches[0]
+    attn, ssm_y = branches
+    return 0.5 * (rms_norm(attn, lp["attn_out_norm"], cfg.norm_eps)
+                  + rms_norm(ssm_y, lp["ssm_out_norm"], cfg.norm_eps))
+
+
+def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
+         positions: torch.Tensor, cache_len: Optional[int] = None):
+    """The token mixer of a layer on its normed input ``h``: causal
+    attention over ``window`` keys back (None: all), then the SSM, fused.
+    Returns (the mixer's output, the layer's decode cache: the K/V ring
+    of ``cache_len`` slots when one is asked for, the SSM's conv rings
+    and state)."""
+    branches, cache = [], {}
+    if cfg.family != "ssm":
+        ap = lp["attn"]
+        q, k, v = L.attention_qkv(ap, h, cfg, positions)
+        out = L.blockwise_attention(q, k, v, causal=True, window=window,
+                                    softcap=cfg.attn_logit_softcap)
+        branches.append(L.attention_out(out, ap["wo"]))
+        if cache_len is not None:
+            cache.update(_fill_ring(k, v, h.shape[1], cache_len))
+    if cfg.family in ("ssm", "hybrid"):
+        y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg)
+        branches.append(y)
+        cache["ssm"] = {"conv": conv, "state": state}
+    return _fuse(lp, branches, cfg), cache
+
+
+def _layer(lp, x: torch.Tensor, cfg: ModelConfig, window: Optional[int],
+           positions: torch.Tensor):
+    """One layer of ``forward``: (its output, the aux losses of its
+    expert mixture or None)."""
+    sink: List[dict] = []
+    y, _ = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, window,
+                positions)
+    x = _ffn(lp, x + y, cfg, sink)
+    return x, (sink[0] if sink else None)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             embeds: Optional[torch.Tensor] = None, mesh=None,
             unroll: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (logits (B, F + S, V) float32, aux losses dict), F the
-    frontend positions of ``embeds``.  ``unroll`` is accepted and changes
-    nothing (the layers are a Python loop already)."""
-    _refuse_unported(cfg)
+    """Returns (logits (B, F + S, V) float32, aux losses dict: each the
+    mean over the expert layers, 0 without them), F the frontend
+    positions of ``embeds``.  ``unroll`` is accepted and changes nothing
+    (the layers are a Python loop already)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh: repro_torch runs the LM stack on one device (model "
@@ -166,16 +221,23 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     x = embed_tokens(params, tokens, cfg, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i, kind in enumerate(cfg.layer_kinds()):
+    auxes = []
+    for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
         if remat:
-            x = checkpoint(_layer, lp, x, cfg, kind, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_layer, lp, x, cfg, window, positions,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer(lp, x, cfg, kind, positions)
+            x, aux = _layer(lp, x, cfg, window, positions)
+        if aux is not None:
+            auxes.append(aux)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, x, cfg), {"lb_loss": zero, "z_loss": zero}
+    if auxes:
+        aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"lb_loss": zero, "z_loss": zero}
+    return unembed(params, x, cfg), aux
 
 
 def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
@@ -223,25 +285,26 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=None, device=None) -> List[dict]:
     """Per-layer empty cache dicts (see the module docstring) on
     ``device`` (default: the CUDA device; raises when there is none)."""
-    _refuse_unported(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     caches = []
     for window in layer_windows(cfg):
+        c = {}
+        if cfg.family in ("ssm", "hybrid"):
+            c["ssm"] = SSM.init_ssm_cache(cfg, batch, dtype, device)
         if cfg.family == "ssm":
-            caches.append({"ssm": SSM.init_ssm_cache(cfg, batch, dtype,
-                                                     device)})
+            caches.append(c)
             continue
         s = _cache_len(window, max_len)
         kh, hd = cfg.n_kv_heads, cfg.head_dim
         z = lambda dt, last=hd: torch.zeros((batch, s, kh, last), dtype=dt,
                                             device=device)
         if cfg.kv_cache_dtype == "int8":
-            c = {"k": z(torch.int8), "v": z(torch.int8),
-                 "k_scale": z(torch.bfloat16, 1),
-                 "v_scale": z(torch.bfloat16, 1)}
+            c.update(k=z(torch.int8), v=z(torch.int8),
+                     k_scale=z(torch.bfloat16, 1),
+                     v_scale=z(torch.bfloat16, 1))
         else:
-            c = {"k": z(dtype), "v": z(dtype)}
+            c.update(k=z(dtype), v=z(dtype))
         c["pos"] = torch.full((batch, s), -1, dtype=torch.int32,
                               device=device)
         caches.append(c)
@@ -281,26 +344,27 @@ def decode_step(params, tokens: torch.Tensor, caches: List[dict], position,
                 cfg: ModelConfig):
     """One token for the whole batch.  ``tokens`` (B, 1); ``position``
     (an int) is the absolute position of this token.  Attention caches are
-    updated in place.  Returns (logits (B, 1, V), caches)."""
-    _refuse_unported(cfg)
+    updated in place; an SSM's conv rings and state are new tensors in
+    the returned caches.  Returns (logits (B, 1, V), caches)."""
     position = int(position)
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(position, position + 1, device=x.device)
     new_caches = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
+        c = dict(caches[i])
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.family == "ssm":
-            c = caches[i]["ssm"]
-            y, (conv, state) = SSM.ssm_decode_step(lp["ssm"], h, cfg,
-                                                   c["conv"], c["state"])
-            x = x + y
-            new_caches.append({"ssm": {"conv": conv, "state": state}})
-            continue
-        x = x + _decode_attn(lp["attn"], h, caches[i], position, positions,
-                             cfg, window)
-        x = _ffn(lp, x, cfg)
-        new_caches.append(caches[i])
+        branches = []
+        if cfg.family != "ssm":
+            branches.append(_decode_attn(lp["attn"], h, c, position,
+                                         positions, cfg, window))
+        if cfg.family in ("ssm", "hybrid"):
+            y, (conv, state) = SSM.ssm_decode_step(
+                lp["ssm"], h, cfg, c["ssm"]["conv"], c["ssm"]["state"])
+            branches.append(y)
+            c["ssm"] = {"conv": conv, "state": state}
+        x = _ffn(lp, x + _fuse(lp, branches, cfg), cfg)
+        new_caches.append(c)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, x, cfg), new_caches
 
@@ -336,25 +400,16 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     ring and state.  Positions count ``embeds``' frontend positions first.
     ``last_logits_only`` unembeds just the final position.  Returns
     (logits, caches, next_position)."""
-    _refuse_unported(cfg)
     x = embed_tokens(params, tokens, cfg, embeds)
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=x.device)
     caches: List[dict] = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.family == "ssm":
-            y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg)
-            x = x + y
-            caches.append({"ssm": {"conv": conv, "state": state}})
-            continue
-        ap = lp["attn"]
-        q, k, v = L.attention_qkv(ap, h, cfg, positions)
-        out = L.blockwise_attention(q, k, v, causal=True, window=window,
-                                    softcap=cfg.attn_logit_softcap)
-        x = _ffn(lp, x + L.attention_out(out, ap["wo"]), cfg)
-        caches.append(_fill_ring(k, v, s_total, _cache_len(window, max_len)))
+        y, cache = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                        window, positions, _cache_len(window, max_len))
+        x = _ffn(lp, x + y, cfg)
+        caches.append(cache)
     if last_logits_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)

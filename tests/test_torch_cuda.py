@@ -1038,3 +1038,107 @@ def test_reduced_lm_train_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got, w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
         assert not bool(((w == 0) & (got != 0)).any()), k
+
+
+def test_decay_scan_at_hymba_prefill_shape(cuda):
+    """``decay_scan`` at the shape hymba-1.5b's prefill gives it (8
+    requests, 15 SSD chunks, 25 heads x 64 x state 16 channels) bitwise
+    against its plain version, with and without ``s0``."""
+    b, t, c = 8, 15, 25 * 64 * 16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.exp(-torch.rand((b, t, c), generator=g, device=cuda))
+    x = torch.randn((b, t, c), generator=g, device=cuda)
+    s0 = torch.randn((b, c), generator=g, device=cuda)
+    for init in (None, s0):
+        before = _lib.LAUNCHES["decay_scan"]
+        st, fin = ops.decay_scan(a, x, init)
+        assert _lib.LAUNCHES["decay_scan"] == before + 1
+        st_r, fin_r = ref.decay_scan_ref(a, x, init)
+        assert _same(st, st_r) and _same(fin, fin_r)
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_route_on_card_matches_cpu(cuda, dyadic):
+    """MoE routing on the card against the CPU port (TF32 off): the expert
+    choices equal; on logits exact in float32 (dyadic inputs) ``top_w``
+    and the aux losses within 8 ULP (CUDA's ``expf`` within 2 ULP of the
+    CPU's, and the softmax's sum of 64 exponentials and the mean over the
+    tokens in another order: 6 measured on an H100), on float inputs
+    within 2e-6 relative (the logits' last bits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    if dyadic:
+        x = torch.randint(-16, 17, (4096, 256), generator=g) / 8
+        w = torch.randint(-8, 9, (256, 64), generator=g) / 64
+    else:
+        x = torch.randn((4096, 256), generator=g)
+        w = torch.randn((256, 64), generator=g) / 16
+    cfg = get_config("kimi-k2-1t-a32b").reduced(n_experts=64, top_k=8)
+    idx, tw, aux = moe.route(w.to(cuda), x.to(cuda), cfg)
+    cidx, ctw, caux = moe.route(w, x, cfg)
+    assert torch.equal(idx.cpu(), cidx)
+    if dyadic:
+        assert int(ref.ulp_distance(tw.cpu(), ctw).max()) <= 8
+        for k in aux:
+            assert int(ref.ulp_distance(aux[k].cpu(), caux[k]).max()) <= 8, k
+    else:
+        torch.testing.assert_close(tw.cpu(), ctw, rtol=2e-6, atol=0)
+        for k in aux:
+            torch.testing.assert_close(aux[k].cpu(), caux[k], rtol=2e-6,
+                                       atol=0)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "kimi-k2-1t-a32b"])
+def test_reduced_hybrid_and_moe_lm_on_card_matches_cpu_port(cuda, arch):
+    """The hybrid and MoE families at ``reduced()`` on the card against
+    the CPU port: ``forward``'s logits and aux losses, a prefill past the
+    window of 32 and 6 decode steps, in the band of
+    ``test_reduced_lm_on_card_matches_cpu_port``, positions bitwise;
+    hymba's prefill launches ``decay_scan`` once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), "cpu")
+    attn = cpu["layers"]["attn"]   # true fan-in, as the dense test scales it
+    for w, ref_fan, fan in (("wq", cfg.n_heads, cfg.d_model),
+                            ("wk", cfg.n_kv_heads, cfg.d_model),
+                            ("wv", cfg.n_kv_heads, cfg.d_model),
+                            ("wo", cfg.head_dim, cfg.n_heads * cfg.head_dim)):
+        attn[w].mul_((ref_fan / fan) ** 0.5)
+    card = M.unflatten({k: v.to(cuda) for k, v in M.flatten(cpu).items()})
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (3, 46), generator=g)
+
+    def close(a, b):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale)
+
+    with torch.inference_mode():
+        lg, aux = T.forward(card, tokens.to(cuda), cfg)
+        lc, caux = T.forward(cpu, tokens, cfg)
+        close(lg, lc)
+        for k in aux:
+            close(aux[k], caux[k])
+        _lib.reset_launches()
+        lg, cg, _ = T.prefill(card, tokens[:, :40].to(cuda), cfg, 48)
+        assert _lib.LAUNCHES["decay_scan"] == (
+            cfg.n_layers if cfg.family == "hybrid" else 0)
+        lc, cc, _ = T.prefill(cpu, tokens[:, :40], cfg, 48)
+        close(lg, lc)
+        for i in range(40, 46):
+            lg, cg = T.decode_step(card, tokens[:, i:i + 1].to(cuda), cg, i,
+                                   cfg)
+            lc, cc = T.decode_step(cpu, tokens[:, i:i + 1], cc, i, cfg)
+            close(lg, lc)
+    for a, b in zip(cg, cc):
+        for k, v in M.flatten(a).items():
+            if k == "pos":
+                assert torch.equal(v.cpu(), b["pos"])
+            else:
+                close(v, M.flatten(b)[k])
