@@ -20,7 +20,8 @@ elastic slot pool and live migration, 8 the slot pool over several
 shards, 9 the slot pool over several cards where more than one is
 visible, 10 the paper's reconstruction and classification protocols
 trained on the card, 11 the LM trainer on the card, 12 the dense LM
-family on the card, 13 the hybrid and MoE LM families; phase 8 (a) and
+family on the card, 13 the hybrid and MoE LM families, 14 the three
+time-surface examples and the paper's ``isc-qvga`` array; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -329,6 +330,39 @@ are held to compare against):
    at 2 layers and kimi at ``reduced()`` in phase 11 (b)'s band.
    (d) ``decay_scan`` at hymba's prefill shape (8, 15, 25,600) as phase 4
    runs it: bitwise against its plain version, timed beside its bound.
+14. **Paper-facing leftovers** -- (a) ``examples/quickstart_torch.py``,
+   ``denoise_stream_torch.py`` and ``serve_sensors_torch.py`` through
+   their ``main`` on the card, then with ``--device cpu`` in the same
+   process, then ``serve_sensors`` with ``--mesh 2`` on the card (the
+   launches of the three card runs are the examples' path).  Checks:
+   quickstart supports bitwise, AUCs within 1e-6 (``roc_curve`` sums in
+   another order on the card), the analog surface within 4 ULP
+   (``QVGA_ULP``: CUDA's ``expf`` is within 2 ULP, the CPU's ``exp``
+   within 1); denoise window masks (3d, 2d) and support bitwise, AUC
+   within 1e-6;
+   serve_sensors' own asserts (fused logits bitwise ``cnn_apply``,
+   per-tier conservation, both oracle gates) on the card, occupancy,
+   active pixels, event counts and replay counters equal to the CPU
+   port's, logits within rtol 1e-5; the 2-shard run's counters and
+   products equal to the unsharded run's.  (b) ``get_config("isc-qvga")``
+   (240x320, 1 polarity, 20 fF, 24 ms, r = 3, threshold 2) as a
+   ``TSEngineConfig`` of 4 slots: serve_sensors' mix (driving x 2,
+   hotel_bar x 2, 0.2 s each, ~1.6 M events) in 10 windows of two bursts
+   through ``serve_step`` with the FRAME spec (timed: p50/p99); the same
+   bursts through the deprecated shims (``acquire``, ``ingest``,
+   ``ingest_and_read``, ``readout_with_mask``, ``support_map``,
+   ``readout``, ``ingest(with_support=True)``, ``release``) on one engine
+   and the session/spec path on a twin, window by window; a CPU engine's
+   FRAME loop on the same events; the quickstart pipeline
+   (``ISCArray(240, 320)``, ``stcf_chunked`` analog and ideal) on the
+   whole 0.2 s ``hotel_bar`` stream on the card and the CPU port; and
+   ``ref.ts_fused_ref`` against the ``chunk_scatter`` and ``ts_decay``
+   kernels on one 10 ms push.  Checks: every shim output bitwise its
+   twin's, equal launches a window, each kernel launched under the
+   shims; SAE, counts, masks and supports bitwise the CPU port's,
+   surfaces within 4 ULP; the quickstart's supports bitwise and AUCs
+   within 1e-6 (their gap printed); ``ts_fused_ref``'s SAE, surface and mask
+   bitwise the kernels'.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -343,13 +377,16 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib
+import io
 import json
 import os
+import runpy
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -468,6 +505,23 @@ CLS_HW = 48
 CLS_WINDOW_S = 0.05
 CLS_STEPS = 20
 CLS_BATCH = 32
+
+EXAMPLE_FILES = ("quickstart_torch.py", "denoise_stream_torch.py",
+                 "serve_sensors_torch.py")      # phase 14 (a)
+ISC_ARCH = "isc-qvga"                           # phase 14 (b)
+QVGA_SCENES = ("driving", "driving", "hotel_bar", "hotel_bar")  # serve_sensors'
+QVGA_DURATION = 0.2
+QVGA_WINDOW_S = 0.02          # 10 windows of two bursts
+QVGA_CHUNK = 4096             # serve_sensors' chunk capacity
+QVGA_LABEL_SEED = 99          # the labeled push: serve_sensors' swapped camera
+#: card vs CPU port decay reads, in ULP: CUDA's expf is within 2 ULP of
+#: the rounded exp, the CPU's within 1, so each exp of the double exp may
+#: sit 3 apart, and the sum rounds once more (3 measured on an H100)
+QVGA_ULP = 4
+#: AUCs card vs CPU port from bitwise supports: roc_curve's float32 sums
+#: run in another order on the card (6e-8 apart measured on an H100)
+AUC_TOL = 1e-6
+QVGA_FUSED_SEED = 7           # the one 10 ms push ts_fused_ref is held on
 
 REPLACES = {
     "ts_decay": "src/repro/kernels/ts_decay.py:107",
@@ -3995,6 +4049,439 @@ def hybrid_phase(dev, card) -> dict:
     return dict(hybrid=hy, moe=mo, decay_scan=scan, seconds=times)
 
 
+def example_main(name: str):
+    """The ``main`` of ``examples/<name>`` (not run)."""
+    return runpy.run_path(str(ROOT / "examples" / name))["main"]
+
+
+def run_example(name: str, argv=()):
+    """(what the example's ``main`` returned, its printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = example_main(name)(list(argv))
+    return out, buf.getvalue().splitlines()
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    from repro_torch.kernels import ref
+
+    return int(ref.ulp_distance(a.cpu(), b.cpu()).max())
+
+
+def counted(_lib, fn):
+    """(``fn()``, the launches of each time-surface kernel it made)."""
+    before = dict(_lib.LAUNCHES)
+    out = fn()
+    return out, {k: _lib.LAUNCHES[k] - before[k] for k in ENGINE_KERNELS}
+
+
+def examples_phase(_lib) -> dict:
+    """Phase 14 (a): the three torch examples on the card, then on the CPU
+    port, in this process; ``serve_sensors`` once more on 2 shards."""
+    secs = {}
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    gpu = {}
+    for name in EXAMPLE_FILES:
+        t0 = time.perf_counter()
+        gpu[name], lines = run_example(name)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        for line in lines:
+            log(f"  {name[:-9]} | {line}")
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    log(f"examples: kernel launches of the three card runs: {launches}")
+    for k in ("ts_decay", "stcf_support", "chunk_scatter"):
+        check(launches[k] > 0,
+              f"{k} launched on the examples' path ({launches[k]})")
+    host = {}
+    for name in EXAMPLE_FILES:
+        t0 = time.perf_counter()
+        host[name], _ = run_example(name, ("--device", "cpu"))
+        secs[f"{name} cpu"] = time.perf_counter() - t0
+
+    qg, qc = gpu[EXAMPLE_FILES[0]], host[EXAMPLE_FILES[0]]
+    check(same(qg["support"], qc["support"])
+          and same(qg["support_i"], qc["support_i"]),
+          f"quickstart: STCF supports (analog and ideal TS, "
+          f"{qg['support'].numel()} events) card == CPU port, bitwise")
+    check(abs(qg["auc"] - qc["auc"]) <= AUC_TOL
+          and abs(qg["auc_i"] - qc["auc_i"]) <= AUC_TOL,
+          f"quickstart: AUCs card vs CPU port within {AUC_TOL} (analog "
+          f"{qg['auc']!r} / {qc['auc']!r}, ideal {qg['auc_i']!r} / "
+          f"{qc['auc_i']!r})")
+    u = ulps(qg["surface"], qc["surface"])
+    check(u <= QVGA_ULP, f"quickstart: analog surface card vs CPU port "
+          f"within {QVGA_ULP} ULP ({u})")
+    dg, dc = gpu[EXAMPLE_FILES[1]], host[EXAMPLE_FILES[1]]
+    for mode, m in dg["masks"].items():
+        check(same(m, dc["masks"][mode]),
+              f"denoise: mode {mode}'s window masks {tuple(m.shape)} card "
+              f"== CPU port, bitwise")
+    check(same(dg["support"], dc["support"])
+          and abs(dg["auc"] - dc["auc"]) <= AUC_TOL,
+          f"denoise: streaming support card == CPU port, bitwise, AUC "
+          f"within {AUC_TOL} ({dg['auc']!r} / {dc['auc']!r})")
+    sg, sc = gpu[EXAMPLE_FILES[2]], host[EXAMPLE_FILES[2]]
+    for key in ("occupancy", "active", "n_events", "counters"):
+        check(sg[key] == sc[key], f"serve_sensors: {key} card == CPU port")
+    err, ok = close(sg["logits"], sc["logits"], 1e-5)
+    check(ok, f"serve_sensors: logits card vs CPU port within rtol 1e-5 "
+          f"(max |diff| {err:.3g})")
+    log(f"serve_sensors: replay counters {sg['counters']}")
+
+    t0 = time.perf_counter()
+    two, lines = run_example(EXAMPLE_FILES[2], ("--mesh", "2"))
+    torch.cuda.synchronize()
+    secs["serve_sensors_torch.py --mesh 2"] = time.perf_counter() - t0
+    log(f"  serve_sensors --mesh 2 | {lines[0]}")
+    for key in ("occupancy", "active", "n_events", "keep", "counters"):
+        check(two[key] == sg[key],
+              f"serve_sensors --mesh 2: {key} == the unsharded card run's")
+    differ = [f"{part}.{n}" for part in ("frame", "model")
+              for n, v in sg[part].items()
+              if not same(two[part][n][:v.shape[0]], v)]
+    check(not differ and same(two["logits"], sg["logits"]),
+          f"serve_sensors --mesh 2: window and model products == the "
+          f"unsharded card run's, bitwise (differ: {differ})")
+    log(f"examples: seconds {({k: round(v, 2) for k, v in secs.items()})}")
+    return dict(launches=launches, seconds=secs,
+                quickstart_auc=(qg["auc"], qg["auc_i"]),
+                denoise_auc=dg["auc"], surface_ulp=u)
+
+
+def qvga_engine_cfg(eng, rs, cfg):
+    """The serve_sensors FRAME spec and an engine config at ``cfg``'s
+    widths (the paper's ``ISCConfig``), four sensors."""
+    frame = rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask(),
+                           count=rs.count(4))
+    return frame, eng.TSEngineConfig(
+        h=cfg.h, w=cfg.w, polarities=cfg.polarities,
+        n_slots=len(QVGA_SCENES), chunk_capacity=QVGA_CHUNK,
+        cmem_f=cfg.cmem_f, tau_tw=cfg.tau_tw, stcf_radius=cfg.stcf_radius,
+        stcf_threshold=cfg.stcf_threshold, mode="edram", specs=(frame,))
+
+
+def near_v_tw(v, v_tw, radius=None):
+    """Cells whose read is within 4 ULP of V_tw (with ``radius``: cells
+    whose STCF patch holds one)."""
+    from repro_torch.kernels import ref
+
+    near = ref.ulp_distance(v.cpu(), torch.full(v.shape, v_tw)) <= 4
+    if radius is None:
+        return near
+    return ref.stcf_support_ref(near, radius, include_self=True) > 0
+
+
+def equal_or_near(what, a, b, near) -> None:
+    """Check two comparator products bitwise, saying how many cells
+    differ and whether every one of them sits next to V_tw."""
+    diff = a.cpu() != b.cpu()
+    n = int(diff.sum())
+    check(n == 0, f"{what} card == CPU port, bitwise ({n} of {diff.numel()}"
+          f" cells differ{'' if not n else ', all next to V_tw: '}"
+          f"{'' if not n else bool((diff <= near).all())})")
+
+
+def qvga_shims(_lib, aer, rs, eng, ecfg, bursts) -> dict:
+    """Phase 14 (b), part 2: the FRAME loop's bursts through the
+    deprecated shims on one card engine and the session/spec path on a
+    twin, window by window: every output bitwise, the same launches."""
+    from repro_torch.events import datasets
+
+    n_win = len(bursts) // 2
+    t_end = n_win * QVGA_WINDOW_S
+    shim, twin = eng.TimeSurfaceEngine(ecfg), eng.TimeSurfaceEngine(ecfg)
+    mask_spec, stcf_spec = shim_specs(rs)
+    slots = [shim.acquire() for _ in QVGA_SCENES]
+    cams = [twin.attach() for _ in QVGA_SCENES]
+    per_step, mismatched, shim_n = {"shims": [], "spec": []}, [], {}
+    for w in range(n_win):
+        t_now = (w + 1) * QVGA_WINDOW_S
+        b1, b2 = bursts[2 * w], bursts[2 * w + 1]
+
+        def shim_step():
+            shim.ingest(list(zip(slots, b1)))
+            v = shim.ingest_and_read(list(zip(slots, b2)), t_now)
+            return [v, *shim.readout_with_mask(t_now),
+                    shim.support_map(t_now)]
+
+        def spec_step():
+            twin.push(list(zip(cams, b1)))
+            v = twin.serve_step(list(zip(cams, b2)), rs.SURFACE_SPEC,
+                                t_now)["surface"]
+            both = twin.read(mask_spec, t_now)
+            return [v, both["surface"], both["mask"],
+                    twin.read(stcf_spec, t_now)["stcf"]]
+
+        got, n_shim = counted(_lib, shim_step)
+        want, n_spec = counted(_lib, spec_step)
+        per_step["shims"].append(n_shim)
+        per_step["spec"].append(n_spec)
+        if not all(same(a, b) for a, b in zip(got, want)):
+            mismatched.append(w)
+    last = [shim.readout(t_end), *shim.readout_with_mask(t_end),
+            shim.support_map(t_end)]
+    shim_sae = shim.state.surfaces.sae.clone()
+    label = aer.pack(datasets.dnd21_like(
+        "hotel_bar", ecfg.h, ecfg.w, QVGA_DURATION,
+        seed=QVGA_LABEL_SEED).window(t_end - QVGA_WINDOW_S, t_end))
+    (sup, sig), n_label = counted(_lib, lambda: shim.ingest(
+        [(slots[1], label)], with_support=True)[0])
+    sup_t, sig_t = cams[1].push_labeled(label)
+    shim.release(slots[1])
+    cams[1].detach()
+    after = (shim.readout(t_end), twin.read(rs.SURFACE_SPEC, t_end)["surface"])
+    for k in ENGINE_KERNELS:
+        shim_n[k] = (sum(n[k] for n in per_step["shims"]) + n_label[k])
+    log(f"isc-qvga: launches a window under the shims {per_step['shims']}; "
+        f"under the session/spec path {per_step['spec']}; the labeled "
+        f"push {n_label}")
+    check(per_step["shims"] == per_step["spec"],
+          "isc-qvga: the shims launch what the session/spec path launches, "
+          "window by window")
+    for k in ("ts_decay", "stcf_support", "chunk_scatter"):
+        check(shim_n[k] > 0, f"isc-qvga: {k} launched under the shims "
+              f"({shim_n[k]})")
+    check(not mismatched and same(sup, sup_t) and same(sig, sig_t)
+          and same(*after),
+          f"isc-qvga: every shim output == its session/spec twin's, "
+          f"bitwise: ingest_and_read, readout_with_mask, support_map at "
+          f"{n_win} windows (mismatched: {mismatched}), "
+          f"ingest(with_support=True) ({sup.numel()} labels), readout "
+          f"after release")
+    return dict(shim_launches=shim_n, shim_sae=shim_sae, last=last,
+                launches_per_window={k: [sum(n.values()) for n in v]
+                                     for k, v in per_step.items()})
+
+
+def shim_specs(rs):
+    """The specs the ``readout_with_mask`` and ``support_map`` shims read."""
+    return (rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask()),
+            rs.ReadoutSpec(stcf=rs.stcf()))
+
+
+def qvga_serve(dev, mods, cfg, bursts, card) -> dict:
+    """Phase 14 (b), part 1: the four-scene mix at the array's widths
+    through ``serve_step`` with the FRAME spec (timed), then the shims
+    and their twin (``qvga_shims``), on the card; then a CPU engine's
+    FRAME loop on the same events."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    frame, ecfg = qvga_engine_cfg(eng, rs, cfg)
+    n_win = len(bursts) // 2
+    t_end = n_win * QVGA_WINDOW_S
+
+    def frame_loop(engine):
+        cams = [engine.attach() for _ in QVGA_SCENES]
+        outs, step_ms = [], []
+        for b, words in enumerate(bursts):
+            t_now = (b // 2 + 1) * QVGA_WINDOW_S
+            t0 = time.perf_counter()
+            out = engine.serve_step(list(zip(cams, words)), frame, t_now)
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if b % 2:
+                outs.append({k: v.cpu() for k, v in out.items()})
+        return outs, step_ms
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    engine = eng.TimeSurfaceEngine(ecfg)
+    outs, step_ms = frame_loop(engine)
+    frame_launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+    n_events = int(engine.state.surfaces.n_events.sum())
+    steady = step_ms[2:]          # the first window pays first-touch costs
+    p50, p99 = np.percentile(steady, 50), np.percentile(steady, 99)
+    log(f"isc-qvga on {card}: {len(QVGA_SCENES)} sensors x {ecfg.h}x"
+        f"{ecfg.w}, {n_win} windows x 2 bursts, {n_events} events; "
+        f"serve_step (FRAME: surface, mask, count) over windows 2..{n_win}: "
+        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms (dense fill p50 "
+        f"{np.percentile(steady[0::2], 50):.3f} ms, incremental p50 "
+        f"{np.percentile(steady[1::2], 50):.3f} ms); every step, ms: "
+        f"{[round(x, 3) for x in step_ms]}")
+    log(f"isc-qvga: FRAME loop launches {frame_launches}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        shims = qvga_shims(_lib, aer, rs, eng, ecfg, bursts)
+    launches = {k: _lib.LAUNCHES[k] for k in ENGINE_KERNELS}
+
+    # the CPU port: the FRAME loop on the same events
+    t0 = time.perf_counter()
+    host = eng.TimeSurfaceEngine(ecfg, device="cpu")
+    host_outs, _ = frame_loop(host)
+    cpu_s = time.perf_counter() - t0
+    g, c = engine.state, host.state
+    for name, a, b in (("sae", g.surfaces.sae, c.surfaces.sae),
+                       ("shim engine's sae", shims["shim_sae"],
+                        c.surfaces.sae),
+                       ("counts", g.counts, c.counts),
+                       ("n_events", g.surfaces.n_events, c.surfaces.n_events)):
+        check(same(a, b), f"isc-qvga: {name} card == CPU port, bitwise")
+    u = max(ulps(a["surface"], b["surface"]) for a, b in zip(outs, host_outs))
+    check(u <= QVGA_ULP, f"isc-qvga: FRAME surfaces at {n_win} windows card "
+          f"vs CPU port within {QVGA_ULP} ULP ({u})")
+    check(all(same(a["count"], b["count"]) for a, b in zip(outs, host_outs)),
+          f"isc-qvga: FRAME counts at {n_win} windows card == CPU port, "
+          "bitwise")
+    v_tw = ecfg.v_tw()
+    equal_or_near(f"isc-qvga: FRAME masks at {n_win} windows",
+                  torch.stack([o["mask"] for o in outs]),
+                  torch.stack([o["mask"] for o in host_outs]),
+                  torch.stack([near_v_tw(o["surface"], v_tw)
+                               for o in host_outs]))
+    mask_spec, stcf_spec = shim_specs(rs)
+    ref_read = host.read(mask_spec, t_end)
+    ref_sup = host.read(stcf_spec, t_end)["stcf"]
+    last = shims["last"]
+    equal_or_near("isc-qvga: the shims' readout_with_mask mask at the end",
+                  last[2], ref_read["mask"],
+                  near_v_tw(ref_read["surface"], v_tw))
+    equal_or_near("isc-qvga: the shims' support_map at the end", last[3],
+                  ref_sup, near_v_tw(ref_read["surface"], v_tw,
+                                     ecfg.stcf_radius))
+    u = ulps(last[0], ref_read["surface"])
+    check(u <= QVGA_ULP, f"isc-qvga: the shims' readout at the end card vs "
+          f"CPU port within {QVGA_ULP} ULP ({u})")
+    log(f"isc-qvga: CPU port's FRAME loop and reads {cpu_s:.1f} s")
+    return dict(engine=engine, ecfg=ecfg, t_end=t_end, launches=launches,
+                frame_launches=frame_launches, n_events=n_events,
+                serve_step_p50_ms=p50, serve_step_p99_ms=p99,
+                step_ms=step_ms, shim_launches=shims["shim_launches"],
+                launches_per_window=shims["launches_per_window"])
+
+
+def qvga_quickstart(dev, cfg, card) -> dict:
+    """Phase 14 (b), part 3: the quickstart pipeline at the array's widths
+    on the whole ``hotel_bar`` stream, on the card and on the CPU port:
+    supports bitwise, the analog and ideal AUCs and their gap (the
+    paper's STCF equivalence), STCF events/s on the card."""
+    from repro_torch.core import prng, stcf
+    from repro_torch.core.isc_array import ISCArray
+    from repro_torch.events import datasets, pipeline
+
+    stream = datasets.dnd21_like("hotel_bar", cfg.h, cfg.w,
+                                        QVGA_DURATION, seed=0)
+    cap = -(-stream.n // 128) * 128
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        arr = ISCArray(cfg.h, cfg.w, mode=cfg.mode, device=where)
+        batch = pipeline.to_event_batch(stream, cap, device=where)
+        state = arr.write(arr.init(prng.PRNGKey(0)), batch)
+        surface = arr.read(state, QVGA_DURATION)
+        labels = torch.from_numpy(np.pad(stream.is_signal,
+                                         (0, cap - stream.n))).to(where)
+        r = {"surface": surface.cpu()}
+        for mode in ("edram", "ideal"):
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sup, _ = stcf.stcf_chunked(batch, cfg.h, cfg.w, chunk=128,
+                                       mode=mode)
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            r[f"{mode}_s"] = time.perf_counter() - t0
+            r[mode] = sup.cpu()
+            r[f"{mode}_auc"] = float(stcf.roc_curve(sup, labels,
+                                                    batch.valid)[2])
+        runs.append(r)
+    g, c = runs
+    gap = abs(g["ideal_auc"] - g["edram_auc"])
+    log(f"isc-qvga quickstart: hotel_bar at {cfg.h}x{cfg.w}, {stream.n} "
+        f"events padded to {cap}; STCF AUC analog {g['edram_auc']:.4f}, "
+        f"ideal {g['ideal_auc']:.4f}, gap {gap:.4f}")
+    eps = {m: stream.n / g[f"{m}_s"] for m in ("edram", "ideal")}
+    log(f"isc-qvga quickstart on {card}: stcf_chunked {g['edram_s']:.3f} s "
+        f"analog ({eps['edram']:.1f} events/s), {g['ideal_s']:.3f} s ideal "
+        f"({eps['ideal']:.1f} events/s); CPU port {c['edram_s']:.3f} s, "
+        f"{c['ideal_s']:.3f} s")
+    check(same(g["edram"], c["edram"]) and same(g["ideal"], c["ideal"]),
+          f"isc-qvga quickstart: supports (analog and ideal) card == CPU "
+          f"port, bitwise ({cap} events)")
+    check(abs(g["edram_auc"] - c["edram_auc"]) <= AUC_TOL
+          and abs(g["ideal_auc"] - c["ideal_auc"]) <= AUC_TOL,
+          f"isc-qvga quickstart: AUCs card vs CPU port within {AUC_TOL} "
+          f"(analog {g['edram_auc']!r} / {c['edram_auc']!r}, ideal "
+          f"{g['ideal_auc']!r} / {c['ideal_auc']!r})")
+    u = ulps(g["surface"], c["surface"])
+    check(u <= QVGA_ULP, f"isc-qvga quickstart: analog surface card vs CPU "
+          f"port within {QVGA_ULP} ULP ({u})")
+    return dict(events=stream.n, padded=cap, auc=g["edram_auc"],
+                auc_ideal=g["ideal_auc"], auc_gap=gap,
+                stcf_events_per_s=eps, stcf_s=(g["edram_s"], g["ideal_s"]))
+
+
+def qvga_fused_ref(dev, mods, qs) -> None:
+    """Phase 14 (b), part 4: ``ref.ts_fused_ref`` on the card against the
+    ``chunk_scatter`` kernel then the ``ts_decay`` kernel on one 10 ms
+    push into sensor 0's surface: SAE, surface and mask bitwise.  Its
+    launches are a check's and not counted."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.events import datasets
+    from repro_torch.kernels import ref
+
+    ecfg, t_end = qs["ecfg"], qs["t_end"]
+    s = datasets.dnd21_like("driving", ecfg.h, ecfg.w, QVGA_DURATION,
+                                   seed=QVGA_FUSED_SEED)
+    ev = pipeline.to_event_batch(s.window(t_end - 0.01, t_end), device=dev)
+    sae = qs["engine"].state.surfaces.sae[0].clone()
+    params, v_tw = ecfg.decay_params(), ecfg.v_tw()
+    p = torch.zeros_like(ev.p)             # one plane: polarity merged
+    snap = dict(_lib.LAUNCHES)
+    want = ref.ts_fused_ref(sae, ev.x, ev.y, p, ev.t, t_end, params, v_tw)
+    new = sae[None].clone()
+    ops.chunk_scatter_(new, torch.zeros(1, dtype=torch.int32, device=dev),
+                       ts.EventBatch(*(f[None] for f in ev)))
+    got = (new[0], *ops.ts_decay_with_mask(new[0], t_end, params, v_tw))
+    torch.cuda.synchronize()
+    _lib.LAUNCHES.update(snap)
+    check(all(same(a, b) for a, b in zip(got, want))
+          and not same(want[0], sae),
+          f"isc-qvga: ref.ts_fused_ref == chunk_scatter -> ts_decay kernels "
+          f"on a 10 ms push of {int(ev.valid.sum())} events: SAE, surface "
+          f"and mask bitwise")
+
+
+def leftovers_phase(dev, mods, card) -> dict:
+    """Phase 14: the paper-facing leftovers -- the three torch examples
+    (a) and the paper's ``isc-qvga`` array at full width (b)."""
+    _lib, ops, ts, aer, pipeline, rs, eng = mods
+    from repro_torch.configs import get_config
+    from repro_torch.events import datasets
+
+    times = {}
+    t0 = time.perf_counter()
+    ex = examples_phase(_lib)
+    times["examples"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_config(ISC_ARCH)
+    check((cfg.h, cfg.w, cfg.polarities) == (240, 320, 1),
+          f"{ISC_ARCH}: {cfg}")
+    streams = [datasets.dnd21_like(k, cfg.h, cfg.w, QVGA_DURATION, seed=i)
+               for i, k in enumerate(QVGA_SCENES)]
+    half = QVGA_WINDOW_S / 2
+    n_bursts = 2 * round(QVGA_DURATION / QVGA_WINDOW_S)
+    bursts = [[aer.pack(s.window(b * half, (b + 1) * half)) for s in streams]
+              for b in range(n_bursts)]
+    log(f"isc-qvga: {[s.n for s in streams]} events "
+        f"({time.perf_counter() - t0:.1f} s of host data)")
+    times["data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qs = qvga_serve(dev, mods, cfg, bursts, card)
+    times["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qq = qvga_quickstart(dev, cfg, card)
+    times["quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qvga_fused_ref(dev, mods, qs)
+    times["ts_fused_ref"] = time.perf_counter() - t0
+    log(f"leftovers: phase 14 seconds by part "
+        f"{ {k: round(v, 1) for k, v in times.items()} }")
+    qs = {k: v for k, v in qs.items() if k not in ("engine", "ecfg")}
+    return dict(examples=ex, isc_qvga=qs, quickstart=qq, seconds=times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
@@ -4106,13 +4593,17 @@ def main() -> int:
     hybrid = hybrid_phase(dev, card)
     torch.cuda.synchronize()
     phase_s["hybrid and moe lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    left = leftovers_phase(dev, mods, card)
+    torch.cuda.synchronize()
+    phase_s["paper-facing leftovers"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
                     "training": {**trn, "full": {
                         k: v for k, v in trn["full"].items()
                         if k != "launches"}}, "dense": dense,
-                    "hybrid": hybrid}, default=str))
+                    "hybrid": hybrid, "leftovers": left}, default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -4134,6 +4625,10 @@ def main() -> int:
                             hybrid_path_launches=hybrid["hybrid"][
                                 "launches"].get(name, 0),
                             moe_path_launches=hybrid["moe"][
+                                "launches"].get(name, 0),
+                            examples_path_launches=left["examples"][
+                                "launches"].get(name, 0),
+                            isc_qvga_path_launches=left["isc_qvga"][
                                 "launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
         if name == "decay_scan":

@@ -1,9 +1,9 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers.
 
-The port serves every LM architecture of the reference's registry, each
-config a field-for-field copy of the reference's; ``isc-qvga`` (the
-time-surface array's ``ISCConfig``) raises ``NotImplementedError`` until
-its slice of the port lands (ROADMAP.md, queue 1).
+Every entry of the reference's registry resolves, each config a
+field-for-field copy of the reference's: the LM architectures
+(``ModelConfig``) and ``isc-qvga``, the paper's time-surface array
+(``ISCConfig``), which ``ARCH_NAMES`` leaves out as the reference's does.
 """
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec  # noqa: F401
 
@@ -18,24 +18,17 @@ _ARCH_MODULES = {
     "mamba2-2.7b": "mamba2_2p7b",
     "internvl2-26b": "internvl2_26b",
     "hymba-1.5b": "hymba_1p5b",
+    "isc-qvga": "isc_qvga",
 }
 
-#: architectures of the reference's registry not ported yet
-NOT_PORTED = ("isc-qvga",)
-
-ARCH_NAMES = list(_ARCH_MODULES)
+ARCH_NAMES = [n for n in _ARCH_MODULES if n != "isc-qvga"]
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str):
     import importlib
 
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (see "
-            f"ROADMAP.md, queue 1); ported: {ARCH_NAMES}")
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}, "
-                       f"not yet ported: {list(NOT_PORTED)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG

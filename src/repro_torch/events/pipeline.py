@@ -1,8 +1,9 @@
 """Host event streams -> fixed-capacity ``EventBatch`` tensors, and the
 synthetic LM token pipeline.
 
-The port of ``to_event_batch``, ``window_chunks``, ``TokenPipelineState``
-and ``TokenPipeline`` from ``repro.events.pipeline``.  Padding is
+The port of ``to_event_batch``, ``window_chunks`` (with its oracle
+``_window_chunks_reference``), ``TokenPipelineState`` and
+``TokenPipeline`` from ``repro.events.pipeline``.  Padding is
 ``valid=False`` zeros; the scatter writes nothing for invalid events, so
 pad values never reach a surface.  The token pipeline is numpy only and
 yields the reference's tokens bitwise.
@@ -76,6 +77,23 @@ def window_chunks(s: syn.EventStream, window_s: float,
     valid[idx[keep], pos[keep]] = True
     return _batch((fill(s.x, np.int32), fill(s.y, np.int32),
                    fill(s.t, np.float32), fill(s.p, np.int32), valid), device)
+
+
+def _window_chunks_reference(s: syn.EventStream, window_s: float,
+                             capacity_per_window: int,
+                             device=None) -> ts.EventBatch:
+    """The per-window loop (O(K·N) host work): the behavioral oracle
+    ``window_chunks`` must match field for field."""
+    k = int(np.ceil(s.t[-1] / window_s)) if s.n else 1
+    idx = (np.minimum((s.t / window_s).astype(np.int64), k - 1) if s.n
+           else np.zeros(0, np.int64))
+    batches = []
+    for wi in range(k):
+        m = idx == wi
+        sub = syn.EventStream(x=s.x[m], y=s.y[m], t=s.t[m], p=s.p[m],
+                              is_signal=s.is_signal[m], h=s.h, w=s.w)
+        batches.append(to_event_batch(sub, capacity_per_window, device))
+    return ts.EventBatch(*(torch.stack(f) for f in zip(*batches)))
 
 
 @dataclasses.dataclass

@@ -47,6 +47,29 @@ def ts_decay_ref(sae: torch.Tensor, t_now, params,
     return v, v > f32(v_tw, dev)
 
 
+def ts_fused_ref(sae: torch.Tensor, x, y, p, t, t_now, params,
+                 v_tw: Optional[float] = None):
+    """Max-combine scatter, then the decay read: the plain version of the
+    ``chunk_scatter`` -> ``ts_decay`` pair.
+
+    ``sae``: (P, H, W); ``x``/``y``/``p``: (N,) int32 coordinates
+    (polarity merged by the caller); ``t``: (N,) float32 with invalid
+    events masked to -inf by the caller (they never win the max).
+    Out-of-range coordinates are dropped before the scatter, so a
+    negative index never wraps.  Returns ``(new_sae, surface)`` or
+    ``(new_sae, surface, mask)``; ``sae`` is left as it was.
+    """
+    pp, h, w = sae.shape
+    ok = (x >= 0) & (x < w) & (y >= 0) & (y < h) & (p >= 0) & (p < pp)
+    idx = (p[ok].long() * h + y[ok].long()) * w + x[ok].long()
+    new = sae.clone()
+    ts.scatter_max_(new.view(-1), idx, t[ok])
+    out = ts_decay_ref(new, t_now, params, v_tw=v_tw)
+    if v_tw is None:
+        return new, out
+    return (new,) + out
+
+
 def stcf_support_ref(mask: torch.Tensor, radius: int,
                      include_self: bool = False) -> torch.Tensor:
     """(2r+1)^2 patch count of a (..., H, W) bool mask, zero outside."""

@@ -43,6 +43,7 @@ state.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,6 +51,7 @@ import torch
 
 from repro_torch.core import edram
 from repro_torch.core import representations as representations_mod
+from repro_torch.core import stcf as stcf_mod
 from repro_torch.device import f32
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
@@ -63,7 +65,7 @@ __all__ = [
     "count", "ebbi", "sae_raw", "ts_quantized", "classify", "denoise",
     "SURFACE_SPEC", "needs_counts", "CompiledSpec", "compile_spec",
     "resolve_static", "resolve_dynamic", "read_stage0", "apply_heads",
-    "read_compiled",
+    "read_compiled", "read_products",
 ]
 
 
@@ -109,6 +111,11 @@ class Stcf:
     tau_tw: Optional[float] = None   # None = engine's correlation window
     include_self: bool = False
     decay: Surface = Surface()
+
+    @classmethod
+    def from_config(cls, cfg: stcf_mod.STCFConfig) -> "Stcf":
+        return cls(radius=cfg.radius, tau_tw=cfg.tau_tw,
+                   include_self=cfg.include_self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -539,3 +546,36 @@ def read_compiled(sae, counts, t_now, compiled: CompiledSpec, cfg,
     if compiled.heads:
         out.update(apply_heads(out, head_params, compiled, cfg))
     return {name: out[name] for name in compiled.spec.names}
+
+
+_read_products_warned = False
+
+
+def read_products(sae, counts, t_now, dynamic: Dict[str, edram.DecayParams],
+                  spec: ReadoutSpec, cfg, *,
+                  statics: Tuple[Tuple[str, float], ...] = (),
+                  head_params: Optional[Dict[str, dict]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Deprecated flat-spec entry (one release of grace): use
+    ``compile_spec`` + ``read_compiled``.
+
+    Value-identical to the staged path -- it *is* the staged path, called
+    through a plan built on the spot from the given ``dynamic`` and
+    ``statics`` (which must match ``resolve_dynamic`` / ``resolve_static``
+    when the spec needs them).  Warns once per process.  The reference's
+    ``backend`` argument is gone: the tensor's device picks the kernel or
+    its plain version, as in ``read_compiled``; ``statics`` and
+    ``head_params`` are keyword-only, so an old call passing a backend
+    string positionally raises ``TypeError``.
+    """
+    global _read_products_warned
+    if not _read_products_warned:
+        _read_products_warned = True
+        warnings.warn(
+            "serve.spec.read_products() is deprecated; plan the spec "
+            "with compile_spec(spec, cfg) and call read_compiled()",
+            DeprecationWarning, stacklevel=2,
+        )
+    compiled = CompiledSpec(spec, spec.stage0(), spec.head_products(),
+                            dynamic, dict(statics))
+    return read_compiled(sae, counts, t_now, compiled, cfg, head_params)

@@ -82,12 +82,17 @@ shard only); a session's ``read`` reads its own shard only.  Per-slot
 results are bitwise the one-device engine's at any shard count: the math
 per slot never changes, only where the slot lives.
 
-The deprecated method-per-feature shims are not ported (ROADMAP queue 1
-item 5).
+**Deprecated shims** -- the pre-spec method names (``acquire``,
+``release``, ``ingest``, ``ingest_and_read``, ``readout``,
+``readout_with_mask``, ``support_map``) stay for one release of grace.
+Each warns once per engine and name, then forwards to ``attach`` /
+``detach`` / ``push`` / ``read`` / ``serve_step``, so it launches the same
+kernels and returns the same bits as the session/spec call.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -501,6 +506,11 @@ IngestItem = Tuple[Union[int, SensorSession],
 _FIELDS = (("x", np.int32), ("y", np.int32), ("t", np.float32),
            ("p", np.int32), ("valid", np.bool_))
 
+# the specs the deprecated shims read
+_SURFACE_MASK_SPEC = spec_mod.ReadoutSpec(surface=spec_mod.Surface(),
+                                          mask=spec_mod.Mask())
+_STCF_SPEC = spec_mod.ReadoutSpec(stcf=spec_mod.Stcf())
+
 
 class TimeSurfaceEngine:
     """Host-facing multi-sensor serving engine over the slot pool::
@@ -553,6 +563,7 @@ class TimeSurfaceEngine:
                                Optional[spec_mod.ReadoutSpec]] = {}
         # one ring per shard: its own pinned staging sets and copy stream
         self._rings = [IngestRing(cfg.chunk_capacity, dev) for dev in devices]
+        self._warned: set = set()   # deprecated shim names already warned
 
     # -- shards ----------------------------------------------------------------
     @property
@@ -1073,6 +1084,67 @@ class TimeSurfaceEngine:
                 for x in _leaves(state)]))
         self._cache_t = None
         self._cache_surface = None
+
+    # -- deprecated method-per-feature shims (one release of grace) ----------
+    def _deprecated(self, name: str, use: str) -> None:
+        if name in self._warned:
+            return
+        self._warned.add(name)
+        warnings.warn(
+            f"TimeSurfaceEngine.{name}() is deprecated; use {use} "
+            "(see the serve.spec module docstring)",
+            DeprecationWarning, stacklevel=3,
+        )
+
+    def acquire(self) -> int:
+        """Deprecated: use ``attach()`` (returns a ``SensorSession``)."""
+        self._deprecated("acquire", "attach()")
+        return self.attach().slot
+
+    def release(self, slot: int) -> None:
+        """Deprecated: use ``SensorSession.detach()``."""
+        self._deprecated("release", "SensorSession.detach()")
+        self._check_acquired(slot)
+        self._sessions[slot].detach()   # every live slot has its session
+
+    def ingest(self, items: Sequence[IngestItem], with_support: bool = False):
+        """Deprecated: use ``SensorSession.push`` / ``push_labeled`` (or
+        the pool-level ``push`` / ``serve_step`` for multi-sensor steps).
+        With ``with_support`` returns ``push_labeled``'s ``(support,
+        is_signal)`` per item."""
+        self._deprecated("ingest", "SensorSession.push()/push_labeled()")
+        if with_support:
+            return self._ingest_labeled(items)
+        self.push(items)
+        return None
+
+    def ingest_and_read(self, items: Sequence[IngestItem],
+                        t_now) -> torch.Tensor:
+        """Deprecated: use ``serve_step(items, SURFACE_SPEC, t_now)`` (or
+        ``SensorSession.push_and_read``); returns its ``surface``."""
+        self._deprecated("ingest_and_read", "serve_step(items, spec, t_now)")
+        return self.serve_step(items, spec_mod.SURFACE_SPEC, t_now)["surface"]
+
+    def readout(self, t_now) -> torch.Tensor:
+        """Deprecated: use ``read(ReadoutSpec(surface=surface()), t_now)``;
+        returns that spec's ``surface`` product."""
+        self._deprecated("readout", 'read(spec, t_now)["surface"]')
+        return self.read(spec_mod.SURFACE_SPEC, t_now)["surface"]
+
+    def readout_with_mask(self, t_now):
+        """Deprecated: use ``read`` with a composed
+        ``ReadoutSpec(surface=surface(), mask=mask())``."""
+        self._deprecated(
+            "readout_with_mask",
+            "read(ReadoutSpec(surface=surface(), mask=mask()), t_now)")
+        out = self.read(_SURFACE_MASK_SPEC, t_now)
+        return out["surface"], out["mask"]
+
+    def support_map(self, t_now) -> torch.Tensor:
+        """Deprecated: use ``read`` with a ``stcf()`` product."""
+        self._deprecated("support_map",
+                         "read(ReadoutSpec(stcf=stcf()), t_now)")
+        return self.read(_STCF_SPEC, t_now)["stcf"]
 
     # -- telemetry -----------------------------------------------------------
     def stats(self) -> dict:

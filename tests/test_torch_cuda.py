@@ -1142,3 +1142,120 @@ def test_reduced_hybrid_and_moe_lm_on_card_matches_cpu_port(cuda, arch):
                 assert torch.equal(v.cpu(), b["pos"])
             else:
                 close(v, M.flatten(b)[k])
+
+
+def _shim_words(k):
+    return aer.pack(datasets.dnd21_like(("driving", "hotel_bar")[k % 2], 60,
+                                        100, 0.06, seed=k))
+
+
+def _shim_calls(e, words):
+    """The deprecated shims' walk of ``test_torch_shims.py`` on engine
+    ``e``: every output, in order."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        slots = [e.acquire() for _ in range(2)]
+        e.ingest(list(zip(slots, words[:2])))
+        out = [e.readout(0.08), *e.readout_with_mask(0.08),
+               e.support_map(0.08)]
+        out += [e.ingest_and_read([(slots[0], words[2])], t)
+                for t in (0.08, 0.08, 0.1)]
+        out += list(e.ingest([(slots[1], words[1])], with_support=True)[0])
+        e.release(slots[1])
+        out.append(e.readout(0.1))
+    return out
+
+
+def _session_calls(e, words):
+    """The same walk through the session/spec API."""
+    cams = [e.attach() for _ in range(2)]
+    for cam, w in zip(cams, words[:2]):
+        cam.push(w)
+    both = e.read(rs.ReadoutSpec(surface=rs.surface(), mask=rs.mask()), 0.08)
+    out = [e.read(rs.SURFACE_SPEC, 0.08)["surface"], both["surface"],
+           both["mask"], e.read(rs.ReadoutSpec(stcf=rs.stcf()), 0.08)["stcf"]]
+    out += [e.serve_step([(cams[0].slot, words[2])], rs.SURFACE_SPEC,
+                         t)["surface"] for t in (0.08, 0.08, 0.1)]
+    out += list(cams[1].push_labeled(words[1]))
+    cams[1].detach()
+    out.append(e.read(rs.SURFACE_SPEC, 0.1)["surface"])
+    return out
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_shims_on_card_match_session_path_and_cpu(cuda, shards):
+    """The deprecated shims on the card: each of the three kernels
+    launched under them, every output bitwise the session/spec twin's on
+    the card; against the CPU port's shims, the SAE and label support
+    bitwise, surfaces within 2 ULP, masks and support maps equal away
+    from V_tw."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = eng.TSEngineConfig(h=60, w=100, n_slots=3, chunk_capacity=512)
+
+    def make(device):
+        mesh = make_host_mesh(shards, device=device) if shards else None
+        return eng.TimeSurfaceEngine(cfg, device=device, mesh=mesh)
+
+    words = [_shim_words(k) for k in range(3)]
+    old, twin, cpu = make(cuda), make(cuda), make("cpu")
+    _lib.reset_launches()
+    got = _shim_calls(old, words)
+    assert all(_lib.LAUNCHES[k] > 0 for k in
+               ("ts_decay", "stcf_support", "chunk_scatter")), _lib.LAUNCHES
+    want = _session_calls(twin, words)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(bits(a), bits(b)), i
+    host = _shim_calls(cpu, words)
+    assert torch.equal(bits(old.gather_state().surfaces.sae.cpu()),
+                       bits(cpu.gather_state().surfaces.sae))
+    v = host[0]
+    near = _near(v, cfg.v_tw(), cfg.stcf_radius)
+    for i, (a, b) in enumerate(zip(got, host)):
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            assert int(ref.ulp_distance(a, b).max()) <= 2, i
+        elif i in (2, 3):                     # the mask, the support map
+            assert torch.equal(a[~near], b[~near]), i
+        else:                                 # label support and verdicts
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_ts_fused_ref_on_card_matches_kernels(cuda, with_mask):
+    """``ref.ts_fused_ref`` on the card (plain ops) against the
+    ``chunk_scatter`` kernel followed by the ``ts_decay`` kernel on one
+    QVGA push with out-of-range, -inf-time and duplicate events: SAE,
+    surface and mask bitwise."""
+    g = torch.Generator().manual_seed(5)
+    sae = _sae("cpu", seed=5, shape=(2, 240, 320))
+    n = 60000
+    x = torch.randint(-4, 324, (n,), generator=g, dtype=torch.int32)
+    y = torch.randint(-4, 244, (n,), generator=g, dtype=torch.int32)
+    p = torch.randint(-1, 3, (n,), generator=g, dtype=torch.int32)
+    hot = torch.rand(n, generator=g) < 0.3
+    x[hot], y[hot] = x[hot] % 8, y[hot] % 8
+    t = torch.rand(n, generator=g) * T_NOW
+    t[torch.rand(n, generator=g) < 0.1] = float("-inf")
+    params = edram.decay_params_for_cmem()
+    v_tw = edram.v_tw_for_window(0.024, params) if with_mask else None
+    args = [f.to(cuda) for f in (x, y, p, t)]
+    want = ref.ts_fused_ref(sae.to(cuda), *args, T_NOW, params, v_tw=v_tw)
+    _lib.reset_launches()
+    new = sae.to(cuda)[None].clone()
+    ev = ts.EventBatch(*(f[None] for f in (args[0], args[1], args[3],
+                                           args[2])),
+                       valid=torch.ones((1, n), dtype=torch.bool,
+                                        device=cuda))
+    ops.chunk_scatter_(new, torch.zeros(1, dtype=torch.int32, device=cuda),
+                       ev)
+    got = ((new[0], ops.ts_decay(new[0], T_NOW, params)) if v_tw is None
+           else (new[0], *ops.ts_decay_with_mask(new[0], T_NOW, params,
+                                                 v_tw)))
+    assert _lib.LAUNCHES["chunk_scatter"] == 1
+    assert _lib.LAUNCHES["ts_decay"] == 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
