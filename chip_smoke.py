@@ -21,7 +21,8 @@ shards, 9 the slot pool over several cards where more than one is
 visible, 10 the paper's reconstruction and classification protocols
 trained on the card, 11 the LM trainer on the card, 12 the dense LM
 family on the card, 13 the hybrid and MoE LM families, 14 the three
-time-surface examples and the paper's ``isc-qvga`` array; phase 8 (a) and
+time-surface examples and the paper's ``isc-qvga`` array, 15 the LM
+trainer over a mesh of cards; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -363,6 +364,52 @@ are held to compare against):
    surfaces within 4 ULP; the quickstart's supports bitwise and AUCs
    within 1e-6 (their gap printed); ``ts_fused_ref``'s SAE, surface and mask
    bitwise the kernels'.
+15. **The LM trainer over a mesh** -- the ranks run in child processes
+   (``torch.multiprocessing.spawn``, one NCCL rank a card, after
+   ``torch.cuda.empty_cache()``); a rank that raises fails the run.  TF32
+   off; every time host clock ending in a synchronize and a barrier on
+   every rank.  (a) A ``(1, 1)`` mesh of one rank on card 0:
+   ``qwen3-8b`` at full widths and 2 layers, batch 8 x 2048 in 8
+   microbatches, 2 steps through ``Trainer(mesh=...)`` against the
+   one-card ``Trainer``: losses and every parameter bitwise (every
+   collective over one rank is the identity).  ``moe_sharded`` (``ep``
+   at model = 1) at ``grok-1-314b``'s full widths (8 experts of d_ff
+   32,768, float32 weights drawn on the card) on 256 tokens against the
+   CPU port's on the same inputs: rtol 1e-4, atol 1e-4 x max(1,
+   max|CPU|), no routing flipped, the aux losses within 1e-4 relative.
+   (b) Only where N = min(4, cards) >= 2 (one card: skipped with a
+   line).  1. ``qwen3-8b`` uncut (8.19 B parameters, FSDP over (N, 1),
+   8 microbatches, remat, AdamW at lr 3e-4 with one warm-up step), batch
+   32 x 2048: 1 warm-up and 3 timed steps; ms a step, tokens/s, each
+   card's peak allocated memory, and one more step under
+   ``torch.profiler`` on rank 0 (NCCL kernels against the rest).  Checks:
+   every loss finite, step 3's below step 0's, every card's peak under 80
+   GB.  2. ``mamba2-2.7b`` uncut over (N, 1), batch 8N x 2048 (each card
+   phase 11 (a)'s work): tokens/s against phase 11 (a)'s one-card run,
+   as a share of N x; checks ``decay_scan`` and ``decay_scan_bwd``
+   launched 1,024 and 512 times a step on every rank.  3. ``qwen3-8b``
+   at full widths and 2 layers with float32 activations, batch 32 x
+   256, 3 steps at (1)'s lr over (N, 1), over (2, 2) (N = 4; else
+   (1, N)) and over (N, 1) with ``fsdp_gather_once``, each against the
+   one-card trainer on card 0: losses within 1e-5 relative (step 2's
+   after a step at the whole lr) and AdamW's first moments (the clipped
+   gradients) within rtol 1e-4, atol 1e-4 x max|leaf|.  The parameters'
+   distance is printed, not held: Adam's per-cell normalisation turns a
+   rounding of a cell whose gradient sits near its sum's rounding into
+   a sizeable share of a step.  Float32, because the band is a float32
+   one: in bfloat16 the mesh sums its ranks' bfloat16-rounded partial
+   gradients where one card rounds their sum.  4. The (N, 1)
+   run's checkpoint (whole leaves, gathered to
+   rank 0) restored onto (3)'s second mesh and onto one card: parameters
+   and optimizer state bitwise; then one more step on each: the loss
+   and the first moments in (3)'s bands.  5. ``pipeline_forward`` of N
+   ``tanh(h @ w)`` stages (8 microbatches of (8, 4096)) over N cards:
+   bitwise each microbatch run through the stages in turn on card 0.
+
+``--mesh PART[,PART...]`` runs only those parts of phase 15 over N
+cards (``one`` for (a); ``full``, ``mamba``, ``check`` for (b) 3 and 4,
+``pp``) and exits 0 when every check passed, without the last line:
+the quick rerun of one part on a host of several cards.
 
 Output: progress lines, one JSON line of the kernels, the card's
 ``nvidia-smi`` name and power limit, and last the line
@@ -4482,12 +4529,617 @@ def leftovers_phase(dev, mods, card) -> dict:
     return dict(examples=ex, isc_qvga=qs, quickstart=qq, seconds=times)
 
 
+# ------------------------------------------------- phase 15: over a mesh
+
+MESH_ARCH = "qwen3-8b"
+MESH_ONE = (2, 8, 2048, 2)          # (a): layers, batch, seq, steps
+MESH_MOE = ("grok-1-314b", 1, 256)  # (a): arch, layers, tokens
+MESH_FULL = (32, 2048, 1, 3)        # (b) 1: batch, seq, warm-up, timed steps
+MESH_MAMBA = ("mamba2-2.7b", 2048, 1, 2)   # (b) 2: arch, seq, warm-up, timed
+MESH_CHECK = (2, 32, 256, 3)        # (b) 3, 4: layers, batch, seq, steps
+MESH_PP = (8, 8, 4096)              # (b) 5: microbatches, rows, width
+MESH_TOL = 1e-4    # rtol; atol x max|leaf|: a mesh against one card
+#: the learning rate of the uncut run, whose loss must fall in 3 steps
+#: (the schedule's lr is 0 at step 0; one warm-up step)
+MESH_LR = dict(lr=3e-4, warmup_steps=1)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0.0)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+class MeshRun:
+    """One rank's side of phase 15: its results and failed checks, which
+    ``mesh_rank`` writes for the parent to read."""
+
+    def __init__(self, rank, n, device):
+        self.rank, self.n, self.device = rank, n, device
+        self.res = {"failures": []}
+
+    def log(self, msg, every=False):
+        if every or self.rank == 0:
+            log(f"  mesh rank {self.rank}/{self.n}: {msg}")
+
+    def check(self, ok, what, every=False):
+        if every or self.rank == 0:
+            self.log(f"[{'ok' if ok else 'FAIL'}] {what}", every=True)
+        if not ok:
+            self.res["failures"].append(f"rank {self.rank}: {what}")
+
+
+def _leaf_errors(run, mesh_tree, shards, want, tol):
+    """Gather each leaf of ``mesh_tree`` (on every rank) and compare it on
+    rank 0 with ``want[path]`` (a CPU tensor): the leaves outside rtol =
+    ``tol``, atol = ``tol`` x max|want|, and the worst error as a share
+    of its leaf's max.  ``tol`` None: bitwise."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import module as M
+
+    bad, worst = [], 0.0
+    for (k, x), pl in zip(M.flatten(mesh_tree).items(),
+                          M.flatten(shards).values()):
+        full = SH.gather_full(x, pl)
+        if run.rank == 0:
+            w = want[k].to(full.device)
+            if tol is None:
+                ok = torch.equal(full, w)
+            else:
+                scale = float(w.abs().max())
+                err = float((full - w).abs().max())
+                worst = max(worst, err / max(scale, 1e-30))
+                ok = bool(torch.allclose(full, w, rtol=tol,
+                                         atol=tol * scale))
+            if not ok:
+                bad.append(k)
+        del full
+    return bad, worst
+
+
+def _host_leaves(tree):
+    from repro_torch.models import module as M
+
+    return {k: v.detach().cpu() for k, v in M.flatten(tree).items()}
+
+
+def mesh_one(run):
+    """Phase 15 (a): a mesh of one NCCL rank against the one-card
+    trainer, and ``moe_sharded`` at grok-1's widths against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as M
+    from repro_torch.train import loop
+
+    layers, batch, seq, steps = MESH_ONE
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=layers)
+    mesh = make_test_mesh((1, 1), device=run.device)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    one = loop.Trainer(cfg, loop.TrainerConfig(), device=dev)
+    one.train(TokenPipeline(cfg.vocab, batch, seq, seed=0), steps)
+    want, want_loss = _host_leaves(one.params), [h["loss"] for h in
+                                                 one.history]
+    del one
+    _reset_peak(dev)
+    tr = loop.Trainer(cfg, loop.TrainerConfig(), mesh=mesh)
+    tr.train(TokenPipeline(cfg.vocab, batch, seq, seed=0), steps)
+    got_loss = [h["loss"] for h in tr.history]
+    bad = [k for k, v in M.flatten(tr.params).items()
+           if not torch.equal(v.cpu(), want[k])]
+    _sync(dev)
+    run.check(got_loss == want_loss and not bad,
+              f"{MESH_ARCH} at full widths, {layers} layers, batch {batch} x "
+              f"{seq}, {steps} steps on a (1, 1) mesh: losses {got_loss} and "
+              f"all {len(want)} parameter leaves bitwise the one-card "
+              f"Trainer's (unequal: {bad}) "
+              f"[{time.perf_counter() - t0:.1f} s]")
+    run.res["one"] = dict(losses=got_loss, bitwise=not bad)
+    del tr, want
+    _reset_peak(dev)
+    run.res["moe"] = mesh_moe(run, dev)
+
+
+def mesh_moe(run, dev):
+    """``moe_sharded`` (``ep`` at model = 1) at grok-1's full widths on
+    the card against the CPU port's on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import moe as MOE
+
+    arch, layers, tokens = MESH_MOE
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(15)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    rnd = lambda *shape, fan: (torch.randn(shape, generator=g, device=dev)
+                               / fan ** 0.5)
+    w = {"router": rnd(d, e, fan=d), "we_gate": rnd(e, d, f, fan=d),
+         "we_up": rnd(e, d, f, fan=d), "we_down": rnd(e, f, d, fan=f)}
+    x = rnd(1, tokens, d, fan=1)
+    card_mesh = ProcessMesh(("data", "model"), (1, 1), 0, dev, {})
+    cpu_mesh = ProcessMesh(("data", "model"), (1, 1), 0,
+                           torch.device("cpu"), {})
+    with torch.no_grad():
+        y, aux = MOE.moe_sharded(w, x, cfg, card_mesh)
+        idx = MOE.route(w["router"], x.reshape(-1, d), cfg)[0]
+        wc = {k: v.cpu() for k, v in w.items()}
+        del w
+        yc, auxc = MOE.moe_sharded(wc, x.cpu(), cfg, cpu_mesh)
+        idxc = MOE.route(wc["router"], x.cpu().reshape(-1, d), cfg)[0]
+    flipped = int((idx.cpu() != idxc).any(-1).sum())
+    err, ok = close(y, yc, MESH_TOL)
+    aux_ok = all(abs(float(aux[k]) - float(auxc[k]))
+                 <= MESH_TOL * abs(float(auxc[k])) for k in aux)
+    run.check(flipped == 0 and ok and aux_ok,
+              f"moe_sharded (ep, model = 1) at {arch}'s widths (d_model {d}, "
+              f"{e} experts of {f}), {tokens} tokens, float32: card vs CPU "
+              f"max |err| {err:.3e} within rtol {MESH_TOL}, atol {MESH_TOL} x "
+              f"max(1, max|CPU|); {flipped} routings flipped; aux losses "
+              f"within {MESH_TOL} relative "
+              f"[{time.perf_counter() - t0:.1f} s]")
+    return dict(max_abs_err=err, flipped=flipped)
+
+
+def mesh_cards(run):
+    """Phase 15 (b): the trainer over N cards."""
+    mesh_full(run)
+    mesh_mamba(run)
+    mesh_check(run)
+    mesh_pp(run)
+
+
+def mesh_full(run):
+    """(b) 1: qwen3-8b uncut, FSDP over (N, 1)."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as M
+    from repro_torch.train import loop
+
+    batch, seq, warm, timed = MESH_FULL
+    cfg = get_config(MESH_ARCH)
+    mesh = make_test_mesh((run.n, 1), device=run.device)
+    dev = mesh.device
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    tr = loop.Trainer(cfg, loop.TrainerConfig(**MESH_LR), mesh=mesh)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(math.prod(pl.shape) for pl in M.flatten(tr.shards).values())
+    alloc = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+             else 0) / 2**30
+    run.log(f"{MESH_ARCH} uncut ({cfg.n_layers} layers, {n_params} float32 "
+            f"parameters, fsdp {cfg.fsdp}, {cfg.n_microbatches} "
+            f"microbatches, remat {cfg.remat}) over ({run.n}, 1): each "
+            f"rank's blocks and optimizer state in {init_s:.1f} s, "
+            f"{alloc:.2f} GiB")
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=0)
+
+    def step():
+        _sync(dev)
+        mesh.barrier()
+        t = time.perf_counter()
+        tr.train(pipe, 1)
+        _sync(dev)
+        mesh.barrier()
+        return (time.perf_counter() - t) * 1e3
+
+    warm_ms = [step() for _ in range(warm)]
+    ms = [step() for _ in range(timed)]
+    peak = _peak(dev)
+    med = statistics.median(ms)
+    if run.rank == 0:
+        prof = profiled_kernels(lambda: tr.train(pipe, 1))
+    else:
+        tr.train(pipe, 1)
+        prof = None
+    losses = [h["loss"] for h in tr.history]
+    peaks = [None] * run.n
+    dist.all_gather_object(peaks, peak)
+    tokens = batch * seq
+    run.res["full"] = dict(step_ms=ms, warm_ms=warm_ms, median_ms=med,
+                           tokens_per_s=tokens * 1e3 / med,
+                           peak_gib=[p / 2**30 for p in peaks],
+                           losses=losses, init_s=init_s, params=n_params)
+    if prof is not None:
+        nccl = sum(v for k, v in prof["kernels"].items()
+                   if "nccl" in k.lower())
+        run.res["full"].update(
+            device_ms=prof["device_ms"], nccl_ms=nccl,
+            compute_ms=prof["device_ms"] - nccl, wall_ms=prof["wall_ms"],
+            launches=prof["launches"],
+            top=sorted(((k[:60], v) for k, v in prof["kernels"].items()),
+                       key=lambda kv: -kv[1])[:8])
+        run.log(f"{MESH_ARCH} uncut over {run.n} cards: step ms "
+                f"{[round(v, 1) for v in ms]} -> median {med:.1f} ms, "
+                f"{tokens * 1e3 / med:.1f} tokens/s ({batch} x {seq} a step);"
+                f" peak allocated GiB by card "
+                f"{[round(p / 2**30, 2) for p in peaks]}; losses "
+                f"{[round(v, 4) for v in losses]}")
+        run.log(f"profiled step on rank 0: {prof['device_ms']:.1f} ms device "
+                f"time of {prof['wall_ms']:.1f} ms, NCCL kernels {nccl:.1f} ms "
+                f"({100 * nccl / max(prof['device_ms'], 1e-9):.1f} %), "
+                f"compute {prof['device_ms'] - nccl:.1f} ms; "
+                f"{prof['launches']} kernels")
+    run.check(all(math.isfinite(v) for v in losses)
+              and losses[warm + timed - 1] < losses[0],
+              f"every loss finite; step {warm + timed - 1}'s "
+              f"{losses[warm + timed - 1]:.4f} below step 0's {losses[0]:.4f}")
+    run.check(all(p < 80e9 for p in peaks),
+              f"every card's peak under 80 GB: "
+              f"{[round(p / 1e9, 2) for p in peaks]} GB")
+    del tr
+    _reset_peak(dev)
+
+
+def mesh_mamba(run):
+    """(b) 2: mamba2-2.7b uncut over (N, 1), phase 11 (a)'s work a card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import loop
+
+    arch, seq, warm, timed = MESH_MAMBA
+    cfg = get_config(arch)
+    mesh = make_test_mesh((run.n, 1), device=run.device)
+    dev = mesh.device
+    _reset_peak(dev)
+    tr = loop.Trainer(cfg, loop.TrainerConfig(), mesh=mesh)
+    batch = cfg.n_microbatches * run.n
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=0)
+
+    def step():
+        _sync(dev)
+        mesh.barrier()
+        t = time.perf_counter()
+        tr.train(pipe, 1)
+        _sync(dev)
+        mesh.barrier()
+        return (time.perf_counter() - t) * 1e3
+
+    for _ in range(warm):
+        step()
+    _lib.reset_launches()
+    ms = [step() for _ in range(timed)]
+    launches = {k: v / timed for k, v in _lib.LAUNCHES.items() if v}
+    peak = _peak(dev)
+    med = statistics.median(ms)
+    fwd = 2 * cfg.n_layers * cfg.n_microbatches
+    bwd = cfg.n_layers * cfg.n_microbatches
+    run.check(launches.get("decay_scan") == fwd
+              and launches.get("decay_scan_bwd") == bwd,
+              f"{arch} over {run.n} cards: decay_scan launched {fwd} and "
+              f"decay_scan_bwd {bwd} times a step on this rank ({launches})",
+              every=True)
+    everyone = [None] * run.n
+    dist.all_gather_object(everyone, launches)
+    run.res["mamba"] = dict(step_ms=ms, median_ms=med, batch=batch, seq=seq,
+                            tokens_per_s=batch * seq * 1e3 / med,
+                            peak_gib=peak / 2**30, launches=launches,
+                            launches_by_rank=everyone,
+                            losses=[h["loss"] for h in tr.history])
+    run.log(f"{arch} uncut over {run.n} cards: batch {batch} x {seq}, step ms "
+            f"{[round(v, 1) for v in ms]} -> {batch * seq * 1e3 / med:.1f} "
+            f"tokens/s; peak {peak / 2**30:.2f} GiB on rank 0")
+    del tr
+    _reset_peak(dev)
+
+
+def mesh_check(run):
+    """(b) 3, 4: qwen3-8b at full widths and 2 layers over (N, 1) and
+    (2, 2) against the one-card trainer; ``fsdp_gather_once``; the (N, 1)
+    checkpoint restored onto another mesh and onto one card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.events.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import loop
+
+    layers, batch, seq, steps = MESH_CHECK
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=layers,
+                              dtype="float32")
+    mesh = make_test_mesh((run.n, 1), device=run.device)
+    dev = mesh.device
+    pipe = lambda: TokenPipeline(cfg.vocab, batch, seq, seed=0)
+    t0 = time.perf_counter()
+    want, want_m, want_loss = None, None, None
+    if run.rank == 0:
+        one = loop.Trainer(cfg, loop.TrainerConfig(**MESH_LR), device=dev)
+        one.train(pipe(), steps)
+        want, want_m, want_loss = (_host_leaves(one.params),
+                                   _host_leaves(one.opt_state["m"]),
+                                   [h["loss"] for h in one.history])
+        del one
+        _reset_peak(dev)
+    mesh.barrier()
+    box = [tempfile.mkdtemp(prefix="smoke_mesh_ckpt_") if run.rank == 0
+           else None]
+    dist.broadcast_object_list(box, src=0)
+    ckpt = box[0]
+    alt = (2, 2) if run.n == 4 else (1, run.n)
+    shapes = [((run.n, 1), False), (alt, False), ((run.n, 1), True)]
+    out = {}
+    keep = None
+    for shape, once in shapes:
+        m = make_test_mesh(shape, device=run.device)
+        c = dataclasses.replace(cfg, fsdp_gather_once=once)
+        tr = loop.Trainer(c, loop.TrainerConfig(
+            **MESH_LR,
+            ckpt_dir=ckpt if (shape == (run.n, 1) and not once) else None),
+            mesh=m)
+        tr.train(pipe(), steps)
+        losses = [h["loss"] for h in tr.history]
+        bad, worst = _leaf_errors(run, tr.params, tr.shards, want, MESH_TOL)
+        bad_m, worst_m = _leaf_errors(run, tr.opt_state["m"], tr.shards,
+                                      want_m, MESH_TOL)
+        tag = f"{shape}{' gather-once' if once else ''}"
+        if run.rank == 0:
+            lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, want_loss))
+            run.check(lerr <= 1e-5 and not bad_m,
+                      f"{MESH_ARCH} at full widths, {layers} layers, batch "
+                      f"{batch} x {seq}, {steps} steps over {tag} against "
+                      f"the one-card trainer: losses within {lerr:.2e} "
+                      f"relative (1e-5); AdamW's first moments (the clipped "
+                      f"gradients) in rtol {MESH_TOL}, atol {MESH_TOL} x "
+                      f"max|leaf| (worst {worst_m:.2e} of its leaf's max; "
+                      f"outside: {bad_m})")
+            run.log(f"{tag}: parameters, not held (Adam's per-cell "
+                    f"normalisation): worst {worst:.2e} of a leaf's max, "
+                    f"{len(bad)} leaves outside the band {bad}")
+            out[tag] = dict(loss_rel_err=lerr, worst=worst, worst_m=worst_m)
+        if shape == (run.n, 1) and not once:
+            tr.save()
+            keep = tr
+        else:
+            del tr
+    run.res["check"] = out
+    mesh_restore(run, cfg, keep, ckpt, pipe, steps)
+    del keep
+    _reset_peak(dev)
+    if run.rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    run.log(f"(b) 3, 4 took {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_restore(run, cfg, src, ckpt, pipe, steps):
+    """(b) 4: the (N, 1) checkpoint onto another mesh and one card."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import loop
+
+    t0 = time.perf_counter()
+    alt = (2, 2) if run.n == 4 else (1, run.n)
+    m = make_test_mesh(alt, device=run.device)
+    tcfg = loop.TrainerConfig(**MESH_LR, ckpt_dir=ckpt)
+    tr = loop.Trainer(cfg, tcfg, mesh=m)
+    assert tr.maybe_restore() and tr.step == steps
+    src_state = _host_gather(run, (src.params, src.opt_state),
+                             src._shardings())
+    bad, _ = _leaf_errors(run, (tr.params, tr.opt_state), tr._shardings(),
+                          src_state, None)
+    run.check(not bad, f"the ({run.n}, 1) checkpoint restored onto {alt}: "
+              f"parameters and optimizer state bitwise (unequal: {bad}) "
+              f"[{time.perf_counter() - t0:.1f} s]")
+    one = None
+    if run.rank == 0:
+        one = loop.Trainer(cfg, tcfg, device=m.device)
+        assert one.maybe_restore() and one.step == steps
+        got = _host_leaves((one.params, one.opt_state))
+        bad = [k for k in src_state if not torch.equal(got[k], src_state[k])]
+        run.check(not bad, f"the ({run.n}, 1) checkpoint restored onto one "
+                  f"card: bitwise (unequal: {bad})")
+        del got
+    # one more step on each, from the restored pipeline position
+    p = pipe()
+    p.state = dataclasses.replace(p.state, step=steps)
+    tr.train(p, 1)
+    want = None
+    if one is not None:
+        p = pipe()
+        p.state = dataclasses.replace(p.state, step=steps)
+        one.train(p, 1)
+        want = _host_leaves(one.opt_state["m"])
+        lerr = abs(tr.history[-1]["loss"] - one.history[-1]["loss"]) / abs(
+            one.history[-1]["loss"])
+        del one
+    bad, worst = _leaf_errors(run, tr.opt_state["m"], tr.shards, want,
+                              MESH_TOL)
+    if run.rank == 0:
+        run.check(lerr <= 1e-5 and not bad,
+                  f"one more step after the restore: {alt} against one card, "
+                  f"loss within {lerr:.2e} relative, AdamW's first moments in "
+                  f"the band (worst {worst:.2e}; outside: {bad})")
+    del tr
+
+
+def _host_gather(run, tree, shards):
+    """Every leaf gathered whole, kept on rank 0's host (by path)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import module as M
+
+    out = {}
+    for (k, x), pl in zip(M.flatten(tree).items(),
+                          M.flatten(shards).values()):
+        full = SH.gather_full(x, pl)
+        if run.rank == 0:
+            out[k] = full.cpu()
+        del full
+    return out
+
+
+def mesh_pp(run):
+    """(b) 5: ``pipeline_forward`` over N stages against the stages run
+    in turn on one card, bitwise."""
+    from repro_torch.distributed import pp
+    from repro_torch.launch.mesh import make_test_mesh
+
+    n_micro, mb, d = MESH_PP
+    mesh = make_test_mesh((run.n,), ("stage",), device=run.device)
+    dev = mesh.device
+    g = torch.Generator().manual_seed(5)
+    ws = (torch.randn(run.n, d, d, generator=g) / d ** 0.5).to(dev)
+    x = torch.randn(n_micro, mb, d, generator=g).to(dev)
+    stage = lambda w, h: torch.tanh(h @ w)
+    got = pp.pipeline_forward(stage, ws, x, mesh)
+    if run.rank == 0:
+        # each microbatch through the stages: the pipeline's shapes (a
+        # GEMM of other rows may take another cuBLAS kernel)
+        want = x.clone()
+        for i in range(n_micro):
+            for s in range(run.n):
+                want[i] = stage(ws[s], want[i])
+        run.check(torch.equal(got, want),
+                  f"pipeline_forward: {run.n} stages x {n_micro} microbatches "
+                  f"of ({mb}, {d}) over {run.n} cards bitwise the stages run "
+                  f"in turn on card 0 (bubble {pp.bubble(run.n, n_micro):.3f})")
+
+
+MESH_JOBS = {"one": mesh_one, "cards": mesh_cards, "full": mesh_full,
+             "mamba": mesh_mamba, "check": mesh_check, "pp": mesh_pp}
+
+
+def mesh_rank(rank, n, port, job, out_dir, device_type="cuda"):
+    """One process of phase 15: rank ``rank`` of a world of ``n`` on
+    ``cuda:rank`` (or the CPU), running ``MESH_JOBS[job]`` and writing
+    its results to ``out_dir``."""
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(n),
+                      LOCAL_RANK=str(rank))
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    run = MeshRun(rank, n, "cpu" if device_type == "cpu" else None)
+    MESH_JOBS[job](run)
+    with open(os.path.join(out_dir, f"{job}_{rank}.json"), "w") as f:
+        json.dump(run.res, f, default=float)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_mesh(job: str, n: int, device_type="cuda") -> list:
+    """``MESH_JOBS[job]`` on ``n`` ranks in child processes; their
+    results, by rank.  A rank that raises raises here."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix=f"smoke_mesh_{job}_")
+    try:
+        mp.spawn(mesh_rank, (n, free_port(), job, out, device_type),
+                 nprocs=n, join=True)
+        res = []
+        for r in range(n):
+            with open(os.path.join(out, f"{job}_{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for r in res:
+        for what in r["failures"]:
+            check(False, what)
+    return res
+
+
+def mesh_phase(dev, card, trn) -> dict:
+    """Phase 15: the LM trainer over a mesh of cards."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"mesh: the smoke holds {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+        f" GiB on {dev} before the ranks start")
+    t0 = time.perf_counter()
+    one = spawn_mesh("one", 1)[0]
+    out = dict(one=one, seconds_a=time.perf_counter() - t0)
+    log(f"mesh (a) on {card}: {out['seconds_a']:.1f} s")
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        log("mesh: one card visible; phase 15 (b) runs where there are more")
+        out["cards"] = None
+        return out
+    t0 = time.perf_counter()
+    res = spawn_mesh("cards", n)
+    r0 = res[0]
+    one_card = trn["full"]["tokens_per_s"]
+    mm = r0["mamba"]
+    share = mm["tokens_per_s"] / (n * one_card)
+    log(f"mesh (b) on {n} x {card}: {MESH_ARCH} uncut {r0['full']['median_ms']:.1f}"
+        f" ms a step, {r0['full']['tokens_per_s']:.1f} tokens/s, peak GiB "
+        f"{[round(p, 2) for p in r0['full']['peak_gib']]}; NCCL "
+        f"{r0['full'].get('nccl_ms', 0):.1f} of "
+        f"{r0['full'].get('device_ms', 0):.1f} ms device time on rank 0")
+    log(f"mesh (b) on {n} x {card}: {MESH_MAMBA[0]} {mm['tokens_per_s']:.1f} "
+        f"tokens/s over {n} cards against {one_card:.1f} on one (phase 11 "
+        f"(a)): {100 * share:.1f} % of {n}x")
+    out.update(cards=n, full=r0["full"], mamba=mm, mamba_scaling=share,
+               mamba_one_card_tokens_per_s=one_card, check=r0["check"],
+               peaks_mamba=[r["mamba"]["peak_gib"] for r in res],
+               seconds_b=time.perf_counter() - t0,
+               launches=mm["launches"])
+    log(f"mesh (b): {out['seconds_b']:.1f} s")
+    return out
+
+
+def mesh_parts(parts, card) -> int:
+    """``--mesh``: only the named parts of phase 15, each on its ranks;
+    0 when every check passed."""
+    unknown = sorted(set(parts) - set(MESH_JOBS))
+    if unknown:
+        log(f"chip_smoke: no part {unknown} of phase 15; the parts are "
+            f"{sorted(MESH_JOBS)}")
+        return 2
+    n = min(4, torch.cuda.device_count())
+    for part in parts:
+        ranks = 1 if part == "one" else n
+        t0 = time.perf_counter()
+        res = spawn_mesh(part, ranks)
+        log(f"mesh {part} on {ranks} x {card}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(json.dumps({part: res[0]}, default=float))
+    for f in FAILURES:
+        log(f"  failed: {f}")
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", type=Path, default=None,
                     help="root of another checkout (e.g. the parent "
                     "commit's tree): time its stcf_support and "
                     "chunk_scatter in turns with this tree's")
+    ap.add_argument("--mesh", default=None, metavar="PART[,PART...]",
+                    help="run only these parts of phase 15 (one, full, "
+                    "mamba, check, pp) and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4513,6 +5165,8 @@ def main() -> int:
     log(f"card: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
+    if args.mesh:
+        return mesh_parts(args.mesh.split(","), card)
 
     t0 = time.perf_counter()
     _, info = _lib.library()
@@ -4597,13 +5251,17 @@ def main() -> int:
     left = leftovers_phase(dev, mods, card)
     torch.cuda.synchronize()
     phase_s["paper-facing leftovers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, card, trn)
+    phase_s["lm mesh"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
                     "training": {**trn, "full": {
                         k: v for k, v in trn["full"].items()
                         if k != "launches"}}, "dense": dense,
-                    "hybrid": hybrid, "leftovers": left}, default=str))
+                    "hybrid": hybrid, "leftovers": left, "mesh": mesh},
+                   default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
     kernels = []
@@ -4630,6 +5288,8 @@ def main() -> int:
                                 "launches"].get(name, 0),
                             isc_qvga_path_launches=left["isc_qvga"][
                                 "launches"].get(name, 0),
+                            mesh_path_launches=mesh.get("launches", {}).get(
+                                name, 0),
                             kernel_ms=row["ms"], **row))
         if name == "decay_scan":
             hs = hybrid["decay_scan"]
@@ -4640,7 +5300,9 @@ def main() -> int:
                 hybrid_shape=hs["shape"], hybrid_ms=hs["ms"],
                 hybrid_plain_ms=hs["plain_ms"],
                 hybrid_bound_ms=hs["bound_ms"],
-                hybrid_max_abs_err=hs["max_abs_err"])
+                hybrid_max_abs_err=hs["max_abs_err"],
+                mesh_path_backward_launches=mesh.get("launches", {}).get(
+                    "decay_scan_bwd", 0))
     log(json.dumps({"kernels": kernels}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed:")

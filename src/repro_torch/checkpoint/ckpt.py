@@ -16,6 +16,12 @@ their uint16 bits.  Writes go to ``step_<N>.tmp`` and are renamed into
 place, so a crash mid-write never shows as a checkpoint; ``keep`` bounds
 how many steps stay on disk.  The manifest is msgpack, written and read by
 ``checkpoint.manifest`` (the ``msgpack`` package is not needed).
+
+Over a mesh (``shardings``: each leaf's ``distributed.sharding.Placement``)
+``save`` gathers each whole leaf in turn to rank 0, which writes the same
+files, and ``restore`` reads each rank's block of each file (memory-
+mapped), so a checkpoint written on one mesh restores onto any other, or
+onto one device.
 """
 from __future__ import annotations
 
@@ -60,23 +66,43 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, tree, extra: Optional[Dict] = None,
-             block: bool = True) -> None:
+             block: bool = True, shardings=None) -> None:
         """Write ``tree`` as step ``step``.  The copy to the host is
         synchronous; with ``block=False`` the files are written by a thread
-        (``wait`` joins it)."""
+        (``wait`` joins it).  With ``shardings`` every rank of the mesh
+        calls this with its blocks; rank 0 writes the whole leaves and the
+        call returns on every rank once they are on disk."""
         items = list(M.flatten(tree, sep="/").items())
         for k, v in items:
             if v.dtype not in _DTYPES:
                 raise TypeError(f"{k}: cannot checkpoint dtype {v.dtype}")
-        host = [(k, _host(v)) for k, v in items]
+        mesh = None
+        if shardings is not None:
+            pls = list(M.flatten(shardings, sep="/").values())
+            mesh = pls[0].mesh
+            from repro_torch.distributed.sharding import gather_full
+            host = []
+            for (k, v), pl in zip(items, pls):
+                full = gather_full(v, pl)
+                if mesh.rank == 0:
+                    host.append((k, _host(full)))
+                del full
+            block = True
+        else:
+            host = [(k, _host(v)) for k, v in items]
         manifest = {
             "step": int(step),
-            "leaves": [{"key": k, "shape": list(v.shape),
-                        "dtype": _DTYPES[v.dtype]} for k, v in items],
+            "leaves": [{"key": k, "shape": list(a.shape),
+                        "dtype": _DTYPES[v.dtype]}
+                       for (k, v), (_, a) in zip(items, host)],
             "extra": extra or {},
         }
         self.wait()
-        if block:
+        if mesh is not None:
+            if mesh.rank == 0:
+                self._write(step, host, manifest)
+            mesh.barrier()
+        elif block:
             self._write(step, host, manifest)
         else:
             self._thread = threading.Thread(
@@ -118,15 +144,18 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, template, step: Optional[int] = None, device=None,
-                into: bool = False) -> Tuple[Any, Dict]:
+                into: bool = False, shardings=None) -> Tuple[Any, Dict]:
         """Restore step ``step`` (default: the latest) into the structure
         of ``template``, whose leaves give the shape and dtype each stored
         array must have (tensors, or ``ParamDef``s).  Leaves land on
         ``device`` (default: the CUDA device; raises when there is none);
         with ``into`` each is copied into ``template``'s own tensor, one
-        leaf at a time, and ``template`` is returned.  Returns ``(tree,
-        extra)``; raises ``FileNotFoundError`` when there is no such step
-        or leaf file, ``ValueError`` on a shape mismatch."""
+        leaf at a time, and ``template`` is returned.  With ``shardings``
+        (a tree like ``template`` of placements) each stored leaf must
+        have its placement's whole shape, and only this rank's block is
+        read, onto any mesh.  Returns ``(tree, extra)``; raises
+        ``FileNotFoundError`` when there is no such step or leaf file,
+        ``ValueError`` on a shape mismatch."""
         device = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -135,12 +164,18 @@ class Checkpointer:
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.msgpack"), "rb") as f:
             manifest = mp.unpackb(f.read())
+        pls = (M.flatten(shardings, sep="/") if shardings is not None
+               else {})
         leaves = {}
         for k, tmpl in M.flatten(template, sep="/").items():
-            arr = np.load(os.path.join(path, k.replace("/", "__") + ".npy"))
-            if tuple(arr.shape) != tuple(tmpl.shape):
+            arr = np.load(os.path.join(path, k.replace("/", "__") + ".npy"),
+                          mmap_mode="r" if k in pls else None)
+            want = pls[k].shape if k in pls else tuple(tmpl.shape)
+            if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"{k}: stored shape {arr.shape} != "
-                                 f"template shape {tuple(tmpl.shape)}")
+                                 f"template shape {tuple(want)}")
+            if k in pls:
+                arr = np.array(arr[pls[k].block()])
             if arr.dtype == np.uint16 and tmpl.dtype == torch.bfloat16:
                 x = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:

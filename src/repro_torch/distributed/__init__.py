@@ -1,10 +1,10 @@
-"""Placement of the engine's slot pool over several devices, and the
-trainer's fault handling.
+"""Placement over several devices, pipelining, and the trainer's fault
+handling.
 
-The port of ``repro.distributed``'s slot-pool helpers (``sharding``) and
-of ``fault`` (restart supervision, preemption capture, heartbeats,
-straggler detection).  The model-sharding rules of the reference
-(``logical_rules``, ``param_shardings``, ``batch_spec``,
-``cache_seq_axes``) and its ``pp`` module wait for model sharding
-(ROADMAP queue 1).
+The port of ``repro.distributed``: ``mesh`` (the process mesh the LM
+is sharded over), ``sharding`` (the model-sharding rules, the
+placements and collectives that realize them over a process mesh, and
+the slot pool's placement over a host mesh), ``pp`` (GPipe over a
+``"stage"`` axis) and ``fault`` (restart supervision, preemption
+capture, heartbeats, straggler detection).
 """

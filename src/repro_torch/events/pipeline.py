@@ -3,7 +3,7 @@ synthetic LM token pipeline.
 
 The port of ``to_event_batch``, ``window_chunks`` (with its oracle
 ``_window_chunks_reference``), ``TokenPipelineState`` and
-``TokenPipeline`` from ``repro.events.pipeline``.  Padding is
+``TokenPipeline`` and ``shard_batch`` from ``repro.events.pipeline``.  Padding is
 ``valid=False`` zeros; the scatter writes nothing for invalid events, so
 pad values never reach a surface.  The token pipeline is numpy only and
 yields the reference's tokens bitwise.
@@ -144,3 +144,27 @@ class TokenPipeline:
 
     def load_state_dict(self, d) -> None:
         self.state = TokenPipelineState.from_dict(d)
+
+
+def shard_batch(arrays, mesh, data_axes=("data",)):
+    """This rank's rows of each host array (a dict, list or tuple of
+    them, or one): the batch dim split into contiguous blocks over
+    ``data_axes`` of ``mesh`` (a ``distributed.mesh.ProcessMesh``), on the
+    mesh's device."""
+    n = mesh.count(data_axes)
+    k = mesh.index([a for a in data_axes if a in mesh.shape])
+
+    def one(a):
+        a = np.asarray(a)
+        if a.shape[0] % n:
+            raise ValueError(f"batch {a.shape[0]} does not split over {n} "
+                             f"data ranks")
+        b = a.shape[0] // n
+        return torch.from_numpy(np.ascontiguousarray(
+            a[k * b:(k + 1) * b])).to(mesh.device)
+
+    if isinstance(arrays, dict):
+        return {key: one(v) for key, v in arrays.items()}
+    if isinstance(arrays, (list, tuple)):
+        return type(arrays)(one(v) for v in arrays)
+    return one(arrays)

@@ -18,8 +18,14 @@ Runs on the CUDA device unless ``--device`` names another (``--device
 cpu`` runs the plain PyTorch versions on the CPU).  ``--platform`` maps
 onto the device as in ``launch.serve`` (``gpu``: the CUDA device, ``cpu``:
 ``--device cpu``; ``tpu`` and a platform that contradicts ``--device``
-are refused).  ``--production-mesh`` is refused: the port trains on one
-device (model sharding is ROADMAP.md, queue 1).
+are refused).
+
+``--production-mesh`` trains over the reference's 16x16 ("data",
+"model") mesh, one process per card under ``torchrun`` (``python -m
+torch.distributed.run --nproc-per-node ...``, 256 ranks in all); in a
+world of any other size it is refused with exit code 2.  A smaller mesh
+over a few cards is ``Trainer(cfg, tcfg, mesh=make_test_mesh(...))``
+in a script that ``torchrun`` starts on each card.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.events.pipeline import TokenPipeline
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.loop import Trainer, TrainerConfig
 
 
@@ -46,7 +53,8 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-compression", default=None,
                     choices=[None, "int8", "topk"])
     ap.add_argument("--production-mesh", action="store_true",
-                    help="refused: the port trains on one device")
+                    help="build the 16x16 mesh (needs 256 ranks under "
+                         "torchrun, one a card)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
@@ -55,9 +63,6 @@ def main(argv=None) -> None:
                          "runs on the CUDA device, cpu as --device cpu; "
                          "tpu is refused")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        ap.error("--production-mesh is refused: repro_torch trains on one "
-                 "device (model sharding is ROADMAP.md, queue 1)")
     if args.platform == "tpu":
         ap.error("--platform tpu is refused: the port runs on the CUDA "
                  "device or the CPU")
@@ -69,6 +74,12 @@ def main(argv=None) -> None:
         if want == "cpu":
             args.device = "cpu"
 
+    mesh = None
+    if args.production_mesh:
+        try:
+            mesh = make_production_mesh(device=args.device)
+        except ValueError as e:
+            ap.error(f"--production-mesh: {e}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -77,7 +88,8 @@ def main(argv=None) -> None:
         grad_compression=args.grad_compression,
         decay_steps=max(args.steps, 100),
     )
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, mesh=mesh,
+                      device=None if mesh is not None else args.device)
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=0)
     if args.resume and trainer.maybe_restore(pipe):
         print(f"resumed from step {trainer.step}")
@@ -85,6 +97,8 @@ def main(argv=None) -> None:
     out = trainer.train(pipe, args.steps, pipeline=pipe,
                         install_preemption_handler=True)
     hist = out["history"]
+    if mesh is not None and mesh.rank != 0:
+        return
     print(f"{cfg.name} on {trainer.device}: {cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, batch {args.batch} x {args.seq} tokens")
     for h in hist[:: max(1, len(hist) // 10)]:

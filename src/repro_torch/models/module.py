@@ -4,13 +4,17 @@ The port of ``repro.models.module``.  A model is described by a nested
 dict of ``ParamDef``s -- shape, logical axis names, initializer -- from
 which ``init_params`` materializes a nested dict of tensors with the same
 keys, so a parameter's leaf path (``layers.ssm.z_proj``) is the
-reference's.  The reference's mesh-only ``partition_specs`` and dry-run
-``abstract_params`` are not ported.
+reference's.  ``partition_specs`` maps each leaf's logical axes to mesh
+axes through a rules dict (``distributed.sharding.logical_rules``); the
+dry run's ``abstract_params`` is not ported.
 
 ``init_params`` draws from a ``core.prng`` key as the reference draws
 from a ``jax.random`` key: one ``split`` per leaf in jax's leaf order,
 then ``normal`` per leaf.  Keys and bits are bitwise the reference's on
 any device, and each weight within ``prng.normal``'s few-ULP band.
+Given each leaf's block (``blocks``, a rank's part of a sharded leaf),
+only the block's counters are drawn: the same bits, at the block's
+memory.
 """
 from __future__ import annotations
 
@@ -42,11 +46,16 @@ class ParamDef:
                              "in rank")
 
 
-def _initialize(key: torch.Tensor, d: ParamDef, device) -> torch.Tensor:
+def _initialize(key: torch.Tensor, d: ParamDef, device,
+                block: Optional[Tuple[slice, ...]] = None) -> torch.Tensor:
+    """The leaf ``d`` drawn from ``key``, or only its ``block`` (a slice
+    a dim) with the bits the whole leaf has there."""
+    block = block or tuple(slice(0, n) for n in d.shape)
+    shape = tuple(s.stop - s.start for s in block)
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+        return torch.zeros(shape, dtype=d.dtype, device=device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=device)
+        return torch.ones(shape, dtype=d.dtype, device=device)
     if d.init == "embed":
         std = d.scale
     elif d.init == "normal":
@@ -56,13 +65,28 @@ def _initialize(key: torch.Tensor, d: ParamDef, device) -> torch.Tensor:
     else:
         raise ValueError(d.init)
     # prng.normal(key, shape) * std, drawn slice by slice: each element's
-    # normal depends only on its flat index
-    out = torch.empty(d.shape, dtype=d.dtype, device=device).view(-1)
+    # normal depends only on its flat index in the whole leaf
+    out = torch.empty(shape, dtype=d.dtype, device=device).view(-1)
+    whole = tuple(shape) == tuple(d.shape)
     for lo in range(0, out.numel(), _DRAW_SLICE):
         idx = torch.arange(lo, min(lo + _DRAW_SLICE, out.numel()),
                            dtype=torch.int64, device=device)
+        if not whole:
+            idx = _block_flat(idx, block, shape, d.shape)
         out[lo:lo + idx.numel()] = prng.normal_at(key, idx) * std
-    return out.view(d.shape)
+    return out.view(shape)
+
+
+def _block_flat(pos: torch.Tensor, block, shape, full) -> torch.Tensor:
+    """Flat indices in the whole leaf (``full``) of the block's elements
+    at row-major positions ``pos`` of the block (``shape``)."""
+    flat = torch.zeros_like(pos)
+    stride = 1
+    for s, n, f in reversed(list(zip(block, shape, full))):
+        flat += (pos % n + s.start) * stride
+        pos = pos // n
+        stride *= f
+    return flat
 
 
 def _children(tree):
@@ -122,17 +146,27 @@ def _map(fn, tree):
             for k, v in tree.items()}
 
 
-def init_params(defs, key: torch.Tensor, device=None):
+def init_params(defs, key: torch.Tensor, device=None, blocks=None):
     """Materialize a nested dict of ``ParamDef`` into tensors on ``device``
     (default: the CUDA device; raises when there is none): ``key`` (a
     ``prng.PRNGKey``) is split once per leaf in sorted path order, as the
     reference's ``init_params(defs, key)`` splits it, and each leaf is
-    drawn on ``device`` from its own key."""
+    drawn on ``device`` from its own key.  ``blocks``, ``{leaf path:
+    per-dim slices}``, draws only those leaves' blocks."""
     device = resolve_device(device)
     flat = flatten(defs)
+    bl = blocks or {}
     keys = prng.split(key.to(device), len(flat))
-    return unflatten({path: _initialize(k, d, device)
+    return unflatten({path: _initialize(k, d, device, bl.get(path))
                       for k, (path, d) in zip(keys, flat.items())})
+
+
+def partition_specs(defs, rules: Dict[str, Any]):
+    """Each leaf's spec: per dim, the rule of its logical axis (None: the
+    dim is replicated; a mesh axis name or a tuple of them).  Unknown
+    logical names replicate."""
+    return _map(lambda d: tuple(rules.get(a) if a is not None else None
+                                for a in d.axes), defs)
 
 
 def stack_layer_defs(defs, n_layers: int):

@@ -3,15 +3,37 @@ MLP), the ``moe`` family (attention and a top-k mixture of experts), the
 ``ssm`` family (Mamba-2) and the ``hybrid`` family (hymba: attention and
 a Mamba-2 head side by side in every layer).
 
-The port of ``repro.models.transformer`` on one device: parameter
-definitions, embedding (with a frontend's ``embeds`` prepended), the
-full-sequence ``forward`` and its ``loss_fn``, ``prefill`` (which also
-builds the decode caches) and ``decode_step``.  Layers run as an
-unrolled Python loop over the stacked parameters (no scan or mesh);
-under autograd with ``cfg.remat`` each layer is a non-reentrant
-``torch.utils.checkpoint`` that keeps only its input and recomputes the
-rest in the backward, as the reference's per-layer ``nothing_saveable``
-remat does.
+The port of ``repro.models.transformer``: parameter definitions,
+embedding (with a frontend's ``embeds`` prepended), the full-sequence
+``forward`` and its ``loss_fn`` (on one device or over a mesh),
+``prefill`` (which also builds the decode caches) and ``decode_step`` (on
+one device).  Layers run as an unrolled Python loop over the stacked
+parameters; under autograd with ``cfg.remat`` each layer is a
+non-reentrant ``torch.utils.checkpoint`` that keeps only its input and
+recomputes the rest in the backward, as the reference's per-layer
+``nothing_saveable`` remat does.
+
+Over a mesh (``distributed.mesh.ProcessMesh``) every rank runs ``forward``
+on its own rows of the batch with its blocks of the parameters
+(``distributed.sharding.param_shardings``).  Each layer gathers its
+leaves' FSDP blocks over the data axes inside its checkpoint, so the
+recompute gathers again, and their gradients reduce-scatter back.  The
+``"model"`` axis is Megatron tensor parallelism where the rules split
+it: column-parallel Q/K/V and ``wi_gate`` / ``wi_up``, row-parallel
+``wo`` / ``wi_down`` with one sum over ``"model"``; the embedding is
+vocab-parallel (a masked lookup and a sum), and so are the unembedding
+and ``loss_fn``'s ``log_softmax`` (a max and a sum over the vocab
+shards).  A replicated tensor entering a split region sums its
+gradient over ``"model"`` (Megatron's f), so every rank ends a step
+with the whole gradient of each replicated leaf.  Where the rules
+split a dim that does not divide, they replicate it (glm4's 2 KV
+heads: each rank picks the KV heads of its query heads).  The SSD
+block has no split of its own: it gathers its ``ssm_inner`` /
+``ssm_heads`` leaves over ``"model"`` at use and runs whole on every
+rank (its gated RMSNorm reduces over the inner dim).  An expert layer
+runs ``moe.moe_sharded`` whenever there is a mesh, as the reference's
+does.  At a mesh of one rank every collective is the identity and the
+arithmetic is the one-device path's.
 
 A hybrid layer normalises both branches and averages them,
 ``0.5 * (rms_norm(attn) + rms_norm(ssm))``, attention first.  An expert
@@ -48,6 +70,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import f32, resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import ProcessMesh, check_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
 from repro_torch.models import moe as MOE
@@ -120,23 +144,80 @@ def unstack_layers(params) -> dict:
     return {**params, "layers": [layer_params(params, i) for i in range(n)]}
 
 
+class _Plan:
+    """How ``forward`` runs over a mesh: the leaves' placements, which
+    regions the ``"model"`` axis splits, and this rank's model index."""
+
+    def __init__(self, cfg: ModelConfig, mesh: ProcessMesh, data_axes):
+        check_mesh(mesh)
+        self.mesh, self.data_axes = mesh, tuple(data_axes)
+        self.pl = M.flatten(SH.placements(cfg, mesh))
+        self.layer_pl = {k[len("layers."):]: SH.Placement(
+            p.shape[1:], p.spec[1:], mesh)
+            for k, p in self.pl.items() if k.startswith("layers.")}
+        rules = SH.logical_rules(cfg, mesh)
+        self.m = mesh.shape["model"]
+        split = lambda name: self.m > 1 and rules[name] == "model"
+        self.heads, self.kv, self.mlp = (split("heads"), split("kv_heads"),
+                                         split("mlp"))
+        self.mi = mesh.coords["model"]
+
+    def gather(self, x: torch.Tensor, path: str) -> torch.Tensor:
+        """A top-level leaf's FSDP blocks gathered over the data axes."""
+        return SH.gather_leaf(x, self.pl[path], self.data_axes)
+
+    def gather_layer(self, lp: dict) -> dict:
+        """A layer's leaves gathered over the data axes, and the SSD
+        block's over ``"model"`` too."""
+        out = {}
+        for k, x in M.flatten(lp).items():
+            axes = self.data_axes + (("model",) if k.startswith("ssm.")
+                                     else ())
+            out[k] = SH.gather_leaf(x, self.layer_pl[k], axes)
+        return M.unflatten(out)
+
+
+def _plan(cfg: ModelConfig, mesh, data_axes) -> Optional[_Plan]:
+    return None if mesh is None else _Plan(cfg, mesh, data_axes)
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
-                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 embeds: Optional[torch.Tensor] = None, plan=None
+                 ) -> torch.Tensor:
     """Rows of the embedding in the activation dtype (``F.embedding``,
     whose backward sums duplicate tokens in a fixed order), with a
     frontend's ``embeds`` (B, F, D) prepended when the config has a
     frontend (without one, ``embeds`` is ignored, as in the
-    reference)."""
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.activation_dtype)
+    reference).  Vocab-parallel over a split ``"model"`` axis."""
+    w = params["embed"]
+    if plan is not None:
+        w = plan.gather(w, "embed")
+    if plan is not None and plan.m > 1:
+        t = tokens.long() - plan.mi * w.shape[0]
+        inside = (t >= 0) & (t < w.shape[0])
+        rows = F.embedding(torch.where(inside, t, 0), w)
+        x = SH.leave(torch.where(inside[..., None], rows, 0.0), plan.mesh)
+    else:
+        x = F.embedding(tokens.long(), w)
+    x = x.to(cfg.activation_dtype)
     if cfg.frontend != "none" and embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
 
 
-def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, cfg: ModelConfig, plan=None
+            ) -> torch.Tensor:
     """Logits in float32 from x in its dtype: the weight is cast to x's
-    dtype, then both are contracted in float32."""
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    dtype, then both are contracted in float32.  Over a split
+    ``"model"`` axis, this rank's vocab shard of them."""
+    if plan is None:
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    elif cfg.tie_embeddings:
+        w = plan.gather(params["embed"], "embed").T
+    else:
+        w = plan.gather(params["unembed"], "unembed")
+    if plan is not None and plan.m > 1:
+        x = SH.enter(x, plan.mesh)
     logits = x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
@@ -144,7 +225,7 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, aux_sink=None
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, aux_sink=None, plan=None
          ) -> torch.Tensor:
     """x plus the layer's feed-forward of ``rms_norm(x)``: the gated MLP,
     or the expert mixture, whose aux losses go to ``aux_sink`` when one
@@ -153,9 +234,16 @@ def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, aux_sink=None
         return x
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.n_experts:
-        y, aux = MOE.moe_dense(lp["moe"], h, cfg)
+        if plan is None:
+            y, aux = MOE.moe_dense(lp["moe"], h, cfg)
+        else:
+            y, aux = MOE.moe_sharded(lp["moe"], h, cfg, plan.mesh,
+                                     data_axes=plan.data_axes)
         if aux_sink is not None:
             aux_sink.append(aux)
+    elif plan is not None and plan.mlp:
+        y = SH.leave(L.mlp_block(lp["mlp"], SH.enter(h, plan.mesh)),
+                     plan.mesh)
     else:
         y = L.mlp_block(lp["mlp"], h)
     return x + y
@@ -172,8 +260,44 @@ def _fuse(lp, branches: List[torch.Tensor], cfg: ModelConfig
                   + rms_norm(ssm_y, lp["ssm_out_norm"], cfg.norm_eps))
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+              plan: _Plan):
+    """The K/V heads of this rank's query heads, where the query heads
+    split over ``"model"`` and the KV heads do not."""
+    hl = cfg.n_heads // plan.m
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = plan.mi * hl
+    if hl % g == 0:
+        sl = slice(lo // g, (lo + hl) // g)
+        return k[:, :, sl], v[:, :, sl]
+    idx = (lo + torch.arange(hl, device=k.device)) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attention(ap, h: torch.Tensor, cfg: ModelConfig, window, positions,
+               plan=None):
+    """The attention branch: (output, k, v); over a split ``"model"``
+    axis, this rank's heads (column-parallel) and one sum after ``wo``
+    (row-parallel)."""
+    split = plan is not None and plan.heads
+    if split:
+        h = SH.enter(h, plan.mesh)
+        # the replicated leaves serve only this rank's heads
+        own = {"wq", "wo"} | ({"wk", "wv"} if plan.kv else set())
+        ap = {n: w if n in own else SH.enter(w, plan.mesh)
+              for n, w in ap.items()}
+    q, k, v = L.attention_qkv(ap, h, cfg, positions)
+    if split and not plan.kv:
+        k, v = _local_kv(k, v, cfg, plan)
+    out = L.blockwise_attention(q, k, v, causal=True, window=window,
+                                softcap=cfg.attn_logit_softcap)
+    out = L.attention_out(out, ap["wo"])
+    return (SH.leave(out, plan.mesh) if split else out), k, v
+
+
 def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
-         positions: torch.Tensor, cache_len: Optional[int] = None):
+         positions: torch.Tensor, cache_len: Optional[int] = None,
+         plan=None):
     """The token mixer of a layer on its normed input ``h``: causal
     attention over ``window`` keys back (None: all), then the SSM, fused.
     Returns (the mixer's output, the layer's decode cache: the K/V ring
@@ -181,11 +305,8 @@ def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
     and state)."""
     branches, cache = [], {}
     if cfg.family != "ssm":
-        ap = lp["attn"]
-        q, k, v = L.attention_qkv(ap, h, cfg, positions)
-        out = L.blockwise_attention(q, k, v, causal=True, window=window,
-                                    softcap=cfg.attn_logit_softcap)
-        branches.append(L.attention_out(out, ap["wo"]))
+        out, k, v = _attention(lp["attn"], h, cfg, window, positions, plan)
+        branches.append(out)
         if cache_len is not None:
             cache.update(_fill_ring(k, v, h.shape[1], cache_len))
     if cfg.family in ("ssm", "hybrid"):
@@ -196,67 +317,101 @@ def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
 
 
 def _layer(lp, x: torch.Tensor, cfg: ModelConfig, window: Optional[int],
-           positions: torch.Tensor):
+           positions: torch.Tensor, plan=None):
     """One layer of ``forward``: (its output, the aux losses of its
-    expert mixture or None)."""
+    expert mixture or None).  Over a mesh it gathers its leaves first."""
+    if plan is not None:
+        lp = plan.gather_layer(lp)
     sink: List[dict] = []
     y, _ = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, window,
-                positions)
-    x = _ffn(lp, x + y, cfg, sink)
+                positions, plan=plan)
+    x = _ffn(lp, x + y, cfg, sink, plan)
     return x, (sink[0] if sink else None)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             embeds: Optional[torch.Tensor] = None, mesh=None,
-            unroll: bool = False,
+            data_axes: Tuple[str, ...] = ("data",), unroll: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (logits (B, F + S, V) float32, aux losses dict: each the
     mean over the expert layers, 0 without them), F the frontend
-    positions of ``embeds``.  ``unroll`` is accepted and changes nothing
-    (the layers are a Python loop already)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: repro_torch runs the LM stack on one device (model "
-            "sharding is ROADMAP.md, queue 1)")
-    x = embed_tokens(params, tokens, cfg, embeds)
+    positions of ``embeds``.  Over ``mesh`` (a ``ProcessMesh``; any
+    other object raises ``TypeError``) ``tokens`` are this rank's rows
+    and ``params`` its blocks, and the logits are its vocab shard.
+    ``unroll`` is accepted and changes nothing (the layers are a Python
+    loop already)."""
+    plan = _plan(cfg, mesh, data_axes)
+    x = embed_tokens(params, tokens, cfg, embeds, plan)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
         if remat:
-            x, aux = checkpoint(_layer, lp, x, cfg, window, positions,
+            x, aux = checkpoint(_layer, lp, x, cfg, window, positions, plan,
                                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux = _layer(lp, x, cfg, window, positions)
+            x, aux = _layer(lp, x, cfg, window, positions, plan)
         if aux is not None:
             auxes.append(aux)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    ln_f = params["ln_f"] if plan is None else plan.gather(params["ln_f"],
+                                                           "ln_f")
+    x = rms_norm(x, ln_f, cfg.norm_eps)
     if auxes:
         aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     else:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = {"lb_loss": zero, "z_loss": zero}
-    return unembed(params, x, cfg), aux
+    return unembed(params, x, cfg, plan), aux
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        plan: _Plan) -> torch.Tensor:
+    """``-log_softmax(logits)[label]`` with the vocab split over
+    ``"model"``: the max and the sum of exponentials reduced over the
+    shards, the label's logit from the shard that holds it."""
+    lf = logits.to(torch.float32)
+    mx = SH.all_reduce_(lf.detach().amax(-1, keepdim=True), plan.mesh,
+                        "model", op=SH.dist.ReduceOp.MAX)
+    se = SH.leave(torch.exp(lf - mx).sum(-1, keepdim=True), plan.mesh)
+    t = labels.long() - plan.mi * lf.shape[-1]
+    inside = (t >= 0) & (t < lf.shape[-1])
+    picked = torch.gather(lf, -1, torch.where(inside, t, 0)[..., None])
+    picked = SH.leave(torch.where(inside[..., None], picked, 0.0),
+                      plan.mesh)
+    return -((picked - mx) - torch.log(se))[..., 0]
 
 
 def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ModelConfig, embeds=None, mesh=None,
+            data_axes: Tuple[str, ...] = ("data",), unroll: bool = False,
             lb_coef: float = 0.01, z_coef: float = 1e-3):
     """Mean next-token NLL from a float32 ``log_softmax`` of the token
     positions' logits (a frontend's positions predict nothing), plus
     ``lb_coef * lb_loss + z_coef * z_loss``.  Returns ``(total, {"loss",
-    "lb_loss", "z_loss"})``."""
-    logits, aux = forward(params, tokens, cfg, embeds=embeds, mesh=mesh)
+    "lb_loss", "z_loss"})``.  Over a mesh each rank passes its rows, and
+    every value is the mean over the data ranks of theirs (the global
+    batch's, as each rank holds as many rows)."""
+    plan = _plan(cfg, mesh, data_axes)
+    logits, aux = forward(params, tokens, cfg, embeds=embeds, mesh=mesh,
+                          data_axes=data_axes)
     tok_logits = logits[:, -tokens.shape[1]:, :]
-    lp = torch.log_softmax(tok_logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+    if plan is not None and plan.m > 1:
+        nll = _vocab_parallel_nll(tok_logits, labels, plan)
+    else:
+        lp = torch.log_softmax(tok_logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(lp, -1, labels.long()[..., None])[..., 0]
     loss = nll.mean()
     dev = loss.device
     total = (loss + f32(lb_coef, dev) * aux["lb_loss"]
              + f32(z_coef, dev) * aux["z_loss"])
-    return total, {"loss": loss, "lb_loss": aux["lb_loss"],
-                   "z_loss": aux["z_loss"]}
+    out = [total, loss, aux["lb_loss"], aux["z_loss"]]
+    n_data = 1 if plan is None else plan.mesh.count(data_axes)
+    if n_data > 1:
+        # the data ranks' mean; its gradient reaches each rank's own
+        out = list(SH.leave(torch.stack(out), plan.mesh, data_axes)
+                   / f32(n_data, dev))
+    return out[0], dict(zip(("loss", "lb_loss", "z_loss"), out[1:]))
 
 
 # ------------------------------------------------------------- serving

@@ -70,6 +70,10 @@ class Optimizer:
     update_: Callable[[Any, Any, Any, Any], None]
     # update_(grads, state, params, step): the new params and state written
     # into ``params`` and ``state`` (``grads`` are overwritten)
+    state_shards: Callable[[Any], Any] = None
+    # state_shards(param placements) -> the state's placements
+    shards: Any = None
+    # the parameters' placements over a mesh, or None on one device
 
     @torch.no_grad()
     def update(self, grads, state, params, step):
@@ -92,26 +96,34 @@ def _device(tree) -> torch.device:
     return next(iter(M.flatten(tree).values())).device
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed in sorted path order (JAX's flattening order of a dict)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in M.flatten(tree).values()))
+    summed in sorted path order (JAX's flattening order of a dict).  With
+    ``shards`` each leaf is a block: the sums of the leaves split over
+    the same axes are summed over those axes' ranks."""
+    squares = [torch.sum(torch.square(x.to(torch.float32)))
+               for x in M.flatten(tree).values()]
+    if shards is None:
+        return torch.sqrt(sum(squares))
+    groups: dict = {}
+    for sq, pl in zip(squares, M.flatten(shards).values()):
+        groups.setdefault(pl.axes(), (pl, []))[1].append(sq)
+    return torch.sqrt(sum(pl.psum(sum(sqs)) for pl, sqs in groups.values()))
 
 
-def _clip_scale(grads, max_norm: float):
-    norm = global_norm(grads)
+def _clip_scale(grads, max_norm: float, shards=None):
+    norm = global_norm(grads, shards)
     dev = norm.device
     return torch.minimum(
         f32(1.0, dev),
         f32(max_norm, dev) / torch.maximum(norm, f32(1e-9, dev))), norm
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     """Scale ``grads`` by ``min(1, max_norm / max(norm, 1e-9))``; returns
     (clipped grads, norm).  The updates scale their gradients in place by
     the same factor."""
-    scale, norm = _clip_scale(grads, max_norm)
+    scale, norm = _clip_scale(grads, max_norm, shards)
     return _map(lambda g: g * scale, grads), norm
 
 
@@ -135,6 +147,7 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.01,
     max_grad_norm: float = 1.0,
+    shards=None,
 ) -> Optimizer:
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -143,7 +156,7 @@ def adamw(
 
     @torch.no_grad()
     def update_(grads, state, params, step):
-        scale, _ = _clip_scale(grads, max_grad_norm)
+        scale, _ = _clip_scale(grads, max_grad_norm, shards)
         dev = _device(params)
         c = lambda x: f32(x, dev)
         step = torch.as_tensor(step, device=dev)
@@ -166,7 +179,7 @@ def adamw(
             del tmp
             p.sub_(st.mul_(lr))
 
-    return Optimizer(init, update_)
+    return Optimizer(init, update_, lambda sh: {"m": sh, "v": sh}, shards)
 
 
 def adafactor(
@@ -176,60 +189,91 @@ def adafactor(
     eps: float = 1e-30,
     clip_threshold: float = 1.0,
     max_grad_norm: float = 1.0,
+    shards=None,
 ) -> Optimizer:
     """Factored second moment over the two largest dims; bf16 momentum
-    (a round-to-nearest-even cast, as the reference's)."""
+    (a round-to-nearest-even cast, as the reference's).  Whether a leaf
+    is factored is decided on its whole shape."""
 
-    def _factored(p) -> bool:
-        return p.dim() >= 2 and p.shape[-1] >= 8 and p.shape[-2] >= 8
+    def _factored(shape) -> bool:
+        return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
+
+    def _mean(x, dim, pl):
+        """``x.mean(dim)`` over the whole leaf: a sum over the ranks
+        that split the leaf's dim ``dim`` (all dims: None)."""
+        if pl is None or not pl.axes(None if dim is None else [dim]):
+            return x.mean() if dim is None else x.mean(dim=dim)
+        n = pl.shape[dim] if dim is not None else math.prod(pl.shape)
+        part = x.sum() if dim is None else x.sum(dim=dim)
+        return pl.psum(part, None if dim is None else [dim]) / f32(n, x.device)
+
+    def _leaf_shards(params):
+        return shards if shards is not None else _map(lambda p: None, params)
 
     def init(params):
-        def one(p):
+        def one(p, pl):
             z = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
                                                  device=p.device)
-            if _factored(p):
+            if _factored(p.shape if pl is None else pl.shape):
                 return {"vr": z(p.shape[:-1], torch.float32),
                         "vc": z(p.shape[:-2] + p.shape[-1:], torch.float32),
                         "m": z(p.shape, torch.bfloat16)}
             return {"v": z(p.shape, torch.float32),
                     "m": z(p.shape, torch.bfloat16)}
 
-        return _map(one, params)
+        return _map(one, params, _leaf_shards(params))
+
+    def state_shards(sh):
+        def one(pl):
+            if not _factored(pl.shape):
+                return {"v": pl, "m": pl}
+            cut = lambda d: type(pl)(pl.shape[:d] + pl.shape[d + 1:],
+                                     pl.spec[:d] + pl.spec[d + 1:], pl.mesh)
+            n = len(pl.shape)
+            return {"vr": cut(n - 1), "vc": cut(n - 2), "m": pl}
+
+        return _map(one, sh)
 
     @torch.no_grad()
     def update_(grads, state, params, step):
-        scale, _ = _clip_scale(grads, max_grad_norm)
+        scale, _ = _clip_scale(grads, max_grad_norm, shards)
         dev = _device(params)
         c = lambda x: f32(x, dev)
         lr = schedule(torch.as_tensor(step, device=dev))
-        for g, s, p in _leafwise(grads, state, params):
+        for g, s, p, pl in _leafwise(grads, state, params,
+                                     _leaf_shards(params)):
             if g.dtype != torch.float32 or p.dtype != torch.float32:
                 raise TypeError("update_ takes float32 grads and params")
             g.mul_(scale)
             g2 = (g * g).add_(c(eps))
-            if _factored(p):
-                s["vr"].mul_(c(decay)).add_(g2.mean(dim=-1).mul_(c(1 - decay)))
-                s["vc"].mul_(c(decay)).add_(g2.mean(dim=-2).mul_(c(1 - decay)))
+            if "vr" in s:
+                nd = g.dim()
+                s["vr"].mul_(c(decay)).add_(
+                    _mean(g2, nd - 1, pl).mul_(c(1 - decay)))
+                s["vc"].mul_(c(decay)).add_(
+                    _mean(g2, nd - 2, pl).mul_(c(1 - decay)))
                 del g2
                 vr = s["vr"]
                 u = vr[..., :, None] * s["vc"][..., None, :]
-                u.div_(torch.maximum(vr.mean(dim=-1)[..., None, None], c(eps)))
+                u.div_(torch.maximum(_mean(vr, nd - 2, pl)[..., None, None],
+                                     c(eps)))
             else:
                 s["v"].mul_(c(decay)).add_(g2.mul_(c(1 - decay)))
                 del g2
                 u = s["v"].clone()
             torch.maximum(u, c(eps), out=u).rsqrt_().mul_(g)
-            rms_u = torch.sqrt(torch.mean(u * u) + c(eps))
+            rms_u = torch.sqrt(_mean(u * u, None, pl) + c(eps))
             u.div_(torch.maximum(c(1.0), rms_u / c(clip_threshold)))
             m = s["m"].to(torch.float32).mul_(c(b1)).add_(u.mul_(c(1 - b1)))
             del u
             s["m"].copy_(m)
             p.sub_(m.mul_(lr))
 
-    return Optimizer(init, update_)
+    return Optimizer(init, update_, state_shards, shards)
 
 
 def make_optimizer(kind: str, schedule: Schedule, **kw) -> Optimizer:
+    """``adamw`` or ``adafactor`` (``shards=`` places it over a mesh)."""
     if kind == "adamw":
         return adamw(schedule, **kw)
     if kind == "adafactor":

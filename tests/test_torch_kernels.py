@@ -39,6 +39,27 @@ T_NOW = 0.1
 SHAPE = (3, 2, 40, 72)   # slots, polarities, H, W
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU reads on one torch thread, the count restored after.
+
+    In a process whose JAX CPU backend came up with 512 host devices (a
+    module that sets ``XLA_FLAGS`` before the backend starts, as the
+    reference's ``launch.dryrun`` does on import), the first multi-threaded
+    torch read of the process returned cells up to 36 ULP off the float64
+    truth, in 4 of 12 runs, while every later call and the JAX read stayed
+    within 2 ULP; at one thread, 0 of 12 runs did.  No cell of these
+    reads is denormal, so flush-to-zero is not the cause (the reads are
+    the same with ``torch.set_flush_denormal(True)``).  The multi-threaded
+    read is held in a fresh process by
+    ``test_ts_decay_uniform_threaded``.
+    """
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sae(seed, shape=SHAPE, never=0.3):
     rng = np.random.default_rng(seed)
     sae = rng.uniform(0.0, T_NOW, shape).astype(np.float32)
@@ -79,6 +100,44 @@ def test_ts_decay_uniform(mode, seed):
     assert got.dtype == np.float32 and got.shape == sae.shape
     assert _ulp(got, want).max() <= 2
     assert np.all(got[np.isneginf(sae)] == 0.0)
+
+
+_THREADED = """
+import sys
+sys.path.insert(0, {tests!r})
+import numpy as np, torch, jax.numpy as jnp
+import test_torch_kernels as K
+torch.set_num_threads(8)
+worst = 0
+for mode in ("edram", "ideal"):
+    for seed in (0, 1):
+        sae = K._sae(seed)
+        jp, tp = K._params(mode)
+        want = np.asarray(K.jops.ts_decay(jnp.asarray(sae), K.T_NOW, jp,
+                                          backend="ref"))
+        got = K.tops.ts_decay(torch.from_numpy(sae), K.T_NOW, tp).numpy()
+        worst = max(worst, int(K._ulp(got, want).max()))
+print(torch.get_num_threads(), worst)
+"""
+
+
+def test_ts_decay_uniform_threaded():
+    """``test_ts_decay_uniform``'s reads on 8 torch threads, in a fresh
+    process whose JAX backend has its default devices: within 2 ULP."""
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(tests), "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _THREADED.format(tests=tests)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    threads, worst = map(int, out.stdout.split()[-2:])
+    assert threads == 8 and worst <= 2, (threads, worst)
 
 
 def test_ts_decay_planes():

@@ -284,8 +284,8 @@ def test_config_registry_matches_reference():
     assert tT.padded_vocab(tc) == 50432
     # every entry of the reference's registry resolves, equal to the
     # reference's field for field, the time-surface array's ISCConfig
-    # included (left out of ARCH_NAMES in both); only the model sharding
-    # is still to port, and raises
+    # included (left out of ARCH_NAMES in both); a mesh that is not a
+    # ProcessMesh raises (meshes are held in test_torch_fsdp.py)
     for name in ("kimi-k2-1t-a32b", "grok-1-314b", "musicgen-large",
                  "internvl2-26b", "hymba-1.5b"):
         c, jcfg = tget_config(name), jget_config(name)
@@ -300,7 +300,7 @@ def test_config_registry_matches_reference():
     assert T_ARCH_NAMES == J_ARCH_NAMES and "isc-qvga" not in T_ARCH_NAMES
     with pytest.raises(KeyError):
         tget_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         tT.forward({}, torch.zeros((1, 4), dtype=torch.int32),
                    tget_config("grok-1-314b").reduced(), mesh=object())
 

@@ -275,12 +275,13 @@ def test_loss_fn_and_grads_match_reference(remat):
 
 
 def test_forward_refuses_embeds_and_mesh():
-    """A mesh is refused and ``unroll`` changes nothing; ``embeds`` are
-    taken since the dense slice (held against the reference in
-    ``test_train_step_with_embeds_matches_reference``)."""
+    """A mesh that is not a ``ProcessMesh`` raises ``TypeError`` (meshes
+    are held in ``test_torch_fsdp.py``) and ``unroll`` changes nothing;
+    ``embeds`` are taken since the dense slice (held against the
+    reference in ``test_train_step_with_embeds_matches_reference``)."""
     _, tp = _pair(JCFG, TCFG)
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         tT.forward(tp, tok, TCFG, mesh=object())
     a, _ = tT.forward(tp, tok, TCFG, unroll=True)
     b, _ = tT.forward(tp, tok, TCFG)
@@ -340,13 +341,14 @@ def _step_against_reference(jcfg, tcfg, tol, embeds=None):
 
 
 def test_train_step_refuses_sharding():
-    """A mesh is refused; ``fsdp`` and ``fsdp_gather_once`` without one
-    change nothing, as in the reference (which shards only over a
-    mesh)."""
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    """A mesh that is not a ``ProcessMesh`` raises ``TypeError`` (meshes
+    are held in ``test_torch_fsdp.py``); ``fsdp`` and
+    ``fsdp_gather_once`` without one change nothing, as in the reference
+    (which shards only over a mesh)."""
+    with pytest.raises(TypeError, match="ProcessMesh"):
         tloop.make_train_step(TCFG, topt.make_optimizer(
             "adamw", topt.Schedule(1e-3)), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         tloop.Trainer(TCFG, mesh=object(), device="cpu")
     for kw in ({"fsdp": True}, {"fsdp": True, "fsdp_gather_once": True}):
         assert callable(tloop.make_grad_fn(dataclasses.replace(TCFG, **kw)))
@@ -754,7 +756,8 @@ def test_launch_train_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv, words", [
-    (["--production-mesh", "--device", "cpu"], ["--production-mesh"]),
+    (["--production-mesh", "--device", "cpu"], ["--production-mesh",
+                                                 "256 ranks"]),
     (["--platform", "tpu"], ["--platform tpu"]),
     (["--platform", "gpu", "--device", "cpu"], ["--platform gpu",
                                                 "--device cpu"]),
