@@ -22,7 +22,7 @@ visible, 10 the paper's reconstruction and classification protocols
 trained on the card, 11 the LM trainer on the card, 12 the dense LM
 family on the card, 13 the hybrid and MoE LM families, 14 the three
 time-surface examples and the paper's ``isc-qvga`` array, 15 the LM
-trainer over a mesh of cards; phase 8 (a) and
+trainer over a mesh of cards, 16 LM serving over a mesh; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -406,9 +406,52 @@ are held to compare against):
    ``tanh(h @ w)`` stages (8 microbatches of (8, 4096)) over N cards:
    bitwise each microbatch run through the stages in turn on card 0.
 
-``--mesh PART[,PART...]`` runs only those parts of phase 15 over N
-cards (``one`` for (a); ``full``, ``mamba``, ``check`` for (b) 3 and 4,
-``pp``) and exits 0 when every check passed, without the last line:
+16. **LM serving over a mesh** -- spawned as phase 15's ranks are.
+   ``ServeEngine(mesh=)``: each rank holds its blocks of the parameters
+   and of every cache (the batch over the data axes that divide it, the
+   K/V rings' sequence over ``cache_seq_axes``: flash-decoding), serves
+   its rows, and gathers the last logits over ``"model"`` before the
+   greedy ``argmax``.  (a) A (1, 1) mesh of one rank on card 0:
+   ``qwen3-8b`` and ``hymba-1.5b`` at full widths and 2 layers (bf16)
+   on 8 requests of 256-512 prompt tokens, 32 greedy tokens, against the
+   one-card ``ServeEngine`` on the same weights: tokens, every call's
+   logits and the caches bitwise; ``decay_scan`` launched once a hymba
+   layer by the prefill, never by a decode step, and held bitwise
+   against its plain version on the inputs of the rank's own prefill
+   (kept from the served path, so at the shape it runs there; these
+   launches come after the path's counts are read).  (b) Only where N =
+   min(4, cards) >= 2.  1. ``gemma2-27b`` uncut (28.41 B float32
+   parameters, which no one card holds; each rank draws its blocks from
+   ``PRNGKey(0)``) over (1, N), so that its caches of 2,080 slots split N
+   ways, on the LM phase's traffic (8 requests of 1024-2048 prompt
+   tokens, 32 greedy tokens): prefill tokens/s, decode ms a step p50 and
+   p99, each card's peak, and one warm-up decode step under
+   ``torch.profiler`` on rank 0 (NCCL kernels against the rest).  Checks:
+   every logit finite and every token in the vocab on every rank, every
+   card's peak under 80 GB, none of the port's kernels launched.  2.
+   ``hymba-1.5b`` uncut over (2, 2) (N = 4; else (N, 1)) on the same
+   traffic: prefill tokens/s, decode p50; ``decay_scan`` launched 32
+   times by the prefill on every rank, and held bitwise against its
+   plain version on each rank's own prefill inputs (4 rows over (2, 2));
+   its tokens' agreement with the
+   one-card engine on card 0 printed, not held (bf16 sums in another
+   order).  3. ``gemma2-27b`` and ``hymba-1.5b`` at full widths, 2
+   layers, float32 activations (the attention projections at their true
+   fan-in, as phase 12 (c)), 4 requests of 192-320 prompt tokens, 8
+   tokens, and hymba again on 4 prompts of 1,100-1,300 tokens (past its
+   window of 1,024: the local ring is rolled, and splits over (1, N) and
+   (2, 2)), over (1, N), (2, 2) (N = 4) and (N, 1), each against the
+   one-card engine on card 0: the prefill's last logits and every decode
+   step's within rtol 1e-4, atol 1e-4 x max(1, max|one card|); greedy
+   tokens equal (a step whose one-card top-2 gap lies inside that band
+   leaves its row out from then on, and is counted); the caches gathered
+   back in the band, positions bitwise.
+
+``--mesh PART[,PART...]`` runs only those parts of phases 15 and 16
+over N cards (``one`` for 15 (a); ``full``, ``mamba``, ``check`` for
+(b) 3 and 4, ``pp``; ``serve-one`` for 16 (a); ``serve-full``,
+``serve-hybrid``, ``serve-check`` for 16 (b) 1-3, ``serve-cards`` for
+all three) and exits 0 when every check passed, without the last line:
 the quick rerun of one part on a host of several cards.
 
 Output: progress lines, one JSON line of the kernels, the card's
@@ -5016,8 +5059,529 @@ def mesh_pp(run):
                   f"in turn on card 0 (bubble {pp.bubble(run.n, n_micro):.3f})")
 
 
+# --------------------------------------- phase 16: serving over a mesh
+
+SERVE_ONE = (("qwen3-8b", 2), ("hymba-1.5b", 2))   # (a): full widths, layers
+SERVE_ONE_PROMPT = (256, 512)        # (a): LM traffic with shorter prompts
+SERVE_FULL = "gemma2-27b"            # (b) 1: uncut over (1, N)
+SERVE_FULL_WIDTHS = (46, 4608, 32, 16, 128, 36864, 256000, 4096)
+SERVE_HYBRID = "hymba-1.5b"          # (b) 2: uncut over (2, 2) or (N, 1)
+#: (b) 3, float32: (arch, layers, (requests, prompt lengths, tokens)); the
+#: last case's prompts pass hymba's window of 1,024, so its rolled ring
+#: splits over (1, N) and (2, 2)
+SERVE_CHECK = (("gemma2-27b", 2, (4, (192, 320), 8)),
+               ("hymba-1.5b", 2, (4, (192, 320), 8)),
+               ("hymba-1.5b", 2, (4, (1100, 1300), 8)))
+SERVE_TOL = 1e-4  # rtol; atol x max(1, max|one card|): a mesh against one card
+
+
+def serve_requests(cfg, lens, n=None, new=None, seed=0):
+    """``lm_requests``' traffic (``n`` requests, default LM_REQUESTS, of
+    ``new`` tokens, default LM_NEW_TOKENS) with prompt lengths drawn in
+    ``lens``."""
+    from repro_torch.serve.engine import Request
+
+    n = LM_REQUESTS if n is None else n
+    new = LM_NEW_TOKENS if new is None else new
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lens[0], lens[1] + 1, n)
+    return [Request(rng.integers(0, cfg.vocab, k).astype(np.int32),
+                    max_new_tokens=new) for k in sizes]
+
+
+class ServeRecorder:
+    """Wraps a ``ServeEngine``'s prefill and decode: each call timed on
+    the host clock ending in a synchronize (and a barrier on every rank
+    of a mesh), with its ``decay_scan`` launches and whether every logit
+    is finite; with ``keep``, its logits gathered whole (the vocab over
+    ``"model"``, the rows over the data axes) onto the host; the caches
+    of the last call.  ``profile``: (kind, index) of the one call that
+    runs under ``profiled_kernels`` on rank 0 (kept in ``.profile``)."""
+
+    def __init__(self, engine, keep=False, profile=None):
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.kernels import _lib
+
+        self.calls, self.logits, self.caches, self.profile = [], [], None, None
+        # the wrappers close over these, never over the engine: a
+        # dropped engine frees its parameters at once
+        mesh, dev, layout = engine.mesh, engine.device, engine._layout
+
+        def whole(lg):
+            if mesh is None:
+                return lg.cpu()
+            lg = SH.all_gather_dim(lg, mesh, "model", -1)
+            bspec = SH.batch_spec(mesh, layout["batch"])
+            return SH.all_gather_dim(lg, mesh, bspec[0] if bspec else (),
+                                     0).cpu()
+
+        def wrap(kind, fn):
+            seen = [0]
+
+            def run(*args):
+                _sync(dev)
+                if mesh is not None:
+                    mesh.barrier()
+                n0 = _lib.LAUNCHES["decay_scan"]
+                t0 = time.perf_counter()
+                if profile == (kind, seen[0]) and (mesh is None
+                                                   or mesh.rank == 0):
+                    box = []
+                    self.profile = profiled_kernels(
+                        lambda: box.append(fn(*args)))
+                    out = box[0]
+                else:
+                    out = fn(*args)
+                _sync(dev)
+                if mesh is not None:
+                    mesh.barrier()
+                seen[0] += 1
+                self.calls.append((kind, time.perf_counter() - t0,
+                                   _lib.LAUNCHES["decay_scan"] - n0,
+                                   bool(torch.isfinite(out[0]).all())))
+                if keep:
+                    self.logits.append(whole(out[0]))
+                self.caches = out[1]
+                return out
+            return run
+
+        engine._prefill = wrap("prefill", engine._prefill)
+        engine._decode = wrap("decode", engine._decode)
+
+    def times(self, kind):
+        return [c[1] for c in self.calls if c[0] == kind]
+
+
+@contextlib.contextmanager
+def scan_inputs(box: list):
+    """While open, ``box`` keeps copies of the inputs (a, x, s0) of the
+    first ``ops.decay_scan`` call on this rank: the hybrid prefill's own,
+    which goes on to launch and count as usual."""
+    from repro_torch.kernels import ops
+
+    real = ops.decay_scan
+
+    def seen(a, x, s0=None):
+        if not box:
+            box[:] = [t if t is None else t.detach().clone()
+                      for t in (a, x, s0)]
+        return real(a, x, s0)
+
+    ops.decay_scan = seen
+    try:
+        yield box
+    finally:
+        ops.decay_scan = real
+
+
+def hold_scan(run, what: str, box: list) -> dict:
+    """``decay_scan`` on the inputs ``box`` kept from this rank's prefill
+    (``scan_inputs``), against its plain version, bitwise: the kernel at
+    the shape the mesh path gives it on this rank.  These launches come
+    after the path's counts were read."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decay_scan import decay_scan_cuda
+
+    if not box:
+        run.check(False, f"{what}: no decay_scan call was seen on this rank",
+                  every=True)
+        return {}
+    a, x, s0 = box
+    if a.device.type != "cuda":
+        run.check(False, f"{what}: decay_scan's inputs lie on {a.device}; "
+                  f"the kernel runs only on a card", every=True)
+        return {}
+    got, want = decay_scan_cuda(a, x, s0), ref.decay_scan_ref(a, x, s0)
+    ok = all(same(u, v) for u, v in zip(got, want))
+    err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+    run.check(ok, f"{what}: decay_scan on this rank's own prefill inputs "
+              f"{tuple(a.shape)} (s0 {'none' if s0 is None else 'given'}) "
+              f"== its plain version bitwise (max |d| {err:.3e})",
+              every=True)
+    return dict(shape=list(a.shape), max_abs_err=err, bitwise=ok)
+
+
+def serve_one(run):
+    """Phase 16 (a): ``ServeEngine(mesh=)`` on a (1, 1) mesh of one NCCL
+    rank against the one-card ``ServeEngine``, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    mesh = make_test_mesh((1, 1), device=run.device)
+    dev = mesh.device
+    out = {}
+    for arch, layers in SERVE_ONE:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), dev)
+        reqs = serve_requests(cfg, SERVE_ONE_PROMPT)
+        max_len = SERVE_ONE_PROMPT[1] + LM_NEW_TOKENS
+        one = ServeEngine(cfg, params, max_len=max_len, device=dev)
+        ro = ServeRecorder(one, keep=True)
+        want = one.serve(reqs)
+        eng = ServeEngine(cfg, params, max_len=max_len, mesh=mesh)
+        rm = ServeRecorder(eng, keep=True)
+        box = []
+        _lib.reset_launches()
+        with scan_inputs(box):
+            got = eng.serve(reqs)
+        launches = dict(_lib.LAUNCHES)
+        toks = all(np.array_equal(a.tokens, b.tokens)
+                   for a, b in zip(got, want))
+        logits = (len(rm.logits) == len(ro.logits) == LM_NEW_TOKENS and all(
+            torch.equal(a, b) for a, b in zip(rm.logits, ro.logits)))
+        ca, cb = M.flatten(rm.caches), M.flatten(ro.caches)
+        caches = ca.keys() == cb.keys() and all(torch.equal(ca[k], cb[k])
+                                                for k in ca)
+        run.check(toks and logits and caches,
+                  f"{arch} at full widths, {layers} layers, bf16: "
+                  f"ServeEngine over a (1, 1) mesh on {LM_REQUESTS} requests "
+                  f"of {sorted(len(r.prompt) for r in reqs)} prompt tokens, "
+                  f"{LM_NEW_TOKENS} greedy tokens: tokens {toks}, every "
+                  f"call's logits {logits} ({len(rm.logits)} calls) and the "
+                  f"caches {caches} bitwise the one-card engine's "
+                  f"[{time.perf_counter() - t0:.1f} s]")
+        pre = [c[2] for c in rm.calls if c[0] == "prefill"]
+        dec = [c[2] for c in rm.calls if c[0] == "decode"]
+        scan = None
+        if cfg.family == "hybrid":
+            run.check(pre == [layers] and not any(dec)
+                      and launches["decay_scan"] == layers,
+                      f"{arch} over the (1, 1) mesh: decay_scan launched "
+                      f"{pre} times by the prefill (one a layer) and "
+                      f"{sum(dec)} by the decode steps; {launches}")
+            scan = hold_scan(run, f"{arch} over the (1, 1) mesh", box)
+        out[arch] = dict(tokens=toks, logits=logits, caches=caches,
+                         launches=launches, scan=scan,
+                         prefill_ms=1e3 * rm.times("prefill")[0],
+                         decode_p50_ms=1e3 * float(np.percentile(
+                             rm.times("decode"), 50)))
+        del one, eng, ro, rm, params
+        _reset_peak(dev)
+    run.res["serve_one"] = out
+
+
+def serve_cards(run):
+    """Phase 16 (b): LM serving over N cards."""
+    serve_full(run)
+    serve_hybrid(run)
+    serve_check(run)
+
+
+def _blocks(cfg, mesh, key):
+    """This rank's blocks of ``cfg``'s parameters drawn from ``key``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+
+    pls = M.flatten(SH.placements(cfg, mesh))
+    return M.init_params(T.param_defs(cfg), key, mesh.device,
+                         blocks={k: pl.block() for k, pl in pls.items()})
+
+
+def _served_over(run, cfg, mesh, what, reqs, max_len, profile=False,
+                 box=None):
+    """``cfg`` uncut on its blocks (``PRNGKey(0)``) served over ``mesh``:
+    a warm-up serve (3 tokens; its second decode step profiled on rank 0
+    with ``profile``), then the timed serve with the launch counters
+    zeroed just before and read just after (with ``box``, the inputs of
+    its first ``decay_scan`` kept there: ``scan_inputs``).  Checks every
+    logit finite, every token in the vocab, every card's peak under 80
+    GB."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core import prng
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _lib
+    from repro_torch.models import module as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = mesh.device
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    blocks = _blocks(cfg, mesh, prng.PRNGKey(0))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(math.prod(pl.shape) for pl in
+                   M.flatten(SH.placements(cfg, mesh)).values())
+    eng = ServeEngine(cfg, blocks, max_len=max_len, mesh=mesh)
+    rec = ServeRecorder(eng, profile=("decode", 1) if profile else None)
+    t0 = time.perf_counter()
+    eng.serve([Request(r.prompt, max_new_tokens=3) for r in reqs])
+    warm_s = time.perf_counter() - t0
+    rec.calls.clear()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with scan_inputs(box) if box is not None else contextlib.nullcontext():
+        results = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peaks = [None] * run.n
+    dist.all_gather_object(peaks, _peak(dev))
+    s_max = max(len(r.prompt) for r in reqs)
+    pf = rec.times("prefill")
+    dec = [1e3 * t for t in rec.times("decode")]
+    toks = np.stack([r.tokens for r in results])
+    r = dict(mesh=mesh.shape, params=n_params, init_s=init_s,
+             warm_s=warm_s, serve_s=wall, prefill_ms=1e3 * pf[0],
+             prefill_tokens_per_s=len(reqs) * s_max / pf[0],
+             decode_ms=dec, decode_p50_ms=float(np.percentile(dec, 50)),
+             decode_p99_ms=float(np.percentile(dec, 99)),
+             peak_gib=[p / 2**30 for p in peaks], launches=launches,
+             prefill_launches=[c[2] for c in rec.calls if c[0] == "prefill"],
+             decode_launches=[c[2] for c in rec.calls if c[0] == "decode"],
+             tokens=toks.tolist())
+    run.log(f"{what} over {mesh.shape} ({n_params} float32 parameters, "
+            f"each rank's blocks drawn in {init_s:.1f} s): {len(reqs)} "
+            f"requests, prompts {sorted(len(q.prompt) for q in reqs)} "
+            f"(left-padded to {s_max}); prefill {1e3 * pf[0]:.1f} ms -> "
+            f"{r['prefill_tokens_per_s']:.1f} tokens/s; decode step p50 "
+            f"{r['decode_p50_ms']:.2f} ms, p99 {r['decode_p99_ms']:.2f} ms "
+            f"over {len(dec)} steps; serve {wall:.2f} s (warm-up "
+            f"{warm_s:.1f} s); peak allocated GiB by card "
+            f"{[round(p / 2**30, 2) for p in peaks]}")
+    if rec.profile is not None:
+        prof = rec.profile
+        nccl = sum(v for k, v in prof["kernels"].items() if "nccl" in k.lower())
+        r.update(profile_device_ms=prof["device_ms"],
+                 profile_wall_ms=prof["wall_ms"], nccl_ms=nccl,
+                 profile_launches=prof["launches"],
+                 top=sorted(((k[:60], v) for k, v in prof["kernels"].items()),
+                            key=lambda kv: -kv[1])[:8])
+        run.log(f"{what}: one profiled decode step on rank 0: "
+                f"{prof['device_ms']:.2f} ms device time of "
+                f"{prof['wall_ms']:.2f} ms, NCCL kernels {nccl:.2f} ms "
+                f"({100 * nccl / max(prof['device_ms'], 1e-9):.1f} % of "
+                f"device time), {prof['launches']} kernels; top "
+                f"{[(k, round(v, 2)) for k, v in r['top'][:5]]}")
+    run.check(len(pf) == 1 and len(dec) == LM_NEW_TOKENS - 1
+              and all(c[3] for c in rec.calls),
+              f"{what}: one prefill and {LM_NEW_TOKENS - 1} decode steps on "
+              f"this rank, every logit finite", every=True)
+    run.check(toks.shape == (len(reqs), LM_NEW_TOKENS) and toks.min() >= 0
+              and toks.max() < cfg.vocab,
+              f"{what}: tokens {toks.shape} within the true vocab "
+              f"[0, {cfg.vocab}) on every rank", every=True)
+    run.check(all(p < 80e9 for p in peaks),
+              f"{what}: every card's peak under 80 GB: "
+              f"{[round(p / 1e9, 2) for p in peaks]} GB")
+    del eng, rec, blocks
+    _reset_peak(dev)
+    return r
+
+
+def serve_full(run):
+    """(b) 1: gemma2-27b uncut over (1, N)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request
+
+    cfg = get_config(SERVE_FULL)
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.window)
+    run.check(widths == SERVE_FULL_WIDTHS
+              and cfg.activation_dtype == torch.bfloat16,
+              f"{SERVE_FULL} uncut: (layers, d_model, heads, KV heads, "
+              f"head_dim, d_ff, vocab, window) {widths}, softcaps "
+              f"{cfg.attn_logit_softcap} / {cfg.final_logit_softcap}, bf16")
+    mesh = make_test_mesh((1, run.n), device=run.device)
+    max_len = LM_PROMPT[1] + LM_NEW_TOKENS
+    reqs = lm_requests(cfg, Request)
+    splits = {n: SH.cache_seq_axes(mesh, len(reqs), n) for n in {
+        T._cache_len(w, max_len) for w in T.layer_windows(cfg)}}
+    run.log(f"{SERVE_FULL}: the caches' sequence by ring length: "
+            f"{ {n: (a, mesh.count(a)) for n, a in splits.items()} } (axes, "
+            f"ways)")
+    r = _served_over(run, cfg, mesh, f"{SERVE_FULL} uncut", reqs, max_len,
+                     profile=True)
+    r["seq_axes"] = {str(n): a for n, a in splits.items()}
+    run.check(r["params"] > 27e9 and not any(r["launches"].values()),
+              f"{SERVE_FULL}: {r['params'] / 1e9:.2f} B float32 parameters "
+              f"({4 * r['params'] / 1e9:.1f} GB: no one card holds them); "
+              f"the path launched none of the port's kernels "
+              f"({r['launches']})")
+    run.res["serve_full"] = r
+
+
+def serve_hybrid(run):
+    """(b) 2: hymba-1.5b uncut over (2, 2), or (N, 1); its tokens beside
+    the one-card engine's on the same weights and traffic (phase 13
+    (a)'s run, repeated on card 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(SERVE_HYBRID)
+    shape = (2, 2) if run.n == 4 else (run.n, 1)
+    mesh = make_test_mesh(shape, device=run.device)
+    max_len = LM_PROMPT[1] + LM_NEW_TOKENS
+    reqs = lm_requests(cfg, Request)
+    box = []
+    r = _served_over(run, cfg, mesh, f"{SERVE_HYBRID} uncut", reqs, max_len,
+                     box=box)
+    run.check(r["prefill_launches"] == [cfg.n_layers]
+              and r["launches"]["decay_scan"] == cfg.n_layers
+              and not any(r["decode_launches"]),
+              f"{SERVE_HYBRID} over {shape}: decay_scan launched "
+              f"{r['prefill_launches']} times by the prefill on this rank "
+              f"(one a layer) and never by the decode steps", every=True)
+    r["scan"] = hold_scan(run, f"{SERVE_HYBRID} uncut over {shape}", box)
+    if run.rank == 0:
+        params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0),
+                               mesh.device)
+        one = ServeEngine(cfg, params, max_len=max_len, device=mesh.device)
+        want = np.stack([q.tokens for q in one.serve(reqs)])
+        got = np.array(r["tokens"])
+        agree = float((got == want).mean())
+        first = [int(np.argmax(g != w)) if (g != w).any() else None
+                 for g, w in zip(got, want)]
+        r.update(agree_one_card=agree, first_difference=first)
+        run.log(f"{SERVE_HYBRID} over {shape} against one card (not held: "
+                f"bf16 sums in another order): {100 * agree:.1f} % of the "
+                f"{got.size} tokens equal; first differing step by request "
+                f"{first}")
+        del one, params
+        _reset_peak(mesh.device)
+    mesh.barrier()
+    run.res["serve_hybrid"] = r
+
+
+def _hold_serve(run, what, want, rec, got_tokens, caches, cfg):
+    """Rank 0: the mesh serve against the one-card one (``want``: tokens,
+    logits, caches on the host).  Logits of the rows still compared in
+    the band; tokens equal, a step whose one-card top-2 gap lies inside
+    the band leaving its row out from then on; the caches of the rows
+    left in the band, positions bitwise."""
+    from repro_torch.models import module as M
+
+    w_tok, w_logits, w_caches = want
+    keep = torch.ones(w_tok.shape[0], dtype=torch.bool)
+    worst, ok, left_out = 0.0, True, []
+    for i, (g, w) in enumerate(zip(rec.logits, w_logits)):
+        if keep.any():
+            e, good = close(g[keep], w[keep], SERVE_TOL)
+            worst, ok = max(worst, e), ok and good
+        top = w[:, 0, :cfg.vocab].topk(2).values
+        band = SERVE_TOL * max(1.0, float(w.abs().max()))
+        gt = g[:, 0, :cfg.vocab].argmax(-1)
+        wt = w[:, 0, :cfg.vocab].argmax(-1)
+        for row in torch.nonzero(keep & (gt != wt)).flatten().tolist():
+            if float(top[row, 0] - top[row, 1]) <= band:
+                keep[row] = False
+                left_out.append((i, row))
+            else:
+                ok = False
+    toks = all(np.array_equal(np.asarray(got_tokens)[r], w_tok[r])
+               for r in range(len(keep)) if keep[r])
+    cache_ok, cworst = True, 0.0
+    for k, x in M.flatten(caches).items():
+        y = w_caches[k]
+        x, y = x.cpu()[keep], y[keep]
+        if k.endswith("pos"):
+            cache_ok &= torch.equal(x, y)
+        else:
+            e, good = close(x, y, SERVE_TOL)
+            cworst, cache_ok = max(cworst, e), cache_ok and good
+    run.check(ok and toks and cache_ok and bool(keep.any()),
+              f"{what}: the prefill's last logits and {len(rec.logits) - 1} "
+              f"decode steps' logits within rtol {SERVE_TOL}, atol "
+              f"{SERVE_TOL} x max(1, max|one card|) (max |d| {worst:.3e}); "
+              f"greedy tokens equal; caches gathered back in the band (max "
+              f"|d| {cworst:.3e}), positions bitwise; steps left out on a "
+              f"near tie (step, row): {left_out}")
+    return dict(max_abs_err=worst, cache_max_abs_err=cworst,
+                left_out=left_out)
+
+
+def _rank_device(run) -> torch.device:
+    """This rank's device (``cuda:LOCAL_RANK``, or the CPU)."""
+    if run.device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def serve_check(run):
+    """(b) 3: gemma2-27b and hymba-1.5b at full widths, 2 layers, float32
+    activations, over (1, N), (2, 2) (N = 4) and (N, 1), each against the
+    one-card ``ServeEngine`` on card 0; hymba also on prompts past its
+    window (a rolled ring split over the sequence)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    shapes = [(1, run.n)] + ([(2, 2)] if run.n == 4 else []) + [(run.n, 1)]
+    out = {}
+    for arch, layers, (n_req, lens, new) in SERVE_CHECK:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        reqs = serve_requests(cfg, lens, n=n_req, new=new, seed=1)
+        max_len = lens[1] + new
+        rolled = cfg.window is not None and lens[0] > cfg.window
+        want, dev = None, _rank_device(run)
+        if run.rank == 0:
+            params = M.init_params(T.param_defs(cfg), prng.PRNGKey(1), dev)
+            true_fan_in_(params, cfg)
+            one = ServeEngine(cfg, params, max_len=max_len, device=dev)
+            rec = ServeRecorder(one, keep=True)
+            toks = np.stack([q.tokens for q in one.serve(reqs)])
+            want = (toks, rec.logits, {k: v.cpu() for k, v in
+                                       M.flatten(rec.caches).items()})
+            del one, rec, params
+            _reset_peak(dev)
+        for shape in shapes:
+            mesh = make_test_mesh(shape, device=run.device)
+            if rolled:
+                seq = SH.cache_seq_axes(mesh, n_req, cfg.window)
+                run.check(mesh.count(seq) > 1 or shape[1] == 1,
+                          f"{arch} over {shape}: every prompt of {lens} "
+                          f"tokens is past the window of {cfg.window}, so "
+                          f"the local ring is rolled; its sequence splits "
+                          f"{mesh.count(seq)} ways over {seq}")
+            blocks = _blocks(cfg, mesh, prng.PRNGKey(1))
+            true_fan_in_(blocks, cfg)
+            eng = ServeEngine(cfg, blocks, max_len=max_len, mesh=mesh)
+            rec = ServeRecorder(eng, keep=True)
+            got = np.stack([q.tokens for q in eng.serve(reqs)])
+            caches = SH.gather_caches(rec.caches, eng._layout["shards"])
+            if run.rank == 0:
+                out[f"{arch} {lens} {shape}"] = _hold_serve(
+                    run, f"{arch} at full widths, {layers} layers, float32, "
+                    f"{n_req} requests of {lens} prompt tokens, {new} tokens, "
+                    f"over {shape} against one card", want, rec, got,
+                    caches, cfg)
+            del eng, rec, blocks, caches
+            _reset_peak(mesh.device)
+        run.log(f"(b) 3, {arch}, prompts {lens}: "
+                f"{time.perf_counter() - t0:.1f} s")
+    run.res["serve_check"] = out
+
+
 MESH_JOBS = {"one": mesh_one, "cards": mesh_cards, "full": mesh_full,
-             "mamba": mesh_mamba, "check": mesh_check, "pp": mesh_pp}
+             "mamba": mesh_mamba, "check": mesh_check, "pp": mesh_pp,
+             "serve-one": serve_one, "serve-cards": serve_cards,
+             "serve-full": serve_full, "serve-hybrid": serve_hybrid,
+             "serve-check": serve_check}
+#: the parts that run on one rank
+ONE_RANK_JOBS = ("one", "serve-one")
 
 
 def mesh_rank(rank, n, port, job, out_dir, device_type="cuda"):
@@ -5110,17 +5674,56 @@ def mesh_phase(dev, card, trn) -> dict:
     return out
 
 
+def serve_mesh_phase(dev, card) -> dict:
+    """Phase 16: LM serving over a mesh of cards."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = spawn_mesh("serve-one", 1)[0]["serve_one"]
+    out = dict(one=one, seconds_a=time.perf_counter() - t0,
+               launches=one[SERVE_ONE[1][0]]["launches"],
+               dense_launches=one[SERVE_ONE[0][0]]["launches"])
+    log(f"serve mesh (a) on {card}: {out['seconds_a']:.1f} s")
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        log("serve mesh: one card visible; phase 16 (b) runs where there "
+            "are more")
+        out["cards"] = None
+        return out
+    t0 = time.perf_counter()
+    res = spawn_mesh("serve-cards", n)
+    r0 = res[0]
+    full, hy = r0["serve_full"], r0["serve_hybrid"]
+    out.update(cards=n, full=full, hybrid=hy, check=r0["serve_check"],
+               hybrid_launches_by_rank=[r["serve_hybrid"]["launches"]
+                                        for r in res],
+               cards_launches=hy["launches"],
+               dense_launches={k: v + full["launches"].get(k, 0) for k, v in
+                               out["dense_launches"].items()},
+               seconds_b=time.perf_counter() - t0)
+    log(f"serve mesh (b) on {n} x {card}: {SERVE_FULL} uncut over "
+        f"{full['mesh']}: prefill {full['prefill_tokens_per_s']:.1f} "
+        f"tokens/s, decode p50 {full['decode_p50_ms']:.2f} ms, p99 "
+        f"{full['decode_p99_ms']:.2f} ms, peak GiB "
+        f"{[round(p, 2) for p in full['peak_gib']]}, NCCL "
+        f"{full.get('nccl_ms', 0):.2f} of {full.get('profile_device_ms', 0):.2f}"
+        f" ms device time in a decode step on rank 0; {SERVE_HYBRID} over "
+        f"{hy['mesh']}: {hy['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"p50 {hy['decode_p50_ms']:.2f} ms; {out['seconds_b']:.1f} s")
+    return out
+
+
 def mesh_parts(parts, card) -> int:
-    """``--mesh``: only the named parts of phase 15, each on its ranks;
-    0 when every check passed."""
+    """``--mesh``: only the named parts of phases 15 and 16, each on its
+    ranks; 0 when every check passed."""
     unknown = sorted(set(parts) - set(MESH_JOBS))
     if unknown:
-        log(f"chip_smoke: no part {unknown} of phase 15; the parts are "
+        log(f"chip_smoke: no part {unknown} of phases 15 and 16; the parts are "
             f"{sorted(MESH_JOBS)}")
         return 2
     n = min(4, torch.cuda.device_count())
     for part in parts:
-        ranks = 1 if part == "one" else n
+        ranks = 1 if part in ONE_RANK_JOBS else n
         t0 = time.perf_counter()
         res = spawn_mesh(part, ranks)
         log(f"mesh {part} on {ranks} x {card}: "
@@ -5138,8 +5741,9 @@ def main() -> int:
                     "commit's tree): time its stcf_support and "
                     "chunk_scatter in turns with this tree's")
     ap.add_argument("--mesh", default=None, metavar="PART[,PART...]",
-                    help="run only these parts of phase 15 (one, full, "
-                    "mamba, check, pp) and exit")
+                    help="run only these parts of phases 15 and 16 (one, "
+                    "full, mamba, check, pp; serve-one, serve-full, "
+                    "serve-hybrid, serve-check) and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5254,13 +5858,17 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = mesh_phase(dev, card, trn)
     phase_s["lm mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smesh = serve_mesh_phase(dev, card)
+    phase_s["lm serving mesh"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
                     "training": {**trn, "full": {
                         k: v for k, v in trn["full"].items()
                         if k != "launches"}}, "dense": dense,
-                    "hybrid": hybrid, "leftovers": left, "mesh": mesh},
+                    "hybrid": hybrid, "leftovers": left, "mesh": mesh,
+                    "serve_mesh": smesh},
                    default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}
@@ -5290,6 +5898,13 @@ def main() -> int:
                                 "launches"].get(name, 0),
                             mesh_path_launches=mesh.get("launches", {}).get(
                                 name, 0),
+                            serve_mesh_path_launches=smesh["launches"].get(
+                                name, 0),
+                            serve_mesh_cards_path_launches=(
+                                smesh["cards_launches"].get(name, 0)
+                                if smesh["cards"] else None),
+                            serve_mesh_dense_path_launches=smesh[
+                                "dense_launches"].get(name, 0),
                             kernel_ms=row["ms"], **row))
         if name == "decay_scan":
             hs = hybrid["decay_scan"]

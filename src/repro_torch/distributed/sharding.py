@@ -15,6 +15,13 @@ rank's block of a full leaf and ``gather_leaf`` gathers it back.  A dim
 that does not divide its axes raises for that leaf (GSPMD would pad it);
 the rules never ask for one.
 
+**Decode caches** (serving over a mesh): ``cache_placements`` lays a
+batch's caches out as the reference's ``dryrun.abstract_cache_specs``
+does (flash-decoding: the batch over the data axes that divide it, the
+sequence over ``cache_seq_axes``, every KV head on every rank, an SSM's
+state over the batch axes); ``shard_caches`` keeps a rank's block of
+whole caches and ``gather_caches`` gathers them back.
+
 **The slot-pool half**: a host mesh is a list of devices with one ``"data"`` axis; the pool's slot
 axis splits into contiguous blocks, one per shard, and every other axis
 stays whole.  Where the reference hands ``shard_map`` a
@@ -368,6 +375,86 @@ def all_reduce_(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM
     if group is not None:
         dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` over ``axes`` joined along ``dim`` in their
+    row-major order, outside autograd; ``x`` where the axes span one
+    rank."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    return _gather_dim(x, dim % x.dim(), group, mesh.count(axes))
+
+
+# ------------------------------------------------------- decode caches
+
+def kv_spec(mesh, batch: int, seq_len: int, ndim: int) -> tuple:
+    """The flash-decoding spec of a (B, S, ...) cache leaf of ``ndim``
+    dims: the batch over ``batch_spec``, the sequence over
+    ``cache_seq_axes`` (None where that gives ``()``), the rest whole."""
+    bspec = batch_spec(mesh, batch)
+    seq = cache_seq_axes(mesh, batch, seq_len) or None
+    return (bspec[0] if bspec else None, seq) + (None,) * (ndim - 2)
+
+
+def cache_placements(cfg, mesh, batch: int, max_len: int,
+                     stacked: bool = False):
+    """Each decode cache leaf's ``Placement`` on ``mesh`` for ``batch``
+    requests of ``max_len`` positions: the flash-decoding layout of the
+    reference's ``dryrun.abstract_cache_specs``.  K/V, int8 codes and
+    scales (B, S, K, .) and ``pos`` (B, S) put the batch over
+    ``batch_spec(mesh, batch)`` and the sequence over
+    ``cache_seq_axes(mesh, batch, S)``, taken per layer (a local ring
+    and a global cache differ in length), whole where that gives ``()``;
+    every KV head is on every rank.  An SSM's conv rings and state split
+    over the batch axes only.  A list of per-layer trees, or with
+    ``stacked`` one tree whose leaves lead with the layers dim (whole),
+    as ``transformer.stack_caches`` lays uniform caches out."""
+    from repro_torch.models import transformer as T
+
+    caches = T.abstract_decode_caches(cfg, batch, max_len)
+    if stacked:
+        if not T.uniform_layers(cfg):
+            raise ValueError(f"{cfg.name}: stacked caches need every "
+                             "layer's cache in one shape (uniform layers)")
+        caches = T.stack_caches(caches)
+    bspec = batch_spec(mesh, batch)
+    lead = 1 if stacked else 0
+    out = {}
+    for path, x in M.flatten(caches).items():
+        if "ssm" in path.split("."):
+            spec = (bspec[0] if bspec else None,) + (None,) * (
+                x.dim() - lead - 1)
+        else:
+            spec = kv_spec(mesh, batch, x.shape[lead + 1], x.dim() - lead)
+        out[path] = Placement(tuple(x.shape), (None,) * lead + spec, mesh)
+    return M.unflatten_like(caches, out)
+
+
+def shard_caches(caches, pls):
+    """This rank's block of each leaf of the whole caches ``caches`` (a
+    copy)."""
+    flat = M.flatten(pls)
+    return M.unflatten_like(caches, {k: shard_leaf(x, flat[k]) for k, x in
+                                     M.flatten(caches).items()})
+
+
+def gather_caches(caches, pls):
+    """The whole caches from this rank's blocks, outside autograd."""
+    flat = M.flatten(pls)
+    return M.unflatten_like(caches, {k: gather_full(x, flat[k]) for k, x in
+                                     M.flatten(caches).items()})
+
+
+def local_block(x: torch.Tensor, pl: Placement, rows_dim: int = 0
+                ) -> torch.Tensor:
+    """This rank's block of ``x``, whose ``rows_dim`` already holds this
+    rank's rows of the batch and whose other dims are whole: every dim
+    but that one cut to the rank's block (a copy)."""
+    block = list(pl.block())
+    block[rows_dim] = slice(None)
+    return x[tuple(block)].clone()
 
 
 def slot_shard_count(mesh) -> int:

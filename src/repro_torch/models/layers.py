@@ -11,6 +11,9 @@ order.  Under autograd each query tile is checkpointed, as the
 reference's scan mode remats its ``q_chunk``: the backward keeps one
 tile's scores at a time, not the (S, S) matrix.  Supports GQA grouping, causal and sliding-window masks,
 gemma-style logit softcaps, qwen3-style qk-norm and partial RoPE.
+Where a mesh splits a decode cache's sequence (flash-decoding),
+``decode_attention_partial`` attends over one shard's slots and
+``merge_partials`` joins the shards' partials.
 
 Precision follows the reference op for op, as ``models/ssm.py`` does:
 the projections are bf16 in, bf16 out, each float32 master weight cast
@@ -222,6 +225,49 @@ def decode_attention(
     p = e / e.sum(-1, keepdim=True)
     out = p.to(v_cache.dtype).to(F32) @ v_cache.to(F32).permute(0, 2, 1, 3)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, kv_positions, q_position,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None):
+    """``decode_attention`` over one shard of the cache's slots, not yet
+    normalised: (m, l, o), float32, m and l (B, K, G) and o (B, K, G, D):
+    the shard's largest visible logit, the sum of its visible slots'
+    ``exp(logit - m)`` and their product with V.  Softcap and the window
+    apply per slot, as there.  A shard with no visible slot gives m =
+    -inf and l, o = 0."""
+    b, s, kh, d = k_cache.shape
+    g = q.shape[2] // kh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kh, g, d).to(F32)
+    logits = (qg @ k_cache.to(F32).permute(0, 2, 3, 1)) * scale  # (B,K,G,S)
+    logits = _soft_cap(logits, softcap)
+    qpos = (q_position[:, None] if isinstance(q_position, torch.Tensor)
+            else q_position)
+    valid = (kv_positions >= 0) & (kv_positions <= qpos)
+    if window is not None:
+        valid = valid & ((qpos - kv_positions) < window)
+    vis = valid[:, None, None, :]
+    logits = torch.where(vis, logits, NEG_INF)
+    m = logits.amax(-1)
+    seen = valid.any(-1)[:, None, None]
+    e = torch.where(vis, torch.exp(logits - torch.where(seen, m, 0.0)
+                                   [..., None]), 0.0)
+    o = e.to(v_cache.dtype).to(F32) @ v_cache.to(F32).permute(0, 2, 1, 3)
+    return (torch.where(seen, m, -math.inf), e.sum(-1), o)
+
+
+def merge_partials(m, l, o, reduce) -> torch.Tensor:
+    """The attention output (B, K, G, D) float32 from the shards'
+    partials of ``decode_attention_partial``: ``reduce(x, "max")`` and
+    ``reduce(x, "sum")`` join a tensor over the shards (an all-reduce
+    over the mesh axes that split the sequence).  Each shard's l and o
+    are rescaled by ``exp(m - max m)``, summed in one reduction, then
+    divided; a shard with m = -inf adds nothing."""
+    top = reduce(m.clone(), "max")
+    a = torch.where(m > -math.inf, torch.exp(m - top), 0.0)
+    lo = reduce(torch.cat([(l * a)[..., None], o * a[..., None]], -1), "sum")
+    return lo[..., 1:] / torch.clamp_min(lo[..., :1], 1e-37)
 
 
 # ---------------------------------------------------- attention block

@@ -5,13 +5,14 @@ a Mamba-2 head side by side in every layer).
 
 The port of ``repro.models.transformer``: parameter definitions,
 embedding (with a frontend's ``embeds`` prepended), the full-sequence
-``forward`` and its ``loss_fn`` (on one device or over a mesh),
-``prefill`` (which also builds the decode caches) and ``decode_step`` (on
-one device).  Layers run as an unrolled Python loop over the stacked
-parameters; under autograd with ``cfg.remat`` each layer is a
-non-reentrant ``torch.utils.checkpoint`` that keeps only its input and
-recomputes the rest in the backward, as the reference's per-layer
-``nothing_saveable`` remat does.
+``forward`` and its ``loss_fn``, ``prefill`` (which also builds the
+decode caches) and ``decode_step``, each on one device or over a mesh,
+and the dry run's stacked forms (``prefill_scan``, ``decode_step_scan``
+on ``stack_caches``, ``abstract_decode_caches``).  Layers run as an
+unrolled Python loop over the stacked parameters; under autograd with
+``cfg.remat`` each layer is a non-reentrant ``torch.utils.checkpoint``
+that keeps only its input and recomputes the rest in the backward, as
+the reference's per-layer ``nothing_saveable`` remat does.
 
 Over a mesh (``distributed.mesh.ProcessMesh``) every rank runs ``forward``
 on its own rows of the batch with its blocks of the parameters
@@ -34,6 +35,19 @@ rank (its gated RMSNorm reduces over the inner dim).  An expert layer
 runs ``moe.moe_sharded`` whenever there is a mesh, as the reference's
 does.  At a mesh of one rank every collective is the identity and the
 arithmetic is the one-device path's.
+
+Serving over a mesh keeps each rank's rows of the batch and its block of
+every cache (``sharding.cache_placements``: the batch over the data
+axes that divide it, the K/V rings' sequence over ``cache_seq_axes``,
+the flash-decoding layout).  ``prefill`` gathers each layer's KV heads
+over a split ``"model"`` axis and keeps the rank's slots of the ring;
+``decode_step`` gathers the token's q and K/V over the heads, lets the
+rank that owns slot ``position % S`` write it, attends with every head
+over the rank's slots and merges the partial softmax sums over the axes
+that split the sequence (``layers.merge_partials``), then keeps the
+rank's heads for the row-parallel ``wo``.  Where no axis splits a
+cache's sequence it runs ``decode_attention`` unchanged, so a mesh of one
+rank stays bitwise the one-device path.
 
 A hybrid layer normalises both branches and averages them,
 ``0.5 * (rms_norm(attn) + rms_norm(ssm))``, attention first.  An expert
@@ -130,11 +144,13 @@ def layer_params(params, i: int) -> dict:
     layers = params["layers"]
     if isinstance(layers, list):
         return layers[i]
+    return _index(layers, i)
 
-    def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return take(layers)
+
+def _index(tree, i: int) -> dict:
+    """Entry ``i`` of every leaf of a nested dict (views)."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 def unstack_layers(params) -> dict:
@@ -275,10 +291,12 @@ def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
 
 
 def _attention(ap, h: torch.Tensor, cfg: ModelConfig, window, positions,
-               plan=None):
+               plan=None, cache_kv: bool = False):
     """The attention branch: (output, k, v); over a split ``"model"``
     axis, this rank's heads (column-parallel) and one sum after ``wo``
-    (row-parallel)."""
+    (row-parallel).  With ``cache_kv`` the k and v returned hold every
+    KV head (gathered over ``"model"`` where it splits them), as a
+    decode cache keeps them."""
     split = plan is not None and plan.heads
     if split:
         h = SH.enter(h, plan.mesh)
@@ -287,12 +305,15 @@ def _attention(ap, h: torch.Tensor, cfg: ModelConfig, window, positions,
         ap = {n: w if n in own else SH.enter(w, plan.mesh)
               for n, w in ap.items()}
     q, k, v = L.attention_qkv(ap, h, cfg, positions)
+    kc, vc = k, v
     if split and not plan.kv:
         k, v = _local_kv(k, v, cfg, plan)
+    elif split and cache_kv:
+        kc, vc = (SH.all_gather_dim(t, plan.mesh, "model", 2) for t in (k, v))
     out = L.blockwise_attention(q, k, v, causal=True, window=window,
                                 softcap=cfg.attn_logit_softcap)
     out = L.attention_out(out, ap["wo"])
-    return (SH.leave(out, plan.mesh) if split else out), k, v
+    return (SH.leave(out, plan.mesh) if split else out), kc, vc
 
 
 def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
@@ -305,7 +326,8 @@ def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
     and state)."""
     branches, cache = [], {}
     if cfg.family != "ssm":
-        out, k, v = _attention(lp["attn"], h, cfg, window, positions, plan)
+        out, k, v = _attention(lp["attn"], h, cfg, window, positions, plan,
+                               cache_kv=cache_len is not None)
         branches.append(out)
         if cache_len is not None:
             cache.update(_fill_ring(k, v, h.shape[1], cache_len))
@@ -466,62 +488,249 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def abstract_decode_caches(cfg: ModelConfig, batch: int, max_len: int
+                           ) -> List[dict]:
+    """``init_decode_caches``' leaves on the ``meta`` device: their
+    shapes and dtypes, nothing allocated (the dry run's stand-ins)."""
+    return init_decode_caches(cfg, batch, max_len, device="meta")
+
+
+def uniform_layers(cfg: ModelConfig) -> bool:
+    """True when every layer has the same kind (so the same cache)."""
+    return len(set(cfg.layer_kinds())) == 1
+
+
+def stack_caches(caches: List[dict]) -> dict:
+    """Per-layer caches as one tree whose every leaf stacks the layers'
+    on a new leading dim (uniform layers: ``decode_step_scan``'s
+    caches)."""
+    flats = [M.flatten(c) for c in caches]
+    return M.unflatten({k: torch.stack([f[k] for f in flats])
+                        for k in flats[0]})
+
+
+def _layout(plan, cfg: ModelConfig, cache_shards, rows: int,
+            lens: List[Optional[int]], what: str) -> Optional[list]:
+    """Over a mesh, ``cache_shards`` (required: the layout of the whole
+    batch's caches, ``sharding.cache_placements``) as a list of per-layer
+    trees, checked to hold ``rows`` rows on this rank and, where ``lens``
+    names one, a K/V ring of that many slots; None without a mesh."""
+    if plan is None:
+        return None
+    if cache_shards is None:
+        raise ValueError(
+            f"over a mesh {what} needs the caches' layout: pass "
+            f"cache_shards=sharding.cache_placements(cfg, mesh, batch, "
+            f"max_len) for the whole batch")
+    if len(cache_shards) != len(lens):
+        raise ValueError(f"cache_shards holds {len(cache_shards)} layers; "
+                         f"{cfg.name} has {len(lens)}")
+    for i, (tree, n) in enumerate(zip(cache_shards, lens)):
+        flat = M.flatten(tree)
+        have = next(iter(flat.values())).local_shape[0]
+        if have != rows:
+            raise ValueError(
+                f"the layout puts {have} rows of a batch of "
+                f"{next(iter(flat.values())).shape[0]} on this rank of "
+                f"{plan.mesh.shape}; {what} was given {rows}")
+        if n is not None and "k" in flat and flat["k"].shape[1] != n:
+            raise ValueError(f"layer {i}: the layout holds a ring of "
+                             f"{flat['k'].shape[1]} slots; this one has {n}")
+    return list(cache_shards)
+
+
+def _keep_block(cache: dict, pls: dict) -> dict:
+    """A layer's cache on this rank's rows, cut to this rank's block
+    of the dims past the batch (the K/V rings' sequence)."""
+    flat = M.flatten(pls)
+    return M.unflatten_like(cache, {
+        k: SH.local_block(x, flat[k]) if flat[k].axes(range(1, x.dim()))
+        else x for k, x in M.flatten(cache).items()})
+
+
+def _seq_reduce(plan: _Plan, axes):
+    """``merge_partials``' reduction over the mesh axes ``axes``."""
+    ops = {"max": SH.dist.ReduceOp.MAX, "sum": SH.dist.ReduceOp.SUM}
+    return lambda x, op: SH.all_reduce_(x, plan.mesh, axes, op=ops[op])
+
+
 def _decode_attn(ap, h: torch.Tensor, c: dict, position: int,
                  positions: torch.Tensor, cfg: ModelConfig,
-                 window: Optional[int]) -> torch.Tensor:
+                 window: Optional[int], plan=None, pl=None) -> torch.Tensor:
     """The attention branch of one decode step: the token's K and V go
     into slot ``position % S`` of the layer's cache ``c`` (in place), then
     the query attends over the cache.  ``positions`` is ``position`` as a
-    (1,) tensor on the data's device."""
+    (1,) tensor on the data's device.
+
+    Over a mesh, ``pl`` places the layer's ``k``: ``c`` holds this rank's
+    block of its sequence, and only the rank that owns the slot writes
+    it.  The token's q (and K/V) are gathered over the heads a split
+    ``"model"`` axis holds, every rank attends with every head over its
+    own slots, the partials merge over the axes that split the sequence
+    (``decode_attention`` unchanged where none does), and each rank keeps
+    its heads for the row-parallel ``wo``."""
+    split = plan is not None and plan.heads
     q, k, v = L.attention_qkv(ap, h, cfg, positions)
-    slot = position % c["k"].shape[1]
+    if split:
+        q = SH.all_gather_dim(q, plan.mesh, "model", 2)
+        if plan.kv:
+            k, v = (SH.all_gather_dim(t, plan.mesh, "model", 2)
+                    for t in (k, v))
+    s_loc = c["k"].shape[1]
+    s_all, lo, seq = ((s_loc, 0, ()) if pl is None else
+                      (pl.shape[1], pl.block()[1].start, pl.axes([1])))
+    slot = position % s_all - lo
+    mine = 0 <= slot < s_loc
     if cfg.kv_cache_dtype == "int8":
         if c["k"].dtype != torch.int8:
             raise TypeError(
                 f"an int8 kv cache decodes from init_decode_caches' int8 "
                 f"layout; this cache holds {c['k'].dtype} K/V (prefill "
                 f"builds unquantized caches, as the reference's does)")
-        (c["k"][:, slot], c["k_scale"][:, slot]) = kv_quantize(k[:, 0])
-        (c["v"][:, slot], c["v_scale"][:, slot]) = kv_quantize(v[:, 0])
+        if mine:
+            (c["k"][:, slot], c["k_scale"][:, slot]) = kv_quantize(k[:, 0])
+            (c["v"][:, slot], c["v_scale"][:, slot]) = kv_quantize(v[:, 0])
         k_full = kv_dequantize(c["k"], c["k_scale"], h.dtype)
         v_full = kv_dequantize(c["v"], c["v_scale"], h.dtype)
     else:
-        c["k"][:, slot] = k[:, 0]
-        c["v"][:, slot] = v[:, 0]
+        if mine:
+            c["k"][:, slot] = k[:, 0]
+            c["v"][:, slot] = v[:, 0]
         k_full, v_full = c["k"], c["v"]
-    c["pos"][:, slot] = position
-    out = L.decode_attention(q, k_full, v_full, c["pos"], position,
-                             window=window, softcap=cfg.attn_logit_softcap)
-    return L.attention_out(out, ap["wo"])
+    if mine:
+        c["pos"][:, slot] = position
+    if seq:
+        m, l, o = L.decode_attention_partial(
+            q, k_full, v_full, c["pos"], position, window=window,
+            softcap=cfg.attn_logit_softcap)
+        out = L.merge_partials(m, l, o, _seq_reduce(plan, seq))
+        out = out.reshape(q.shape).to(q.dtype)
+    else:
+        out = L.decode_attention(q, k_full, v_full, c["pos"], position,
+                                 window=window,
+                                 softcap=cfg.attn_logit_softcap)
+    if not split:
+        return L.attention_out(out, ap["wo"])
+    hl = cfg.n_heads // plan.m
+    out = out[:, :, plan.mi * hl:(plan.mi + 1) * hl]
+    return SH.leave(L.attention_out(out, ap["wo"]), plan.mesh)
+
+
+def _decode_layer(lp, x: torch.Tensor, c: dict, position: int,
+                  positions: torch.Tensor, cfg: ModelConfig,
+                  window: Optional[int], plan=None, pl=None
+                  ) -> torch.Tensor:
+    """One layer of a decode step on its (gathered) parameters ``lp``:
+    the token mixer against the layer's cache ``c`` (K/V written in
+    place, the SSM's conv rings and state replaced), then the FFN."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    branches = []
+    if cfg.family != "ssm":
+        branches.append(_decode_attn(lp["attn"], h, c, position, positions,
+                                     cfg, window, plan, pl))
+    if cfg.family in ("ssm", "hybrid"):
+        y, (conv, state) = SSM.ssm_decode_step(
+            lp["ssm"], h, cfg, c["ssm"]["conv"], c["ssm"]["state"])
+        branches.append(y)
+        c["ssm"] = {"conv": conv, "state": state}
+    return _ffn(lp, x + _fuse(lp, branches, cfg), cfg, plan=plan)
+
+
+def _final(params, x: torch.Tensor, cfg: ModelConfig, plan=None
+           ) -> torch.Tensor:
+    """The last norm and the unembedding (this rank's vocab shard over
+    a split ``"model"`` axis)."""
+    ln_f = params["ln_f"] if plan is None else plan.gather(params["ln_f"],
+                                                           "ln_f")
+    return unembed(params, rms_norm(x, ln_f, cfg.norm_eps), cfg, plan)
+
+
+def _layer_k_shards(plan, cfg: ModelConfig, cache_shards, caches,
+                    rows: int) -> list:
+    """Each layer's placement of ``k`` (None without a mesh, or for a
+    layer with no K/V), checked against this rank's blocks ``caches``."""
+    if plan is None:
+        return [None] * len(caches)
+    shards = _layout(plan, cfg, cache_shards, rows, [None] * len(caches),
+                     "decode")
+    pls = [M.flatten(s).get("k") for s in shards]
+    for i, (c, pl) in enumerate(zip(caches, pls)):
+        if pl is not None and tuple(c["k"].shape[:2]) != pl.local_shape[:2]:
+            raise ValueError(
+                f"layer {i}: this rank's K block holds (rows, slots) "
+                f"{tuple(c['k'].shape[:2])}; the layout gives it "
+                f"{pl.local_shape[:2]}")
+    return pls
 
 
 def decode_step(params, tokens: torch.Tensor, caches: List[dict], position,
-                cfg: ModelConfig):
+                cfg: ModelConfig, mesh=None,
+                data_axes: Tuple[str, ...] = ("data",), cache_shards=None):
     """One token for the whole batch.  ``tokens`` (B, 1); ``position``
     (an int) is the absolute position of this token.  Attention caches are
     updated in place; an SSM's conv rings and state are new tensors in
-    the returned caches.  Returns (logits (B, 1, V), caches)."""
+    the returned caches.  Returns (logits (B, 1, V), caches).
+
+    Over ``mesh`` (a ``ProcessMesh``), ``params`` are this rank's blocks,
+    ``tokens`` its rows, ``caches`` its blocks as ``cache_shards``
+    (``sharding.cache_placements``) places them, and the logits its
+    vocab shard; each layer gathers its FSDP blocks first, as
+    ``forward`` does."""
     position = int(position)
-    x = embed_tokens(params, tokens, cfg)
+    plan = _plan(cfg, mesh, data_axes)
+    pls = _layer_k_shards(plan, cfg, cache_shards, caches, tokens.shape[0])
+    x = embed_tokens(params, tokens, cfg, plan=plan)
     positions = torch.arange(position, position + 1, device=x.device)
     new_caches = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
+        if plan is not None:
+            lp = plan.gather_layer(lp)
         c = dict(caches[i])
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        branches = []
-        if cfg.family != "ssm":
-            branches.append(_decode_attn(lp["attn"], h, c, position,
-                                         positions, cfg, window))
-        if cfg.family in ("ssm", "hybrid"):
-            y, (conv, state) = SSM.ssm_decode_step(
-                lp["ssm"], h, cfg, c["ssm"]["conv"], c["ssm"]["state"])
-            branches.append(y)
-            c["ssm"] = {"conv": conv, "state": state}
-        x = _ffn(lp, x + _fuse(lp, branches, cfg), cfg)
+        x = _decode_layer(lp, x, c, position, positions, cfg, window, plan,
+                          pls[i])
         new_caches.append(c)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return unembed(params, x, cfg), new_caches
+    return _final(params, x, cfg, plan), new_caches
+
+
+def decode_step_scan(params, tokens: torch.Tensor, caches: dict, position,
+                     cfg: ModelConfig, mesh=None,
+                     data_axes: Tuple[str, ...] = ("data",),
+                     cache_shards=None):
+    """``decode_step`` on stacked caches (``stack_caches``: K/V (L, B, S,
+    K, D), ``pos`` (L, B, S), the SSM's leaves likewise), for configs
+    whose layers are uniform.  Every leaf is updated in place; returns
+    (logits, caches).  Over a mesh ``cache_shards`` is
+    ``sharding.cache_placements(..., stacked=True)``."""
+    if not uniform_layers(cfg):
+        raise ValueError(f"{cfg.name}: decode_step_scan needs uniform "
+                         "layers (one cache shape); use decode_step")
+    position = int(position)
+    plan = _plan(cfg, mesh, data_axes)
+    pl = None
+    if plan is not None and cfg.family != "ssm":
+        if cache_shards is None:
+            raise ValueError("over a mesh decode_step_scan needs "
+                             "cache_shards=sharding.cache_placements(cfg, "
+                             "mesh, batch, max_len, stacked=True)")
+        k = M.flatten(cache_shards)["k"]
+        pl = SH.Placement(k.shape[1:], k.spec[1:], plan.mesh)
+        _layer_k_shards(plan, cfg, [{"k": pl}],
+                        [_index(caches, 0)], tokens.shape[0])
+    window = layer_windows(cfg)[0]
+    x = embed_tokens(params, tokens, cfg, plan=plan)
+    positions = torch.arange(position, position + 1, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if plan is not None:
+            lp = plan.gather_layer(lp)
+        c = _index(caches, i)
+        x = _decode_layer(lp, x, c, position, positions, cfg, window, plan,
+                          pl)
+        if "ssm" in c:
+            for k, new in M.flatten(c["ssm"]).items():
+                M.flatten(caches["ssm"])[k][i].copy_(new)
+    return _final(params, x, cfg, plan), caches
 
 
 def _fill_ring(k: torch.Tensor, v: torch.Tensor, s_total: int,
@@ -547,25 +756,86 @@ def _fill_ring(k: torch.Tensor, v: torch.Tensor, s_total: int,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-            embeds: Optional[torch.Tensor] = None,
-            last_logits_only: bool = False):
+            embeds: Optional[torch.Tensor] = None, mesh=None,
+            data_axes: Tuple[str, ...] = ("data",),
+            last_logits_only: bool = False, cache_shards=None):
     """Forward pass that also builds the decode caches: each attention
     layer's K/V as a ring (``_fill_ring``; unquantized whatever
     ``kv_cache_dtype`` says, as in the reference), each SSM layer's conv
     ring and state.  Positions count ``embeds``' frontend positions first.
     ``last_logits_only`` unembeds just the final position.  Returns
-    (logits, caches, next_position)."""
-    x = embed_tokens(params, tokens, cfg, embeds)
+    (logits, caches, next_position).
+
+    Over ``mesh``, ``tokens`` are this rank's rows and ``cache_shards``
+    (required) lays out the whole batch's caches,
+    ``sharding.cache_placements(cfg, mesh, batch, max_len)``, as
+    ``decode_step`` takes it: each cache comes out as this rank's block,
+    every KV head (gathered over a split ``"model"`` axis), the ring's
+    sequence cut to this rank's slots."""
+    plan = _plan(cfg, mesh, data_axes)
+    shards = _layout(plan, cfg, cache_shards, tokens.shape[0],
+                     [None if cfg.family == "ssm" else _cache_len(w, max_len)
+                      for w in layer_windows(cfg)], "prefill")
+    x = embed_tokens(params, tokens, cfg, embeds, plan)
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=x.device)
     caches: List[dict] = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
+        if plan is not None:
+            lp = plan.gather_layer(lp)
         y, cache = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                        window, positions, _cache_len(window, max_len))
-        x = _ffn(lp, x + y, cfg)
+                        window, positions, _cache_len(window, max_len), plan)
+        if shards is not None:
+            cache = _keep_block(cache, shards[i])
+        x = _ffn(lp, x + y, cfg, plan=plan)
         caches.append(cache)
     if last_logits_only:
         x = x[:, -1:]
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return unembed(params, x, cfg), caches, s_total
+    return _final(params, x, cfg, plan), caches, s_total
+
+
+def prefill_scan(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 embeds: Optional[torch.Tensor] = None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",),
+                 kv_constraint=None, cache_shards=None):
+    """The dry run's prefill: the last position's logits and the stacked
+    caches of the whole prompt, K/V (L, B, S, K, D) (no ring, no
+    ``pos``) and an SSM's conv rings and state.  ``kv_constraint`` maps
+    each layer's K and V (B, S, K, D).  Over a mesh, without one,
+    ``cache_shards`` (required where the layers hold K/V) is the stacked
+    layout of these caches, ``sharding.cache_placements(cfg, mesh,
+    batch, S, stacked=True)`` for the whole batch and the S positions
+    of the prompt, as ``decode_step_scan`` takes it, and each layer's K/V
+    comes out as this rank's block."""
+    plan = _plan(cfg, mesh, data_axes)
+    x = embed_tokens(params, tokens, cfg, embeds, plan)
+    s_total = x.shape[1]
+    positions = torch.arange(s_total, device=x.device)
+    if kv_constraint is None and plan is not None and cfg.family != "ssm":
+        if cache_shards is None:
+            raise ValueError("over a mesh prefill_scan needs "
+                             "cache_shards=sharding.cache_placements(cfg, "
+                             "mesh, batch, S, stacked=True) or a "
+                             "kv_constraint")
+        k = M.flatten(cache_shards)["k"]
+        pl = SH.Placement(k.shape[1:], k.spec[1:], plan.mesh)
+        _layout(plan, cfg, [{"k": pl}], tokens.shape[0], [s_total],
+                "prefill_scan")
+        kv_constraint = lambda a: SH.local_block(a, pl)
+    outs = []
+    for i, window in enumerate(layer_windows(cfg)):
+        lp = layer_params(params, i)
+        if plan is not None:
+            lp = plan.gather_layer(lp)
+        y, cache = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                        window, positions,
+                        None if cfg.family == "ssm" else s_total, plan)
+        if "k" in cache:
+            cache.pop("pos")
+            if kv_constraint is not None:
+                cache["k"], cache["v"] = (kv_constraint(cache["k"]),
+                                          kv_constraint(cache["v"]))
+        x = _ffn(lp, x + y, cfg, plan=plan)
+        outs.append(cache)
+    return _final(params, x[:, -1:], cfg, plan), stack_caches(outs)
