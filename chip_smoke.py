@@ -22,7 +22,8 @@ visible, 10 the paper's reconstruction and classification protocols
 trained on the card, 11 the LM trainer on the card, 12 the dense LM
 family on the card, 13 the hybrid and MoE LM families, 14 the three
 time-surface examples and the paper's ``isc-qvga`` array, 15 the LM
-trainer over a mesh of cards, 16 LM serving over a mesh; phase 8 (a) and
+trainer over a mesh of cards, 16 LM serving over a mesh, 17 the capacity
+model and roofline against them; phase 8 (a) and
 phase 9's loops run straight after phase 2, while phase 1's products
 are held to compare against):
 
@@ -447,11 +448,25 @@ are held to compare against):
    leaves its row out from then on, and is counted); the caches gathered
    back in the band, positions bitwise.
 
+17. **Capacity and roofline** -- no new model: for each configuration an
+   earlier phase of the same call measured (mamba2-2.7b trained on one
+   card, 11 (a); qwen3-8b served on one card, 12 (a); where N >= 2,
+   qwen3-8b trained over (N, 1), 15 (b) 1, and gemma2-27b served over
+   (1, N), 16 (b) 1), ``launch.dryrun.static_capacity_model`` for its
+   config and mesh shape at the phase's own traffic, and
+   ``launch.roofline``'s ``model_flops`` and ``roofline_terms`` (the
+   H100's bf16 peak and HBM rate; the persistent bytes read once; no
+   collective term) against the measured step or prefill time.  Checks:
+   the persistent state (params + opt_state + grad_accum + kv_cache) no
+   more than the measured peak; no roofline share (the bound's or the
+   useful FLOPs') over 100 %.
+
 ``--mesh PART[,PART...]`` runs only those parts of phases 15 and 16
 over N cards (``one`` for 15 (a); ``full``, ``mamba``, ``check`` for
 (b) 3 and 4, ``pp``; ``serve-one`` for 16 (a); ``serve-full``,
 ``serve-hybrid``, ``serve-check`` for 16 (b) 1-3, ``serve-cards`` for
-all three) and exits 0 when every check passed, without the last line:
+all three), then phase 17's cases of ``full`` and ``serve-full`` where
+they ran, and exits 0 when every check passed, without the last line:
 the quick rerun of one part on a host of several cards.
 
 Output: progress lines, one JSON line of the kernels, the card's
@@ -5713,6 +5728,101 @@ def serve_mesh_phase(dev, card) -> dict:
     return out
 
 
+# ------------------------------------ phase 17: capacity and roofline
+
+def _prompt(r) -> int:
+    """The left-padded prompt length of a served batch's prefill."""
+    return round(r["prefill_tokens_per_s"] * r["prefill_ms"] / 1e3
+                 / LM_REQUESTS)
+
+
+def capacity_cases(trn=None, dense=None, mesh_full=None, serve_full=None
+                   ) -> list:
+    """Phase 17's cases, from the records of phase 11 (a) ``trn``, 12 (a)
+    ``dense``, and ``(n, record)`` of 15 (b) 1 and 16 (b) 1: (phase,
+    arch, mesh dims, kind, (seq, batch or cache length), measured ms,
+    measured peak GiB by card)."""
+    max_len = LM_PROMPT[1] + LM_NEW_TOKENS
+    cases = []
+    if trn is not None:
+        cases.append(("11 (a)", LM_ARCH, (1, 1), "train",
+                      (TRAIN_SEQ, TRAIN_BATCH), trn["full"]["median_ms"],
+                      [trn["full"]["peak_gib"]]))
+    if dense is not None:
+        q = dense["served"][DENSE_ARCH]
+        cases.append(("12 (a)", DENSE_ARCH, (1, 1), "serve",
+                      (_prompt(q), max_len), q["prefill_ms"], [q["peak_gib"]]))
+    if mesh_full is not None:
+        n, r = mesh_full
+        cases.append(("15 (b) 1", MESH_ARCH, (n, 1), "train",
+                      (MESH_FULL[1], MESH_FULL[0]), r["median_ms"],
+                      r["peak_gib"]))
+    if serve_full is not None:
+        n, r = serve_full
+        cases.append(("16 (b) 1", SERVE_FULL, (1, n), "serve",
+                      (_prompt(r), max_len), r["prefill_ms"], r["peak_gib"]))
+    return cases
+
+
+def capacity_phase(card, cases) -> dict:
+    """Phase 17: the dry run's capacity model and roofline against what
+    ``cases`` (``capacity_cases``) measured in this call (nothing runs on
+    the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.hw.constants import H100_SXM
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+
+    out = {}
+    for phase, arch, dims, kind, (seq, other), ms, peaks in cases:
+        cfg = get_config(arch)
+        am = D.AbstractMesh(("data", "model"), dims)
+        cards = dims[0] * dims[1]
+        if kind == "train":
+            cap = D.static_capacity_model(
+                cfg, ShapeSpec(phase, seq, other, "train"), am)
+            work = ShapeSpec(phase, seq, other, "train")
+            what = "step"
+        else:   # the engine's caches hold max_len positions
+            cap = D.static_capacity_model(
+                cfg, ShapeSpec(phase, other, LM_REQUESTS, "decode"), am)
+            work = ShapeSpec(phase, seq, LM_REQUESTS, "prefill")
+            what = "prefill"
+        persistent = sum(cap.get(k, 0) for k in
+                         ("params", "opt_state", "grad_accum", "kv_cache"))
+        peak = max(peaks) * 2**30
+        mf = R.model_flops(cfg, work)
+        terms = R.roofline_terms(mf / cards, persistent, 0.0, cards)
+        bound_share = terms["step_time_lb_s"] / (ms / 1e3)
+        useful = R.roofline_fraction(mf, cards, ms / 1e3)
+        out[phase] = dict(arch=arch, mesh=list(dims), kind=kind,
+                          capacity={k: float(v) for k, v in cap.items()},
+                          persistent_gib=persistent / 2**30,
+                          measured_peak_gib=peak / 2**30,
+                          model_flops=mf, bound_ms=1e3 * terms[
+                              "step_time_lb_s"], bound_by=terms["bottleneck"],
+                          measured_ms=ms, bound_share=bound_share,
+                          useful_flop_share=useful)
+        log(f"capacity {phase} {arch} over {dims} on {card}: persistent "
+            f"{persistent / 2**30:.2f} GiB predicted ("
+            f"{ {k: round(v / 2**30, 2) for k, v in cap.items()} } GiB) "
+            f"against a measured peak of {peak / 2**30:.2f} GiB a card")
+        log(f"roofline {phase} {arch}: {what} bound {1e3 * terms['step_time_lb_s']:.1f}"
+            f" ms ({terms['bottleneck']}; {mf:.3e} useful FLOPs over "
+            f"{cards} x {H100_SXM.peak_flops_bf16:.3g} FLOP/s) against "
+            f"{ms:.1f} ms measured: bound {100 * bound_share:.2f} %, useful "
+            f"FLOPs {100 * useful:.2f} % of the card's bf16 peak")
+        check(persistent <= peak,
+              f"capacity {phase} {arch}: the persistent state "
+              f"{persistent / 2**30:.2f} GiB <= the measured peak "
+              f"{peak / 2**30:.2f} GiB")
+        check(bound_share <= 1.0 and useful <= 1.0,
+              f"roofline {phase} {arch}: no share over 100 % (bound "
+              f"{100 * bound_share:.2f} %, useful {100 * useful:.2f} %)")
+    return out
+
+
 def mesh_parts(parts, card) -> int:
     """``--mesh``: only the named parts of phases 15 and 16, each on its
     ranks; 0 when every check passed."""
@@ -5722,6 +5832,7 @@ def mesh_parts(parts, card) -> int:
             f"{sorted(MESH_JOBS)}")
         return 2
     n = min(4, torch.cuda.device_count())
+    done = {}
     for part in parts:
         ranks = 1 if part in ONE_RANK_JOBS else n
         t0 = time.perf_counter()
@@ -5729,6 +5840,16 @@ def mesh_parts(parts, card) -> int:
         log(f"mesh {part} on {ranks} x {card}: "
             f"{time.perf_counter() - t0:.1f} s")
         log(json.dumps({part: res[0]}, default=float))
+        done[part] = (ranks, res[0])
+    # phase 17's cases of the parts that ran on several cards
+    full = done.get("full") or done.get("cards")
+    serve = done.get("serve-full") or done.get("serve-cards")
+    cases = capacity_cases(
+        mesh_full=(full[0], full[1]["full"]) if full and full[0] > 1 else None,
+        serve_full=((serve[0], serve[1]["serve_full"])
+                    if serve and serve[0] > 1 else None))
+    if cases:
+        capacity_phase(card, cases)
     for f in FAILURES:
         log(f"  failed: {f}")
     return 1 if FAILURES else 0
@@ -5753,6 +5874,7 @@ def main() -> int:
               f"{Path(__file__).name}; run it from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch import platform
     from repro_torch.core import time_surface as ts
     from repro_torch.events import aer, datasets, pipeline
     from repro_torch.kernels import _lib, ops
@@ -5768,7 +5890,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     log(f"card: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
+        f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}; "
+        f"platform.describe: {platform.describe()}")
     if args.mesh:
         return mesh_parts(args.mesh.split(","), card)
 
@@ -5861,6 +5984,11 @@ def main() -> int:
     t0 = time.perf_counter()
     smesh = serve_mesh_phase(dev, card)
     phase_s["lm serving mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap = capacity_phase(card, capacity_cases(
+        trn, dense, (mesh["cards"], mesh["full"]) if mesh["cards"] else None,
+        (smesh["cards"], smesh["full"]) if smesh["cards"] else None))
+    phase_s["capacity and roofline"] = time.perf_counter() - t0
     log(f"phases, s: { {k: round(v, 2) for k, v in phase_s.items()} }")
     log(json.dumps({"analog": an, "stream": sm, "sweep": sw, "fleet": fl,
                     "shards": sh, "cards": cd, "vision": vis,
@@ -5868,7 +5996,7 @@ def main() -> int:
                         k: v for k, v in trn["full"].items()
                         if k != "launches"}}, "dense": dense,
                     "hybrid": hybrid, "leftovers": left, "mesh": mesh,
-                    "serve_mesh": smesh},
+                    "serve_mesh": smesh, "capacity": cap},
                    default=str))
 
     launches = {**run["launches"], "decay_scan": lm["launches"]["decay_scan"]}

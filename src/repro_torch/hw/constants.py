@@ -1,12 +1,15 @@
 """Hardware constants: the circuit constants published in the 3DS-ISC
-paper (Sec. IV-B) and its references (a copy of ``repro.hw.constants``
-without its accelerator roofline section, which the port does not use).
+paper (Sec. IV-B) and its references (a copy of ``repro.hw.constants``),
+and the roofline constants of the card the port runs on, an NVIDIA H100
+SXM, in place of the reference's TPU v5e section.
 
 All values carry a comment citing where they come from.  Nothing in this
 file is tuned to "make the ratios come out right": the Fig. 7/8 ratios are
 *derived* downstream.
 """
 from __future__ import annotations
+
+import dataclasses
 
 # ----------------------------------------------------------------------------
 # Paper circuit constants (65 nm CMOS unless stated)
@@ -97,3 +100,37 @@ PAPER_SRAM53_POWER_RATIO = 1600.0
 PAPER_SRAM26_POWER_RATIO = 6761.0
 PAPER_SRAM53_AREA_RATIO = 3.1
 PAPER_SRAM26_AREA_RATIO = 2.2
+
+# ----------------------------------------------------------------------------
+# 2. NVIDIA H100 SXM roofline constants (per card)
+# ----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GPUSpec:
+    """One card's published peaks, the counterpart of the reference's
+    ``TPUSpec``.  ``link_bandwidth`` is one card's NVLink rate in one
+    direction: ``launch.roofline`` divides a step's collective bytes by
+    it, as the reference divides by one ICI link, so the collective term
+    is a lower bound for an axis whose ranks share a host and an
+    optimistic one for an axis that crosses hosts (InfiniBand is slower
+    than NVLink)."""
+
+    name: str
+    peak_flops_bf16: float      # FLOP/s, dense, tensor cores
+    hbm_bandwidth: float        # B/s
+    hbm_bytes: float            # B
+    link_bandwidth: float       # B/s, NVLink, one direction
+    power_limit_w: float        # W, the limit the peaks assume
+
+
+H100_SXM = GPUSpec(
+    name="h100_sxm",
+    peak_flops_bf16=989e12,     # NVIDIA H100 data sheet, SXM: 989 TFLOP/s
+    #                             dense bf16 (1,979 with sparsity)
+    hbm_bandwidth=3.35e12,      # same data sheet: 3.35 TB/s HBM3
+    hbm_bytes=80e9,             # same data sheet: 80 GB
+    link_bandwidth=450e9,       # same data sheet: NVLink 900 GB/s, both
+    #                             directions together: 450 GB/s each way
+    power_limit_w=700.0,        # same data sheet: max TDP up to 700 W
+)

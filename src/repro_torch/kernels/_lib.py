@@ -14,7 +14,9 @@ The decay arithmetic must stay IEEE: no ``--use_fast_math``, and
 ``-fmad=false`` so no product is contracted into an add.
 
 Every wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else.  A kernel's meta route (the dry run's step on
+``meta`` tensors, ``launch.dryrun``) launches nothing: it adds the work
+the kernel would do to ``META_COSTS[<kernel>]`` instead.
 """
 from __future__ import annotations
 
@@ -43,6 +45,13 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {"ts_decay": 0, "stcf_support": 0,
                             "chunk_scatter": 0, "decay_scan": 0,
                             "decay_scan_bwd": 0}
+
+#: kernel name -> {"calls", "flops", "bytes"} that the meta routes charged
+#: since the last ``reset_meta_costs()``: what the kernel would do on the
+#: card for those calls (each input read once, each output written once)
+META_COSTS: Dict[str, Dict[str, int]] = {
+    k: {"calls": 0, "flops": 0, "bytes": 0}
+    for k in ("decay_scan", "decay_scan_bwd")}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ULL = ctypes.c_ulonglong
@@ -75,6 +84,20 @@ _loaded: Optional[tuple] = None   # (ctypes.CDLL, BuildInfo)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_meta_costs() -> None:
+    for c in META_COSTS.values():
+        c.update(calls=0, flops=0, bytes=0)
+
+
+def charge(kernel: str, flops: int, nbytes: int) -> None:
+    """Count one call of ``kernel``'s meta route and the work it stands
+    for."""
+    c = META_COSTS[kernel]
+    c["calls"] += 1
+    c["flops"] += int(flops)
+    c["bytes"] += int(nbytes)
 
 
 def _root_build_dir() -> Path:

@@ -8,6 +8,12 @@ are cast to float32 first, as the reference's ``decay_scan_pallas`` does.
 forward launches ``decay_scan`` and its backward ``decay_scan_bwd``, so a
 loss differentiates through the kernel on the card as ``jax.grad`` does
 through the reference's scan.
+
+On ``meta`` tensors (the dry run, ``launch.dryrun``) both wrappers take
+a meta route: they compute and launch nothing, return empty meta
+tensors of the kernels' shapes and dtypes, and charge
+``_lib.META_COSTS`` with what the kernels do: 2 FLOPs a cell forward and
+3 backward, each input read once and each output written once.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ def decay_scan_cuda(a: torch.Tensor, x: torch.Tensor,
                     s0: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the recurrence on ``a``'s device.  Returns (states (B, T, C),
-    final (B, C)), both float32, with no autograd history."""
+    final (B, C)), both float32, with no autograd history (on meta
+    tensors: empty, the kernel's work charged)."""
     dev = a.device
     if a.dim() != 3 or x.shape != a.shape:
         raise ValueError(f"a and x must be (B, T, C) of one shape; got "
@@ -51,7 +58,10 @@ def decay_scan_cuda(a: torch.Tensor, x: torch.Tensor,
     _check_grid(b, c)
     out = torch.empty((b, t, c), dtype=torch.float32, device=dev)
     final = torch.empty((b, c), dtype=torch.float32, device=dev)
-    if b * c:
+    if dev.type == "meta":
+        _lib.charge("decay_scan", 2 * b * t * c,
+                    4 * (3 * b * t * c + b * c * (1 + (s0 is not None))))
+    elif b * c:
         _lib.launch("decay_scan", "decay_scan", dev, a.data_ptr(),
                     x.data_ptr(), _lib.ptr(s0), out.data_ptr(),
                     final.data_ptr(), b, t, c)
@@ -66,8 +76,8 @@ def decay_scan_bwd_cuda(a: torch.Tensor, states: torch.Tensor,
     """Launch the backward on ``a``'s device: from the forward's ``a``,
     ``states`` and ``s0`` and the gradients ``g`` of the states and
     ``g_final`` of the final state (None: zero), return ``(da, dx, ds0)``
-    float32 (``ds0`` None when ``s0`` is None).  See
-    ``ref.decay_scan_bwd_ref``."""
+    float32 (``ds0`` None when ``s0`` is None; on meta tensors empty, the
+    kernel's work charged).  See ``ref.decay_scan_bwd_ref``."""
     dev = a.device
     if a.dim() != 3:
         raise ValueError(f"a must be (B, T, C); got {tuple(a.shape)}")
@@ -85,7 +95,11 @@ def decay_scan_bwd_cuda(a: torch.Tensor, states: torch.Tensor,
             torch.zeros_like(s0) if g_final is None else g_final.clone())
         return da, dx, ds0
     ds0 = None if s0 is None else torch.empty_like(s0)
-    if b * c:
+    if dev.type == "meta":
+        small = 2 * (s0 is not None) + (g_final is not None)
+        _lib.charge("decay_scan_bwd", 3 * b * t * c,
+                    4 * (5 * b * t * c + small * b * c))
+    elif b * c:
         _lib.launch("decay_scan_bwd", "decay_scan_bwd", dev, a.data_ptr(),
                     states.data_ptr(), _lib.ptr(s0), g.data_ptr(),
                     _lib.ptr(g_final), da.data_ptr(), dx.data_ptr(),

@@ -132,8 +132,10 @@ def decay_scan(a: torch.Tensor, x: torch.Tensor,
 
     Differentiable on either device: on the card through ``DecayScan``
     (the forward kernel, and the backward kernel for its gradients), on
-    the CPU through autograd of the plain version."""
-    if _on_card(a):
+    the CPU through autograd of the plain version.  On ``meta`` tensors
+    (the dry run) ``DecayScan`` computes nothing: it returns empty meta
+    tensors and charges ``_lib.META_COSTS`` with the kernels' work."""
+    if a.device.type == "meta" or _on_card(a):
         from repro_torch.kernels.decay_scan import DecayScan
 
         return DecayScan.apply(a, x, s0)

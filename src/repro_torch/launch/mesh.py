@@ -25,9 +25,12 @@ they read a ``jax`` mesh.  The process group comes from the
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
 ``MASTER_PORT``, as ``torchrun`` sets them) unless the caller has
 initialized it (a ``file://`` store, as the tests do): NCCL on the
-cards, gloo on the CPU.  The reference's ``ensure_host_device_count``
-asks XLA for emulated host devices and has no counterpart: a CPU mesh of
-the port is a gloo world of CPU processes.
+cards, gloo on the CPU.  On the ``meta`` device the mesh is one rank of
+a ``"fake"`` world that the dry run starts (``launch.dryrun.fake_world``):
+every collective returns at once on meta tensors, so a production mesh
+of 256 or 512 ranks fits in one process.  The reference's
+``ensure_host_device_count`` asks XLA for emulated host devices and has
+no counterpart: a CPU mesh of the port is a gloo world of CPU processes.
 """
 from __future__ import annotations
 
@@ -119,10 +122,14 @@ def _process_mesh(shape: Sequence[int], axes: Sequence[str],
     if len(shape) != len(axes) or len(set(axes)) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} do not pair")
     dev = _local_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = {"cuda": "nccl", "meta": "fake"}.get(dev.type, "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
+        if backend == "fake":
+            raise RuntimeError("a mesh on meta tensors is one rank of a fake "
+                               "world: start it with launch.dryrun."
+                               "fake_world(world_size, rank)")
         dist.init_process_group(backend, init_method="env://",
                                 **({"device_id": dev}
                                    if dev.type == "cuda" else {}))

@@ -5,8 +5,9 @@ dict of ``ParamDef``s -- shape, logical axis names, initializer -- from
 which ``init_params`` materializes a nested dict of tensors with the same
 keys, so a parameter's leaf path (``layers.ssm.z_proj``) is the
 reference's.  ``partition_specs`` maps each leaf's logical axes to mesh
-axes through a rules dict (``distributed.sharding.logical_rules``); the
-dry run's ``abstract_params`` is not ported.
+axes through a rules dict (``distributed.sharding.logical_rules``).
+``abstract_params`` gives the leaves as empty ``meta`` tensors (each
+whole, or a rank's block of it), the dry run's stand-ins.
 
 ``init_params`` draws from a ``core.prng`` key as the reference draws
 from a ``jax.random`` key: one ``split`` per leaf in jax's leaf order,
@@ -159,6 +160,18 @@ def init_params(defs, key: torch.Tensor, device=None, blocks=None):
     keys = prng.split(key.to(device), len(flat))
     return unflatten({path: _initialize(k, d, device, bl.get(path))
                       for k, (path, d) in zip(keys, flat.items())})
+
+
+def abstract_params(defs, placements=None):
+    """Each leaf of ``defs`` as an empty tensor of its dtype on the
+    ``meta`` device, nothing allocated: whole, or with ``placements`` (a
+    tree like ``defs`` of ``distributed.sharding.Placement``) this rank's
+    block of it (``local_shape``)."""
+    pls = flatten(placements) if placements is not None else {}
+    return unflatten({
+        path: torch.empty(pls[path].local_shape if path in pls else d.shape,
+                          dtype=d.dtype, device="meta")
+        for path, d in flatten(defs).items()})
 
 
 def partition_specs(defs, rules: Dict[str, Any]):
