@@ -394,9 +394,14 @@ are held to compare against):
    (1, N)) and over (N, 1) with ``fsdp_gather_once``, each against the
    one-card trainer on card 0: losses within 1e-5 relative (step 2's
    after a step at the whole lr) and AdamW's first moments (the clipped
-   gradients) within rtol 1e-4, atol 1e-4 x max|leaf|.  The parameters'
-   distance is printed, not held: Adam's per-cell normalisation turns a
-   rounding of a cell whose gradient sits near its sum's rounding into
+   gradients) within rtol 1e-4, atol 1e-4 x max|leaf|; and over (N, 1)
+   at batches 24 and 16 x 256 (3 and 2 rows a microbatch of 8 over N = 4
+   ranks: each rank pads its block, as GSPMD pads the reference's), each
+   against the one-card trainer at its batch in the same bands, with its
+   ms a step beside the card's ``nvidia-smi`` name and power limit.  The
+   parameters' distance is printed, not held: Adam's per-cell
+   normalisation turns a rounding of a cell whose gradient sits near
+   its sum's rounding into
    a sizeable share of a step.  Float32, because the band is a float32
    one: in bfloat16 the mesh sums its ranks' bfloat16-rounded partial
    gradients where one card rounds their sum.  4. The (N, 1)
@@ -4595,6 +4600,8 @@ MESH_MOE = ("grok-1-314b", 1, 256)  # (a): arch, layers, tokens
 MESH_FULL = (32, 2048, 1, 3)        # (b) 1: batch, seq, warm-up, timed steps
 MESH_MAMBA = ("mamba2-2.7b", 2048, 1, 2)   # (b) 2: arch, seq, warm-up, timed
 MESH_CHECK = (2, 32, 256, 3)        # (b) 3, 4: layers, batch, seq, steps
+#: (b) 3: batches whose microbatches the N = 4 data ranks do not divide
+MESH_UNEVEN = (24, 16)
 MESH_PP = (8, 8, 4096)              # (b) 5: microbatches, rows, width
 MESH_TOL = 1e-4    # rtol; atol x max|leaf|: a mesh against one card
 #: the learning rate of the uncut run, whose loss must fall in 3 steps
@@ -4905,8 +4912,11 @@ def mesh_mamba(run):
 
 def mesh_check(run):
     """(b) 3, 4: qwen3-8b at full widths and 2 layers over (N, 1) and
-    (2, 2) against the one-card trainer; ``fsdp_gather_once``; the (N, 1)
-    checkpoint restored onto another mesh and onto one card."""
+    (2, 2) against the one-card trainer; ``fsdp_gather_once``; over
+    (N, 1) at the batches of ``MESH_UNEVEN``, whose microbatches the data
+    ranks do not divide (padded blocks), against the one-card trainer at
+    that batch; the (N, 1) checkpoint restored onto another mesh and onto
+    one card."""
     import tempfile
 
     import torch.distributed as dist
@@ -4921,44 +4931,56 @@ def mesh_check(run):
                               dtype="float32")
     mesh = make_test_mesh((run.n, 1), device=run.device)
     dev = mesh.device
-    pipe = lambda: TokenPipeline(cfg.vocab, batch, seq, seed=0)
+    card = _card_name(dev) if run.rank == 0 else None
     t0 = time.perf_counter()
-    want, want_m, want_loss = None, None, None
-    if run.rank == 0:
-        one = loop.Trainer(cfg, loop.TrainerConfig(**MESH_LR), device=dev)
-        one.train(pipe(), steps)
-        want, want_m, want_loss = (_host_leaves(one.params),
-                                   _host_leaves(one.opt_state["m"]),
-                                   [h["loss"] for h in one.history])
-        del one
-        _reset_peak(dev)
-    mesh.barrier()
     box = [tempfile.mkdtemp(prefix="smoke_mesh_ckpt_") if run.rank == 0
            else None]
     dist.broadcast_object_list(box, src=0)
     ckpt = box[0]
     alt = (2, 2) if run.n == 4 else (1, run.n)
-    shapes = [((run.n, 1), False), (alt, False), ((run.n, 1), True)]
+    cases = ([((run.n, 1), False, batch), (alt, False, batch),
+              ((run.n, 1), True, batch)]
+             + [((run.n, 1), False, b) for b in MESH_UNEVEN])
     out = {}
-    keep = None
-    for shape, once in shapes:
+    keep, one_batch = None, None
+    for shape, once, b in cases:
+        pipe = lambda b=b: TokenPipeline(cfg.vocab, b, seq, seed=0)
+        if b != one_batch:
+            one_batch = b
+            want, want_m, want_loss, one_ms = None, None, None, None
+            if run.rank == 0:
+                one = loop.Trainer(cfg, loop.TrainerConfig(**MESH_LR),
+                                   device=dev)
+                one.train(pipe(), steps)
+                want, want_m = (_host_leaves(one.params),
+                                _host_leaves(one.opt_state["m"]))
+                want_loss = [h["loss"] for h in one.history]
+                one_ms = [1e3 * h["dt"] for h in one.history]
+                del one
+                _reset_peak(dev)
+            mesh.barrier()
         m = make_test_mesh(shape, device=run.device)
         c = dataclasses.replace(cfg, fsdp_gather_once=once)
+        saved = shape == (run.n, 1) and not once and b == batch
         tr = loop.Trainer(c, loop.TrainerConfig(
-            **MESH_LR,
-            ckpt_dir=ckpt if (shape == (run.n, 1) and not once) else None),
-            mesh=m)
+            **MESH_LR, ckpt_dir=ckpt if saved else None), mesh=m)
         tr.train(pipe(), steps)
         losses = [h["loss"] for h in tr.history]
+        ms = [1e3 * h["dt"] for h in tr.history]
         bad, worst = _leaf_errors(run, tr.params, tr.shards, want, MESH_TOL)
         bad_m, worst_m = _leaf_errors(run, tr.opt_state["m"], tr.shards,
                                       want_m, MESH_TOL)
         tag = f"{shape}{' gather-once' if once else ''}"
+        rows = b // cfg.n_microbatches
+        if b != batch:
+            tag += f" batch {b}"
         if run.rank == 0:
-            lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, want_loss))
+            pad = (f" ({rows} rows a microbatch over {run.n} data ranks: "
+                   f"padded blocks)" if rows % run.n else "")
+            lerr = max(abs(a - w) / abs(w) for a, w in zip(losses, want_loss))
             run.check(lerr <= 1e-5 and not bad_m,
                       f"{MESH_ARCH} at full widths, {layers} layers, batch "
-                      f"{batch} x {seq}, {steps} steps over {tag} against "
+                      f"{b} x {seq}{pad}, {steps} steps over {tag} against "
                       f"the one-card trainer: losses within {lerr:.2e} "
                       f"relative (1e-5); AdamW's first moments (the clipped "
                       f"gradients) in rtol {MESH_TOL}, atol {MESH_TOL} x "
@@ -4966,20 +4988,34 @@ def mesh_check(run):
                       f"outside: {bad_m})")
             run.log(f"{tag}: parameters, not held (Adam's per-cell "
                     f"normalisation): worst {worst:.2e} of a leaf's max, "
-                    f"{len(bad)} leaves outside the band {bad}")
-            out[tag] = dict(loss_rel_err=lerr, worst=worst, worst_m=worst_m)
-        if shape == (run.n, 1) and not once:
+                    f"{len(bad)} leaves outside the band {bad}; ms a step "
+                    f"{[round(v, 1) for v in ms]}, on one card "
+                    f"{[round(v, 1) for v in one_ms]} (step 0 warms up; "
+                    f"{card})")
+            out[tag] = dict(loss_rel_err=lerr, worst=worst, worst_m=worst_m,
+                            ms=ms, one_card_ms=one_ms, card=card)
+        if saved:
             tr.save()
             keep = tr
         else:
             del tr
     run.res["check"] = out
-    mesh_restore(run, cfg, keep, ckpt, pipe, steps)
+    mesh_restore(run, cfg, keep, ckpt,
+                 lambda: TokenPipeline(cfg.vocab, batch, seq, seed=0), steps)
     del keep
     _reset_peak(dev)
     if run.rank == 0:
         shutil.rmtree(ckpt, ignore_errors=True)
     run.log(f"(b) 3, 4 took {time.perf_counter() - t0:.1f} s")
+
+
+def _card_name(dev) -> str:
+    """``nvidia-smi``'s name and power limit of the card ``dev``."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--id={dev.index or 0}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    return smi or "nvidia-smi gave nothing"
 
 
 def mesh_restore(run, cfg, src, ckpt, pipe, steps):

@@ -45,9 +45,15 @@ seconds of the counted step; and ``parse_collectives`` reads HLO text,
 which the port does not have.
 
 A dim that does not split over its mesh axes raises in
-``sharding.Placement`` where GSPMD would pad it, and the trainer refuses a
-batch that its microbatches and data ranks do not divide: such a cell is
-reported as an ``error:`` that names the leaf or the batch, never padded.
+``sharding.Placement`` where GSPMD would pad it: such a cell is reported
+as an ``error:`` that names the leaf, never padded.  A microbatch whose
+rows the data ranks do not divide is padded, as GSPMD pads the
+reference's: each rank takes a block of ceil(rows / ranks) rows, filled
+up with pad rows (``train.loop.make_grad_fn``; gemma2-27b's and
+internvl2-26b's ``train_4k`` on 2x16x16, 16 rows over 32 data ranks,
+run one row a rank).  The trainer refuses what the reference refuses: a
+batch that its microbatches do not divide, and an expert layer's
+microbatch that the data ranks do not divide.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k

@@ -156,6 +156,20 @@ def _pack_compute_all(x_flat, top_idx, top_w, expert_ids, wg, wu, wd,
     return out.index_add(0, idx.reshape(-1), contrib)
 
 
+def check_rows(cfg: ModelConfig, rows: int, n_data: int, batch: int
+               ) -> None:
+    """Refuse a microbatch of ``rows`` rows (of a batch of ``batch``) that
+    ``n_data`` data ranks do not divide: ``moe_sharded`` routes and counts
+    each rank's rows, so it takes no pad rows, and the reference's
+    ``shard_map`` refuses such a microbatch."""
+    if rows % n_data:
+        raise ValueError(
+            f"{cfg.name}: the expert layers (moe_sharded) split each "
+            f"microbatch's rows evenly over the data ranks; batch {batch} "
+            f"gives microbatches of {rows} rows, which {n_data} data ranks "
+            f"do not divide")
+
+
 def moe_sharded(params, x: torch.Tensor, cfg: ModelConfig, mesh,
                 data_axes: Tuple[str, ...] = ("data",)
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

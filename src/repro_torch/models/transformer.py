@@ -407,13 +407,20 @@ def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ModelConfig, embeds=None, mesh=None,
             data_axes: Tuple[str, ...] = ("data",), unroll: bool = False,
-            lb_coef: float = 0.01, z_coef: float = 1e-3):
+            lb_coef: float = 0.01, z_coef: float = 1e-3,
+            row_weights: Optional[torch.Tensor] = None,
+            n_rows: Optional[int] = None):
     """Mean next-token NLL from a float32 ``log_softmax`` of the token
     positions' logits (a frontend's positions predict nothing), plus
     ``lb_coef * lb_loss + z_coef * z_loss``.  Returns ``(total, {"loss",
     "lb_loss", "z_loss"})``.  Over a mesh each rank passes its rows, and
     every value is the mean over the data ranks of theirs (the global
-    batch's, as each rank holds as many rows)."""
+    batch's, as each rank holds as many rows).  Where the data ranks do
+    not divide the batch's ``n_rows`` rows, each rank's rows are padded
+    and ``row_weights`` (1 on a real row, 0 on a pad row) picks the real
+    ones: the NLL is then the data ranks' sum of the weighted NLL over
+    the batch's ``n_rows`` x S tokens, and the aux losses stay the data
+    ranks' mean."""
     plan = _plan(cfg, mesh, data_axes)
     logits, aux = forward(params, tokens, cfg, embeds=embeds, mesh=mesh,
                           data_axes=data_axes)
@@ -423,12 +430,21 @@ def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
     else:
         lp = torch.log_softmax(tok_logits.to(torch.float32), dim=-1)
         nll = -torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+    dev = nll.device
+    n_data = 1 if plan is None else plan.mesh.count(data_axes)
+    if row_weights is not None:
+        # each rank's share of the batch's NLL, summed over the ranks
+        loss = ((nll * row_weights[:, None]).sum()
+                / f32(n_rows * tokens.shape[1], dev))
+        lb, z = (aux[k] / f32(n_data, dev) for k in ("lb_loss", "z_loss"))
+        out = [loss + f32(lb_coef, dev) * lb + f32(z_coef, dev) * z,
+               loss, lb, z]
+        out = list(SH.leave(torch.stack(out), plan.mesh, data_axes))
+        return out[0], dict(zip(("loss", "lb_loss", "z_loss"), out[1:]))
     loss = nll.mean()
-    dev = loss.device
     total = (loss + f32(lb_coef, dev) * aux["lb_loss"]
              + f32(z_coef, dev) * aux["z_loss"])
     out = [total, loss, aux["lb_loss"], aux["z_loss"]]
-    n_data = 1 if plan is None else plan.mesh.count(data_axes)
     if n_data > 1:
         # the data ranks' mean; its gradient reaches each rank's own
         out = list(SH.leave(torch.stack(out), plan.mesh, data_axes)

@@ -20,13 +20,18 @@ of the parameters, the optimizer state and the gradient accumulator
 (``distributed.sharding.placements``), drawn from the same
 ``PRNGKey(seed)`` stream with only the block's counters.  Every rank is
 handed the whole batch; microbatch i takes every n-th row, as on one
-device, then each rank its block of those rows (the data axes).  Each
+device, then each rank its block of those rows (the data axes).  Where
+the D data ranks do not divide a microbatch's r rows, each rank's block
+holds ceil(r / D) rows, filled up with pad rows as GSPMD pads a dim: every
+rank runs the same shapes and collectives, and the loss counts the real
+rows only (``transformer.loss_fn``'s ``row_weights``).  An expert layer
+refuses such a microbatch, as the reference's ``shard_map`` does.  Each
 layer gathers its FSDP leaves inside its checkpoint, and their
 gradients reduce-scatter into the accumulator, which stays in the FSDP
 layout; the leaves no data axis splits sum their gradients over the data
 ranks once a step.  With ``fsdp_gather_once`` the leaves are gathered
 once a step instead, the gradients accumulate gathered, and one
-reduce-scatter returns them.  The metrics are the data ranks' mean.
+reduce-scatter returns them.  The metrics are the global batch's.
 ``fsdp`` and ``fsdp_gather_once`` change nothing without a mesh, as in
 the reference.
 """
@@ -47,6 +52,7 @@ from repro_torch.distributed import fault
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.mesh import check_mesh
 from repro_torch.models import module as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.train import compression
 from repro_torch.train.grad import value_and_grad
@@ -76,7 +82,9 @@ def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
     ``cfg.accum_dtype`` and divided by n in float32, and the metrics
     averaged the same way, as the reference's step computes them.  Over
     a mesh ``params`` are this rank's blocks, the batch is the whole
-    batch, and each rank takes its block of each microbatch's rows."""
+    batch, and each rank takes its block of each microbatch's rows,
+    padded where the data ranks do not divide them.  A batch that the
+    microbatches do not divide is refused, as the reference asserts."""
     check_mesh(mesh)
     acc_dt = torch.bfloat16 if cfg.accum_dtype == "bfloat16" else torch.float32
     axes = SH.data_axes(mesh) if mesh is not None else ()
@@ -88,26 +96,40 @@ def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
     pls = M.flatten(SH.placements(cfg, mesh)) if mesh is not None else {}
     layer_pls = _layer_placements(M.unflatten(pls)) if pls else None
 
-    def lf(p, tokens, labels, embeds):
+    def lf(p, tokens, labels, embeds, weights, n_rows):
         return T.loss_fn(p, tokens, labels, loop_cfg, embeds=embeds,
-                         mesh=mesh, data_axes=axes or ("data",))
+                         mesh=mesh, data_axes=axes or ("data",),
+                         row_weights=weights, n_rows=n_rows)
 
-    def rows(a, i, n):
-        """Microbatch i's rows of ``a`` that this rank takes."""
+    def rows(a, i, n, c):
+        """Microbatch i's rows of ``a`` that this rank takes: its block of
+        ``c`` rows, filled up with copies of the microbatch's first row
+        where the data ranks do not divide the rows (GSPMD's pad)."""
         a = a[i::n]
         if n_data == 1:
             return a
-        bl = a.shape[0] // n_data
         k = mesh.index(axes)
-        return a[k * bl:(k + 1) * bl]
+        own = a[k * c:(k + 1) * c]
+        if own.shape[0] == c:
+            return own
+        return torch.cat([own, a[:1].expand(c - own.shape[0], *a.shape[1:])])
 
     def grads_and_metrics(params, tokens, labels, embeds=None):
         n = max(cfg.n_microbatches, 1)
         b = tokens.shape[0]
-        if b % (n * n_data):
+        if b % n:
             raise ValueError(
-                f"batch {b} is not a multiple of n_microbatches = {n}"
-                + (f" x {n_data} data ranks" if n_data > 1 else ""))
+                f"batch {b} is not a multiple of n_microbatches = {n}")
+        r = b // n
+        c = -(-r // n_data)
+        if cfg.n_experts:
+            MOE.check_rows(cfg, r, n_data, b)
+        weights = None
+        if r % n_data:
+            # 1 on this rank's real rows, 0 on its pad rows
+            first = mesh.index(axes) * c
+            weights = (torch.arange(first, first + c, device=tokens.device)
+                       < r).to(torch.float32)
         # one microbatch: the reference takes its gradients as they are,
         # which equal zeros + gradients in float32
         dt = acc_dt if n > 1 else torch.float32
@@ -127,8 +149,10 @@ def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
         dev = tokens.device
         mets = {k: f32(0.0, dev) for k in _METRICS}
         for i in range(n):
-            (_, m), g = vg(layers, rows(tokens, i, n), rows(labels, i, n),
-                           None if embeds is None else rows(embeds, i, n))
+            (_, m), g = vg(layers, rows(tokens, i, n, c),
+                           rows(labels, i, n, c),
+                           None if embeds is None else rows(embeds, i, n, c),
+                           weights, r)
             if n == 1:
                 mets = m
                 break

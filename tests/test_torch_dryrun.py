@@ -18,7 +18,10 @@ the CPU at small size.
   form of its matmuls; ``corrected_costs`` equals the direct count; a
   train step's all-gather bytes equal the closed form from the
   placements; ``make_production_mesh`` gives the reference's 16x16 and
-  2x16x16 shapes on 256 and 512 ranks; a production decode cell runs.
+  2x16x16 shapes on 256 and 512 ranks; a production decode cell runs;
+  a reduced gemma2-27b train cell on 2x16x16 whose microbatches hold
+  fewer rows than the 32 data ranks runs, padded, and counts the work
+  of a cell whose every rank holds one whole row.
 * ``decay_scan``'s meta route gives the kernels' shapes and charges, and
   a CPU call stays bitwise its plain version.
 """
@@ -350,6 +353,14 @@ def fake_counts():
     rec = D.run_cell("gemma2-27b", "decode_32k", False)
     rec.pop("traceback", None)
     out["cell"] = rec
+    # 8 and 32 rows a microbatch over the 32 data ranks of 2x16x16
+    D.get_config = lambda arch: get_config(arch).reduced(
+        n_layers=2, n_microbatches=2, dtype="bfloat16")
+    for batch in (16, 64):
+        D.SHAPES = {"train_4k": ShapeSpec("train_4k", 64, batch, "train")}
+        rec = D.run_cell("gemma2-27b", "train_4k", True)
+        rec.pop("traceback", None)
+        out[f"padded_{batch}"] = rec
     print(json.dumps(out))
     """)
 
@@ -429,3 +440,21 @@ def test_a_production_decode_cell_runs(fake_counts):
     assert rec["capacity_model"]["kv_cache"] > 0 and rec["fits_80GB"]
     skipped = D.run_cell("qwen3-8b", "long_500k", False)
     assert skipped["status"] == "skipped(full-attention)"
+
+
+def test_a_padded_train_cell_runs(fake_counts):
+    """gemma2-27b's ``train_4k`` on 2x16x16 in small: 16 rows in 2
+    microbatches over 32 data ranks, so each rank's block is one row,
+    real on ranks 0-7 and padding elsewhere (rank 0 holds a real one).
+    The cell is ``ok``, and its rank does the FLOPs and collectives of
+    a batch of 64, whose every rank holds one whole row; its bytes add
+    only the pad rows' copies and the row weights' product."""
+    rec, even = fake_counts["padded_16"], fake_counts["padded_64"]
+    assert rec["status"] == "ok", rec["status"]
+    assert even["status"] == "ok", even["status"]
+    assert rec["mesh"] == "2x16x16"
+    for k in ("flops_per_device", "collective_bytes_per_device"):
+        assert rec[k] == even[k] > 0, k
+    assert rec["collectives"] == even["collectives"]
+    extra = rec["bytes_per_device"] - even["bytes_per_device"]
+    assert 0 < extra < 1e-4 * even["bytes_per_device"], extra

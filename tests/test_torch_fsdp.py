@@ -8,6 +8,9 @@ run once in a subprocess with 4 host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), as
 ``tests/test_distributed.py`` runs them, while the ranks work.  Reduced
 configs, ``fsdp=True``, 2 microbatches, 8 x 16 tokens a step, 2 steps.
+The ``-b`` runs take smaller batches, whose microbatches the data ranks
+do not divide (2 or 3 rows over 4 ranks, 1 over 2): each rank pads its
+block, as GSPMD pads the reference's.
 
 Bands: the loss within 1e-5 relative; parameters rtol 1e-4, atol 1e-4 x
 max|leaf| (as ``test_torch_train.py``); restores bitwise; the pipeline
@@ -65,9 +68,25 @@ RUNS = [
     ("adafactor-2x2", "qwen3-8b", (2, 2), {"optimizer": "adafactor"}, {}),
     ("topk-2x2", "qwen3-8b", (2, 2), {}, {"grad_compression": "topk"}),
     ("int8-2x2", "qwen3-8b", (2, 2), {}, {"grad_compression": "int8"}),
+    # microbatches of fewer rows than data ranks, or of rows they do not
+    # divide: padded blocks (gemma2-27b's 16 rows over 32 ranks in small)
+    ("qwen3-4x1-b4", "qwen3-8b", (4, 1), {}, {}),
+    ("qwen3-4x1-b6", "qwen3-8b", (4, 1), {}, {}),
+    ("qwen3-4x1-b6-once", "qwen3-8b", (4, 1),
+     {"fsdp_gather_once": True, "accum_dtype": "bfloat16"}, {}),
+    ("mamba2-2x2-b2", "mamba2-2.7b", (2, 2), {}, {}),
 ]
+#: the batch of each run that does not take BATCH
+RUN_BATCH = {"qwen3-4x1-b4": 4, "qwen3-4x1-b6": 6, "qwen3-4x1-b6-once": 6,
+             "mamba2-2x2-b2": 2}
 #: the runs the reference's mesh trainer repeats
-REF_RUNS = ["qwen3-4x1", "qwen3-2x2", "grok-2x2", "grok-2x2-own"]
+REF_RUNS = ["qwen3-4x1", "qwen3-2x2", "grok-2x2", "grok-2x2-own",
+            "qwen3-4x1-b4", "qwen3-4x1-b6", "qwen3-4x1-b6-once",
+            "mamba2-2x2-b2"]
+#: refused shapes, (arch, mesh shape, batch): a batch that the 2
+#: microbatches do not divide, and grok-1's microbatch of 1 row over 2
+#: data ranks, which its expert layers do not take
+REFUSED = {"batch": ("qwen3-8b", (4, 1), 5), "moe": ("grok-1-314b", (2, 2), 2)}
 UPDATE_TOL = 2.0 ** -6
 #: the runs whose optimizer moments at the gradient's scale are held
 #: against the reference's: (the state's names, rtol = atol share).
@@ -76,7 +95,8 @@ UPDATE_TOL = 2.0 ** -6
 #: moments behind a bfloat16 accumulator, whose cells may round one
 #: bfloat16 ULP (2^-8) apart at each of its roundings, in UPDATE_TOL
 STATE_RUNS = {"qwen3-2x2": (("m",), 1e-4), "grok-2x2": (("m",), 1e-4),
-              "grok-2x2-own": (("v", "vr", "vc"), UPDATE_TOL)}
+              "grok-2x2-own": (("v", "vr", "vc"), UPDATE_TOL),
+              "qwen3-4x1-b6": (("m",), 1e-4)}
 #: runs held against the one-device port (an expert layer runs
 #: ``moe_sharded`` over a mesh, whose capacity drops ``moe_dense`` lacks)
 ONE_DEVICE_RUNS = [r[0] for r in RUNS if not r[0].startswith("grok")]
@@ -143,7 +163,8 @@ def _rank(rank, store, out_dir):
         tcfg = TrainerConfig(**tkw, ckpt_dir=ckpt if name == "qwen3-4x1"
                              else None)
         tr = Trainer(cfg, tcfg, mesh=mesh)
-        tr.train(TokenPipeline(cfg.vocab, BATCH, SEQ, seed=0), STEPS)
+        tr.train(TokenPipeline(cfg.vocab, RUN_BATCH.get(name, BATCH), SEQ,
+                               seed=0), STEPS)
         res[f"{name}/loss"] = np.array([h["loss"] for h in tr.history])
         for k, v in full(tr.params, tr.shards).items():
             res[f"{name}/p/{k}"] = v
@@ -206,13 +227,14 @@ def _rank(rank, store, out_dir):
             make_test_mesh(shape, device="cpu")
         except ValueError as e:
             res[f"refused/{shape[0]}"] = np.array(str(e))
-    mesh = make_test_mesh((4, 1), device="cpu")
-    cfg = _cfg("qwen3-8b")
-    tr = Trainer(cfg, TrainerConfig(), mesh=mesh)
-    try:
-        tr.train(TokenPipeline(cfg.vocab, 4, SEQ, seed=0), 1)
-    except ValueError as e:
-        res["refused/batch"] = np.array(str(e))
+    for what, (arch, shape, batch) in REFUSED.items():
+        cfg = _cfg(arch)
+        tr = Trainer(cfg, TrainerConfig(), mesh=make_test_mesh(
+            shape, device="cpu"))
+        try:
+            tr.train(TokenPipeline(cfg.vocab, batch, SEQ, seed=0), 1)
+        except ValueError as e:
+            res[f"refused/{what}"] = np.array(str(e))
     if rank == 0:
         np.savez(os.path.join(out_dir, "port.npz"), **res)
     dist.barrier()
@@ -225,8 +247,8 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, {tests!r})
 import numpy as np, jax, jax.numpy as jnp
 from test_torch_fsdp import (RUNS, REF_RUNS, STATE_RUNS, MOE_CASES, MOE_CFG,
-                             BATCH, SEQ, STEPS, _moe_inputs, _pp_inputs,
-                             PP_STAGES)
+                             BATCH, SEQ, STEPS, RUN_BATCH, REFUSED,
+                             _moe_inputs, _pp_inputs, PP_STAGES)
 import dataclasses
 from repro.configs import get_config
 from repro.configs.base import ModelConfig
@@ -256,8 +278,8 @@ for name, arch, shape, kw, tkw in RUNS:
         tr = Trainer(cfg, TrainerConfig(**tkw), mesh=mesh)
         for k, v in flat(tr.params).items():
             out[name + "/init/" + k] = v
-        h = tr.train(TokenPipeline(cfg.vocab, BATCH, SEQ, seed=0),
-                     STEPS)["history"]
+        h = tr.train(TokenPipeline(cfg.vocab, RUN_BATCH.get(name, BATCH),
+                                   SEQ, seed=0), STEPS)["history"]
     out[name + "/loss"] = np.array([x["loss"] for x in h])
     for k, v in flat(tr.params).items():
         out[name + "/p/" + k] = v
@@ -274,6 +296,16 @@ for kind, (shape, kw) in MOE_CASES.items():
     out["moe-" + kind + "/y"] = np.asarray(y)
     for k, v in aux.items():
         out["moe-" + kind + "/" + k] = np.asarray(v)
+for what, (arch, shape, batch) in REFUSED.items():
+    cfg = dataclasses.replace(get_config(arch).reduced(), fsdp=True,
+                              n_microbatches=2)
+    mesh = make_test_mesh(shape)
+    try:
+        with mesh:
+            Trainer(cfg, TrainerConfig(), mesh=mesh).train(
+                TokenPipeline(cfg.vocab, batch, SEQ, seed=0), 1)
+    except Exception as e:
+        out["refused/" + what] = np.array(type(e).__name__ + ": " + str(e))
 ws, x = _pp_inputs()
 mesh = make_test_mesh((PP_STAGES,), ("stage",))
 out["pp/y"] = np.asarray(pp.pipeline_forward(
@@ -305,7 +337,8 @@ def _one_device(name):
     _, arch, _, kw, tkw = next(r for r in RUNS if r[0] == name)
     cfg = _cfg(arch, **kw)
     tr = Trainer(cfg, TrainerConfig(**tkw), device="cpu")
-    tr.train(TokenPipeline(cfg.vocab, BATCH, SEQ, seed=0), STEPS)
+    tr.train(TokenPipeline(cfg.vocab, RUN_BATCH.get(name, BATCH), SEQ,
+                           seed=0), STEPS)
     return (np.array([h["loss"] for h in tr.history]),
             {k: v.numpy() for k, v in M.flatten(tr.params).items()})
 
@@ -464,15 +497,23 @@ def test_shard_batch(runs):
 
 
 def test_mesh_refusals(runs, monkeypatch):
-    """A world of another size, a batch that does not split over the
-    microbatches and data ranks, a CUDA mesh with no card, and the
+    """A world of another size, a batch that the microbatches do not
+    divide and grok-1's microbatch that its data ranks do not divide
+    (both refused by the reference too: its step asserts the first, its
+    ``shard_map`` refuses the second), a CUDA mesh with no card, and the
     production mesh in a world of one."""
     from repro_torch.launch import mesh as tmesh
 
-    port, _, _ = runs
+    port, ref, _ = runs
     assert "needs 2 ranks; this world has 4" in str(port["refused/2"])
     assert "needs 8 ranks" in str(port["refused/8"])
-    assert "2 x 4 data ranks" in str(port["refused/batch"])
+    assert ("batch 5 is not a multiple of n_microbatches = 2"
+            in str(port["refused/batch"]))
+    assert str(ref["refused/batch"]).startswith("AssertionError")
+    assert ("expert layers (moe_sharded)" in str(port["refused/moe"])
+            and "batch 2 gives microbatches of 1 rows, which 2 data ranks"
+            in str(port["refused/moe"]))
+    assert "not evenly divisible" in str(ref["refused/moe"])
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         tmesh.make_test_mesh((1, 1))

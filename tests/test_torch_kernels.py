@@ -102,42 +102,57 @@ def test_ts_decay_uniform(mode, seed):
     assert np.all(got[np.isneginf(sae)] == 0.0)
 
 
+#: the child of ``test_ts_decay_uniform_threaded``: the port's reads on 8
+#: torch threads of the SAEs in ``argv[1]``, written to ``argv[2]``; it
+#: imports torch and the port only
 _THREADED = """
 import sys
-sys.path.insert(0, {tests!r})
-import numpy as np, torch, jax.numpy as jnp
-import test_torch_kernels as K
+import numpy as np, torch
+from repro_torch.core import edram
+from repro_torch.core import representations as rep
+from repro_torch.kernels import ops
 torch.set_num_threads(8)
-worst = 0
-for mode in ("edram", "ideal"):
-    for seed in (0, 1):
-        sae = K._sae(seed)
-        jp, tp = K._params(mode)
-        want = np.asarray(K.jops.ts_decay(jnp.asarray(sae), K.T_NOW, jp,
-                                          backend="ref"))
-        got = K.tops.ts_decay(torch.from_numpy(sae), K.T_NOW, tp).numpy()
-        worst = max(worst, int(K._ulp(got, want).max()))
-print(torch.get_num_threads(), worst)
+params = {{"edram": edram.decay_params_for_cmem(),
+           "ideal": rep.edram_ideal_params(0.024)}}
+saes = np.load(sys.argv[1])
+np.savez(sys.argv[2], **{{k: ops.ts_decay(torch.from_numpy(v), {t_now!r},
+                                         params[k.split("-")[0]]).numpy()
+                         for k, v in saes.items()}})
+print("threads", torch.get_num_threads())
 """
 
 
-def test_ts_decay_uniform_threaded():
+def test_ts_decay_uniform_threaded(tmp_path):
     """``test_ts_decay_uniform``'s reads on 8 torch threads, in a fresh
-    process whose JAX backend has its default devices: within 2 ULP."""
+    process that imports no JAX: within 2 ULP of the reference's reads,
+    which this process computes, and never-written cells exactly 0."""
     import os
     import subprocess
     import sys
 
     tests = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+    cases = {f"{mode}-{seed}": _sae(seed) for mode in ("edram", "ideal")
+             for seed in (0, 1)}
+    np.savez(tmp_path / "sae.npz", **cases)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(os.path.dirname(tests), "src"),
          os.environ.get("PYTHONPATH", "")]))
-    env.pop("XLA_FLAGS", None)
-    out = subprocess.run([sys.executable, "-c", _THREADED.format(tests=tests)],
-                         env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    threads, worst = map(int, out.stdout.split()[-2:])
-    assert threads == 8 and worst <= 2, (threads, worst)
+    out = subprocess.run(
+        [sys.executable, "-c", _THREADED.format(t_now=T_NOW),
+         str(tmp_path / "sae.npz"), str(tmp_path / "got.npz")],
+        env=env, capture_output=True, text=True, timeout=300)
+    said = f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr[-3000:]}"
+    assert out.returncode == 0, said
+    assert out.stdout.split()[-2:] == ["threads", "8"], said
+    got = np.load(tmp_path / "got.npz")
+    for key, sae in cases.items():
+        jp, _ = _params(key.split("-")[0])
+        want = np.asarray(jops.ts_decay(jnp.asarray(sae), T_NOW, jp,
+                                        backend="ref"))
+        ulp = _ulp(got[key], want)
+        assert ulp.max() <= 2, (key, int(ulp.max()), int((ulp > 2).sum()),
+                                said)
+        assert np.all(got[key][np.isneginf(sae)] == 0.0), key
 
 
 def test_ts_decay_planes():
