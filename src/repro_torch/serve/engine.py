@@ -23,6 +23,14 @@ split over ``cache_seq_axes`` (flash-decoding).  The last position's
 logits are gathered over ``"model"`` before the greedy ``argmax``, each
 step's tokens over the data axes, and every rank returns every
 request's ``Result``.
+
+Under tracing (``repro_torch.tracing``) a call is one
+``repro_torch.serve`` span (counts ``prompt_tokens`` and
+``prompt_slots``, the padded batch), holding ``repro_torch.serve.prefill``
+(prefill and the first token), one ``repro_torch.serve.decode_step`` a
+step (counts ``rows`` computed and ``live_rows``, those whose request
+still needs the token) and a ``repro_torch.serve.fetch`` around each copy
+of the tokens to the host.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
@@ -106,37 +115,60 @@ class ServeEngine:
     def serve(self, requests: Sequence[Request]) -> List[Result]:
         b = len(requests)
         s0 = max(len(r.prompt) for r in requests)
-        prompts = np.zeros((b, s0), np.int32)
-        for i, r in enumerate(requests):
-            prompts[i, s0 - len(r.prompt):] = r.prompt  # left-pad
-        rows, axes = self._rows(b)
-        if self.mesh is not None:
-            self._layout.update(batch=b, shards=SH.cache_placements(
-                self.cfg, self.mesh, b, self.max_len))
-        gather = (lambda t: t.cpu().numpy()) if not axes else (
-            lambda t: SH.all_gather_dim(t, self.mesh, axes, 0).cpu().numpy())
-        logits, caches, pos = self._prefill(
-            self.params, torch.from_numpy(prompts[rows]).to(self.device))
-        max_new = max(r.max_new_tokens for r in requests)
-        cur = self._greedy(logits[:, -1:, :])
-        outs = [gather(cur)]
-        live = np.ones(b, bool)
-        decoded = np.zeros(b, np.int32)
-        for t in range(max_new - 1):
+        with tracing.span("repro_torch.serve") as call:
+            if call is not None:
+                call.counts.update(
+                    prompt_tokens=sum(len(r.prompt) for r in requests),
+                    prompt_slots=b * s0)
+            prompts = np.zeros((b, s0), np.int32)
             for i, r in enumerate(requests):
-                if live[i] and (int(outs[-1][i, 0]) == r.eos_id
-                                or decoded[i] + 1 >= r.max_new_tokens):
-                    live[i] = False
-            decoded += live.astype(np.int32)
-            if not live.any():
-                break
-            logits, caches = self._decode(self.params, cur, caches, s0 + t)
-            cur = self._greedy(logits)
-            outs.append(gather(cur))
-        gen = np.concatenate(outs, axis=1)
-        return [
-            Result(tokens=gen[i, : requests[i].max_new_tokens],
-                   n_prefill=len(requests[i].prompt),
-                   n_decoded=int(min(gen.shape[1], requests[i].max_new_tokens)))
-            for i in range(b)
-        ]
+                prompts[i, s0 - len(r.prompt):] = r.prompt  # left-pad
+            rows, axes = self._rows(b)
+            if self.mesh is not None:
+                self._layout.update(batch=b, shards=SH.cache_placements(
+                    self.cfg, self.mesh, b, self.max_len))
+
+            def gather(t: torch.Tensor) -> np.ndarray:
+                """Every row's tokens on the host: where the host waits for
+                the card."""
+                with tracing.span("repro_torch.serve.fetch"):
+                    if axes:
+                        t = SH.all_gather_dim(t, self.mesh, axes, 0)
+                    return t.cpu().numpy()
+
+            with tracing.span("repro_torch.serve.prefill"):
+                logits, caches, pos = self._prefill(
+                    self.params,
+                    torch.from_numpy(prompts[rows]).to(self.device))
+                cur = self._greedy(logits[:, -1:, :])
+                outs = [gather(cur)]
+            max_new = max(r.max_new_tokens for r in requests)
+            live = np.ones(b, bool)
+            decoded = np.zeros(b, np.int32)
+            for t in range(max_new - 1):
+                for i, r in enumerate(requests):
+                    if live[i] and (int(outs[-1][i, 0]) == r.eos_id
+                                    or decoded[i] + 1 >= r.max_new_tokens):
+                        live[i] = False
+                decoded += live.astype(np.int32)
+                if not live.any():
+                    break
+                with tracing.span("repro_torch.serve.decode_step",
+                                  step=t) as step:
+                    if step is not None:
+                        # rows computed, and those whose request needs
+                        # the token
+                        step.counts.update(rows=int(cur.shape[0]),
+                                           live_rows=int(live[rows].sum()))
+                    logits, caches = self._decode(self.params, cur, caches,
+                                                  s0 + t)
+                    cur = self._greedy(logits)
+                    outs.append(gather(cur))
+            gen = np.concatenate(outs, axis=1)
+            return [
+                Result(tokens=gen[i, : requests[i].max_new_tokens],
+                       n_prefill=len(requests[i].prompt),
+                       n_decoded=int(min(gen.shape[1],
+                                         requests[i].max_new_tokens)))
+                for i in range(b)
+            ]
