@@ -17,7 +17,9 @@ The projections are bf16 in, bf16 out.  Float32 master weights are cast
 at each use; ``a_log``, ``dt_bias`` and ``d_skip`` are used in float32.
 
 Decode keeps a per-layer (B, H, P, N) float32 state plus (B, K-1, *) conv
-rings -- O(1) per token, and no kernel.
+rings -- O(1) per token, and no kernel.  Given ``out``, ``ssm_block`` and
+``ssm_decode_step`` write the new rings and state into caches the caller
+holds at fixed addresses (a CUDA graph's), with the same values.
 """
 from __future__ import annotations
 
@@ -83,12 +85,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-            state: Optional[torch.Tensor] = None):
+            state: Optional[torch.Tensor] = None,
+            out: Optional[torch.Tensor] = None):
     """Depthwise causal conv over time.  x: (B, T, C); w: (K, C).
 
     Sums in x's dtype, adds the bias, applies silu in float32 and casts
     back.  With ``state`` (B, K-1, C) the conv continues a stream; returns
-    (y, new_state)."""
+    (y, new_state).  Without ``out`` the new state is a view of the conv's
+    whole (B, K-1+T, C) input, which it keeps alive; with ``out`` (B, K-1,
+    C) it is copied there and nothing of the input is kept."""
     k = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
@@ -97,7 +102,8 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     t = x.shape[1]
     y = sum(xc[:, i:i + t, :] * w[i][None, None, :] for i in range(k))
     y = silu((y + bias[None, None, :]).to(F32)).to(x.dtype)
-    return y, xc[:, -(k - 1):, :] if k > 1 else state
+    ring = xc[:, -(k - 1):, :] if k > 1 else state
+    return y, ring if out is None else out.copy_(ring)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -186,21 +192,23 @@ def ssd_chunked(
 
 
 def _project(params, x: torch.Tensor, cfg: ModelConfig,
-             conv_state: Optional[Dict[str, torch.Tensor]] = None):
+             conv_state: Optional[Dict[str, torch.Tensor]] = None,
+             out: Optional[Dict[str, torch.Tensor]] = None):
     """Shared z/x/B/C/dt projections + causal convs.  Returns
-    (z, xs, b_in, c_in, dt_raw, new_conv_state)."""
+    (z, xs, b_in, c_in, dt_raw, new_conv_state), the new conv rings
+    written into ``out``'s when it is given."""
     dt_ = x.dtype
     pj = lambda w: x @ params[w].to(dt_)
     z, xs, b_in, c_in, dt_raw = (pj(w) for w in
                                  ("z_proj", "x_proj", "b_proj", "c_proj",
                                   "dt_proj"))
-    cs = conv_state or {}
+    cs, dst = conv_state or {}, out or {}
     xs, cx = _conv1d(xs, params["conv_x_w"].to(dt_),
-                     params["conv_x_b"].to(dt_), cs.get("x"))
+                     params["conv_x_b"].to(dt_), cs.get("x"), dst.get("x"))
     b_in, cb = _conv1d(b_in, params["conv_b_w"].to(dt_),
-                       params["conv_b_b"].to(dt_), cs.get("b"))
+                       params["conv_b_b"].to(dt_), cs.get("b"), dst.get("b"))
     c_in, ccv = _conv1d(c_in, params["conv_c_w"].to(dt_),
-                        params["conv_c_b"].to(dt_), cs.get("c"))
+                        params["conv_c_b"].to(dt_), cs.get("c"), dst.get("c"))
     return z, xs, b_in, c_in, dt_raw, {"x": cx, "b": cb, "c": ccv}
 
 
@@ -214,11 +222,16 @@ def ssm_block(
     params, x: torch.Tensor, cfg: ModelConfig,
     conv_state: Optional[Dict[str, torch.Tensor]] = None,
     ssm_state: Optional[torch.Tensor] = None,
+    out: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None,
 ):
-    """Full-sequence mamba2 block.  Returns (y, (conv_state, ssm_state))."""
+    """Full-sequence mamba2 block.  Returns (y, (conv_state, ssm_state)),
+    written into ``out``'s (conv rings, state) when it is given (a decode
+    cache, ``init_ssm_cache``): then the block keeps no view of its own
+    temporaries."""
     di, h, p, n = ssm_dims(cfg)
     dt_ = x.dtype
-    z, xs, b_in, c_in, dt_raw, new_conv = _project(params, x, cfg, conv_state)
+    z, xs, b_in, c_in, dt_raw, new_conv = _project(
+        params, x, cfg, conv_state, None if out is None else out[0])
     dt = softplus(dt_raw.to(F32) + params["dt_bias"])                # (B,S,H)
     a = -torch.exp(params["a_log"].to(F32))                          # (H,)
     a_log_step = dt * a[None, None, :]
@@ -227,23 +240,33 @@ def ssm_block(
                            ssm_state)
     y = y + params["d_skip"].to(F32)[None, None, :, None] * xh
     y = y.reshape(*xs.shape[:2], di)
+    if out is not None:
+        final = out[1].copy_(final)
     return _gate_out(params, y, z, cfg, dt_), (new_conv, final)
 
 
 def ssm_decode_step(
     params, x: torch.Tensor, cfg: ModelConfig,
     conv_state: Dict[str, torch.Tensor], ssm_state: torch.Tensor,
+    out: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None,
 ):
-    """O(1) single-token update.  x: (B, 1, D)."""
+    """O(1) single-token update.  x: (B, 1, D).  Returns (y, (conv_state,
+    ssm_state)): new tensors, or ``out``'s (conv rings, state) written
+    with the same values (the inputs are left as they are either way)."""
     di, h, p, n = ssm_dims(cfg)
     dt_ = x.dtype
-    z, xs, b_in, c_in, dt_raw, new_conv = _project(params, x, cfg, conv_state)
+    z, xs, b_in, c_in, dt_raw, new_conv = _project(
+        params, x, cfg, conv_state, None if out is None else out[0])
     dt = softplus(dt_raw.to(F32) + params["dt_bias"])                # (B,1,H)
     a = torch.exp(dt * (-torch.exp(params["a_log"].to(F32)))[None, None, :])
     xh = (xs.reshape(x.shape[0], 1, h, p) * dt[..., None].to(dt_))[:, 0]
     # h_new = a*h + B (outer) x
     upd = xh.to(F32)[..., None] * b_in[:, 0].to(F32)[:, None, None, :]
-    new_state = a[:, 0, :, None, None] * ssm_state + upd
+    if out is None:
+        new_state = a[:, 0, :, None, None] * ssm_state + upd
+    else:   # the same product and sum, rounded as above, into out's state
+        new_state = torch.mul(a[:, 0, :, None, None], ssm_state,
+                              out=out[1]).add_(upd)
     y = (new_state @ c_in[:, 0].to(F32)[:, None, :, None])[..., 0]  # (B,H,P)
     y = y + params["d_skip"][None, :, None] * xh.to(F32)
     y = y.reshape(x.shape[0], 1, di)

@@ -64,7 +64,10 @@ slot's position is -1) and ``max_len`` for a global one; with
 ``k_scale`` / ``v_scale`` (B, S, K, 1).  ``decode_step`` writes the new
 token into the caches it is given, in place, and returns them.  An SSM
 layer keeps ``{"ssm": {"conv": {x, b, c}, "state"}}``; a hybrid layer
-keeps both in one dict.
+keeps both in one dict.  For an all-SSM model on one device,
+``DecodeGraphs`` holds two such sets at fixed addresses: ``prefill``
+fills one in place, each ``decode_step`` writes the other, and on a card
+replays a CUDA graph of the whole step.
 
 Parameters are a nested dict of float32 master tensors with the
 reference's leaf paths (``embed``, ``layers.ln1``, ``layers.attn.wq``,
@@ -318,12 +321,12 @@ def _attention(ap, h: torch.Tensor, cfg: ModelConfig, window, positions,
 
 def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
          positions: torch.Tensor, cache_len: Optional[int] = None,
-         plan=None):
+         plan=None, fill: Optional[dict] = None):
     """The token mixer of a layer on its normed input ``h``: causal
     attention over ``window`` keys back (None: all), then the SSM, fused.
     Returns (the mixer's output, the layer's decode cache: the K/V ring
     of ``cache_len`` slots when one is asked for, the SSM's conv rings
-    and state)."""
+    and state, written into ``fill``'s where that cache is given)."""
     branches, cache = [], {}
     if cfg.family != "ssm":
         out, k, v = _attention(lp["attn"], h, cfg, window, positions, plan,
@@ -332,7 +335,8 @@ def _mix(lp, h: torch.Tensor, cfg: ModelConfig, window: Optional[int],
         if cache_len is not None:
             cache.update(_fill_ring(k, v, h.shape[1], cache_len))
     if cfg.family in ("ssm", "hybrid"):
-        y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg)
+        y, (conv, state) = SSM.ssm_block(lp["ssm"], h, cfg,
+                                         out=_ssm_out(fill))
         branches.append(y)
         cache["ssm"] = {"conv": conv, "state": state}
     return _fuse(lp, branches, cfg), cache
@@ -632,13 +636,21 @@ def _decode_attn(ap, h: torch.Tensor, c: dict, position: int,
     return SH.leave(L.attention_out(out, ap["wo"]), plan.mesh)
 
 
+def _ssm_out(cache: Optional[dict]):
+    """A layer's SSM cache as ``ssm_block``'s and ``ssm_decode_step``'s
+    ``out``: (conv rings, state), or None."""
+    return None if cache is None else (cache["ssm"]["conv"],
+                                       cache["ssm"]["state"])
+
+
 def _decode_layer(lp, x: torch.Tensor, c: dict, position: int,
                   positions: torch.Tensor, cfg: ModelConfig,
-                  window: Optional[int], plan=None, pl=None
-                  ) -> torch.Tensor:
+                  window: Optional[int], plan=None, pl=None,
+                  out: Optional[dict] = None) -> torch.Tensor:
     """One layer of a decode step on its (gathered) parameters ``lp``:
     the token mixer against the layer's cache ``c`` (K/V written in
-    place, the SSM's conv rings and state replaced), then the FFN."""
+    place, the SSM's conv rings and state replaced: by new tensors, or
+    by ``out``'s, written, where that cache is given), then the FFN."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     branches = []
     if cfg.family != "ssm":
@@ -646,7 +658,8 @@ def _decode_layer(lp, x: torch.Tensor, c: dict, position: int,
                                      cfg, window, plan, pl))
     if cfg.family in ("ssm", "hybrid"):
         y, (conv, state) = SSM.ssm_decode_step(
-            lp["ssm"], h, cfg, c["ssm"]["conv"], c["ssm"]["state"])
+            lp["ssm"], h, cfg, c["ssm"]["conv"], c["ssm"]["state"],
+            out=_ssm_out(out))
         branches.append(y)
         c["ssm"] = {"conv": conv, "state": state}
     return _ffn(lp, x + _fuse(lp, branches, cfg), cfg, plan=plan)
@@ -679,19 +692,103 @@ def _layer_k_shards(plan, cfg: ModelConfig, cache_shards, caches,
     return pls
 
 
+class DecodeGraphs:
+    """Two sets of decode caches of an all-SSM model at fixed addresses,
+    and CUDA graphs of ``decode_step`` between them: what its owner
+    (``ServeEngine``, one a batch size) passes as ``decode_step``'s
+    ``graphs``.  Nothing here refers back to the owner.
+
+    ``prefill(caches=sets[0])`` fills set A.  A step from A writes B and
+    returns it, a step from B writes A: a step leaves the caches it is
+    given as they are.  On a CUDA device the first step in each
+    direction runs eagerly (the warm-up); the second captures the whole
+    step (embedding, layers, last norm, unembedding) into one graph over
+    a static token input, both graphs in one memory pool, and replays
+    it; every later step copies its tokens in and replays.  The logits
+    returned are a copy of the graph's output, new at each call.  An SSM
+    layer's step never reads ``position``, so one graph serves every
+    position.  ``last`` says how the newest step ran: ``"eager"``,
+    ``"capture"`` (captured, then replayed) or ``"replay"``."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, device):
+        if cfg.family != "ssm":
+            raise ValueError(f"{cfg.name}: DecodeGraphs needs every layer "
+                             f"SSM, not {cfg.family!r}")
+        self.batch = batch
+        # an SSM cache has no length: max_len plays no part
+        self.sets = [init_decode_caches(cfg, batch, 0, device=device)
+                     for _ in range(2)]
+        self.graphs: List[Optional[torch.cuda.CUDAGraph]] = [None, None]
+        self.warm = [False, False]
+        self.tokens: List[Optional[torch.Tensor]] = [None, None]
+        self.logits: List[Optional[torch.Tensor]] = [None, None]
+        self.pool = None
+        self.last: Optional[str] = None
+
+    def direction(self, caches) -> Optional[int]:
+        """0 for set A, 1 for set B, None for caches that are neither."""
+        return next((d for d, s in enumerate(self.sets) if caches is s),
+                    None)
+
+    def step(self, d: int, run, tokens: torch.Tensor):
+        """The step from set ``d`` into the other: ``run(tokens, out)`` is
+        the eager step that writes the caches ``out`` and returns the
+        logits.  Returns (logits, the other set)."""
+        dst = self.sets[1 - d]
+        g = self.graphs[d]
+        if tokens.device.type != "cuda" or (g is None and not self.warm[d]):
+            self.warm[d] = True
+            self.last = "eager"
+            return run(tokens, dst), dst
+        if g is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.tokens[d] = tokens.clone()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=self.pool):
+                self.logits[d] = run(self.tokens[d], dst)
+            self.graphs[d] = g
+            self.last = "capture"
+        else:
+            self.tokens[d].copy_(tokens)
+            self.last = "replay"
+        g.replay()
+        return self.logits[d].clone(), dst
+
+
 def decode_step(params, tokens: torch.Tensor, caches: List[dict], position,
                 cfg: ModelConfig, mesh=None,
-                data_axes: Tuple[str, ...] = ("data",), cache_shards=None):
+                data_axes: Tuple[str, ...] = ("data",), cache_shards=None,
+                graphs: Optional[DecodeGraphs] = None):
     """One token for the whole batch.  ``tokens`` (B, 1); ``position``
     (an int) is the absolute position of this token.  Attention caches are
     updated in place; an SSM's conv rings and state are new tensors in
     the returned caches.  Returns (logits (B, 1, V), caches).
+
+    With ``graphs`` and no mesh, a step on one of its cache sets writes
+    the other set and returns it, replaying a CUDA graph on a card
+    (``DecodeGraphs``); any other caches take the path above.
 
     Over ``mesh`` (a ``ProcessMesh``), ``params`` are this rank's blocks,
     ``tokens`` its rows, ``caches`` its blocks as ``cache_shards``
     (``sharding.cache_placements``) places them, and the logits its
     vocab shard; each layer gathers its FSDP blocks first, as
     ``forward`` does."""
+    d = None if graphs is None or mesh is not None else graphs.direction(
+        caches)
+    if d is None:
+        return _decode(params, tokens, caches, position, cfg, mesh,
+                       data_axes, cache_shards)
+    return graphs.step(d, lambda t, out: _decode(
+        params, t, caches, position, cfg, out=out)[0], tokens)
+
+
+def _decode(params, tokens: torch.Tensor, caches: List[dict], position,
+            cfg: ModelConfig, mesh=None,
+            data_axes: Tuple[str, ...] = ("data",), cache_shards=None,
+            out: Optional[List[dict]] = None):
+    """``decode_step`` run eagerly, each SSM layer's new conv rings and
+    state written into ``out``'s caches where they are given."""
     position = int(position)
     plan = _plan(cfg, mesh, data_axes)
     pls = _layer_k_shards(plan, cfg, cache_shards, caches, tokens.shape[0])
@@ -704,7 +801,7 @@ def decode_step(params, tokens: torch.Tensor, caches: List[dict], position,
             lp = plan.gather_layer(lp)
         c = dict(caches[i])
         x = _decode_layer(lp, x, c, position, positions, cfg, window, plan,
-                          pls[i])
+                          pls[i], None if out is None else out[i])
         new_caches.append(c)
     return _final(params, x, cfg, plan), new_caches
 
@@ -774,7 +871,8 @@ def _fill_ring(k: torch.Tensor, v: torch.Tensor, s_total: int,
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
             embeds: Optional[torch.Tensor] = None, mesh=None,
             data_axes: Tuple[str, ...] = ("data",),
-            last_logits_only: bool = False, cache_shards=None):
+            last_logits_only: bool = False, cache_shards=None,
+            caches: Optional[List[dict]] = None):
     """Forward pass that also builds the decode caches: each attention
     layer's K/V as a ring (``_fill_ring``; unquantized whatever
     ``kv_cache_dtype`` says, as in the reference), each SSM layer's conv
@@ -782,12 +880,24 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     ``last_logits_only`` unembeds just the final position.  Returns
     (logits, caches, next_position).
 
+    ``caches`` (an all-SSM model on one device: ``init_decode_caches``'
+    layout) are filled in place and returned: every layer writes its conv
+    rings and state into them, with the values it would return, and keeps
+    no view of its own temporaries.
+
     Over ``mesh``, ``tokens`` are this rank's rows and ``cache_shards``
     (required) lays out the whole batch's caches,
     ``sharding.cache_placements(cfg, mesh, batch, max_len)``, as
     ``decode_step`` takes it: each cache comes out as this rank's block,
     every KV head (gathered over a split ``"model"`` axis), the ring's
     sequence cut to this rank's slots."""
+    if caches is not None and (mesh is not None or cfg.family != "ssm"):
+        raise ValueError("prefill fills given caches only for an all-SSM "
+                         "model on one device")
+    if caches is not None and (caches[0]["ssm"]["state"].shape[0]
+                               != tokens.shape[0]):
+        raise ValueError(f"caches of {caches[0]['ssm']['state'].shape[0]} "
+                         f"rows for a batch of {tokens.shape[0]}")
     plan = _plan(cfg, mesh, data_axes)
     shards = _layout(plan, cfg, cache_shards, tokens.shape[0],
                      [None if cfg.family == "ssm" else _cache_len(w, max_len)
@@ -795,20 +905,22 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
     x = embed_tokens(params, tokens, cfg, embeds, plan)
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=x.device)
-    caches: List[dict] = []
+    built: List[dict] = []
     for i, window in enumerate(layer_windows(cfg)):
         lp = layer_params(params, i)
         if plan is not None:
             lp = plan.gather_layer(lp)
         y, cache = _mix(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                        window, positions, _cache_len(window, max_len), plan)
+                        window, positions, _cache_len(window, max_len), plan,
+                        None if caches is None else caches[i])
         if shards is not None:
             cache = _keep_block(cache, shards[i])
         x = _ffn(lp, x + y, cfg, plan=plan)
-        caches.append(cache)
+        built.append(cache)
     if last_logits_only:
         x = x[:, -1:]
-    return _final(params, x, cfg, plan), caches, s_total
+    return (_final(params, x, cfg, plan),
+            built if caches is None else caches, s_total)
 
 
 def prefill_scan(params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -31,6 +31,13 @@ Under tracing (``repro_torch.tracing``) a call is one
 step (counts ``rows`` computed and ``live_rows``, those whose request
 still needs the token) and a ``repro_torch.serve.fetch`` around each copy
 of the tokens to the host.
+
+An all-SSM model on one device decodes over two cache sets the engine
+keeps at fixed addresses from call to call (``T.DecodeGraphs``, made anew
+when the batch size changes): prefill fills one, each step writes the
+other, and on a card each step from the third on replays a CUDA graph of
+the whole step.  Each ``decode_step`` span counts ``graph``: 1 when that
+step replayed a captured graph, else 0.
 """
 from __future__ import annotations
 
@@ -81,15 +88,25 @@ class ServeEngine:
                              f"engine's device {self.device}")
         self.cfg, self.params, self.max_len = cfg, params, max_len
         self.mesh = mesh
-        # the current serve's batch and cache layout over the mesh; the
-        # calls below close over this dict, not over the engine, so that
-        # a dropped engine frees its parameters at once (no cycle)
-        self._layout = layout = {"batch": None, "shards": None}
+        # the current serve's batch and cache layout over the mesh, and
+        # the decode caches and graphs of an all-SSM model on one device
+        # (``T.DecodeGraphs``, kept for the newest batch size); the calls
+        # below close over this dict, not over the engine, so that a
+        # dropped engine frees its parameters at once (no cycle)
+        self._layout = layout = {"batch": None, "shards": None,
+                                 "graphs": None}
         self._decode = lambda p, t, c, pos: T.decode_step(
-            p, t, c, pos, cfg, mesh=mesh, cache_shards=layout["shards"])
-        self._prefill = lambda p, t: T.prefill(
-            p, t, cfg, max_len=max_len, mesh=mesh, last_logits_only=True,
-            cache_shards=layout["shards"])
+            p, t, c, pos, cfg, mesh=mesh, cache_shards=layout["shards"],
+            graphs=layout["graphs"])
+
+        def prefill(p, t):
+            g = layout["graphs"]
+            return T.prefill(
+                p, t, cfg, max_len=max_len, mesh=mesh, last_logits_only=True,
+                cache_shards=layout["shards"],
+                caches=g.sets[0] if g is not None and g.batch == t.shape[0]
+                else None)
+        self._prefill = prefill
 
     def _rows(self, b: int):
         """This rank's rows of a batch of ``b`` (all of them without a
@@ -127,6 +144,13 @@ class ServeEngine:
             if self.mesh is not None:
                 self._layout.update(batch=b, shards=SH.cache_placements(
                     self.cfg, self.mesh, b, self.max_len))
+            elif self.cfg.family == "ssm" and (
+                    self._layout["graphs"] is None
+                    or self._layout["graphs"].batch != b):
+                # the old size's caches and graphs go before the new come
+                self._layout["graphs"] = None
+                self._layout["graphs"] = T.DecodeGraphs(self.cfg, b,
+                                                        self.device)
 
             def gather(t: torch.Tensor) -> np.ndarray:
                 """Every row's tokens on the host: where the host waits for
@@ -162,6 +186,10 @@ class ServeEngine:
                                            live_rows=int(live[rows].sum()))
                     logits, caches = self._decode(self.params, cur, caches,
                                                   s0 + t)
+                    if step is not None:
+                        g = self._layout["graphs"]
+                        step.counts["graph"] = int(
+                            g is not None and g.last in ("capture", "replay"))
                     cur = self._greedy(logits)
                     outs.append(gather(cur))
             gen = np.concatenate(outs, axis=1)

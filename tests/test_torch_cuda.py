@@ -426,6 +426,108 @@ def test_reduced_lm_on_card_matches_cpu_port(cuda):
         assert (a.tokens == b.tokens).all()
 
 
+def _served_steps(engine, batches, budget, T):
+    """Each batch of ``batches`` (lists of prompts) served in turn under
+    ``tracing.on()``, with ``T.decode_step`` recording every step: its
+    logits copied and how its ``graphs`` ran it (None without them).
+    Returns, a call each, (tokens, [(how, logits)], decode spans'
+    ``graph`` counts)."""
+    from repro_torch import tracing
+    from repro_torch.serve.engine import Request
+
+    step, log, out = T.decode_step, [], []
+
+    def recording(*a, **kw):
+        r = step(*a, **kw)
+        g = kw.get("graphs")
+        log.append((g.last if g is not None else None, r[0].clone()))
+        return r
+    T.decode_step = recording
+    try:
+        for prompts in batches:
+            tracing.clear()
+            with tracing.on():
+                res = engine.serve([Request(p, max_new_tokens=budget)
+                                    for p in prompts])
+            counts = [r.counts["graph"] for r in tracing.spans()
+                      if r.name == "repro_torch.serve.decode_step"]
+            out.append(([r.tokens.tolist() for r in res], list(log), counts))
+            log.clear()
+    finally:
+        T.decode_step = step
+        tracing.clear()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_lm_decode_graphs_match_eager_on_card(cuda, dtype):
+    """An all-SSM engine on the card decodes over its own two cache sets:
+    the first step each way eager, the second captured, the rest
+    replayed, and again at a new batch size.  Three calls (3 rows, 3
+    again, then 2) give tokens and every step's logits bitwise those of
+    the same engine whose ``decode_step`` runs without its graphs (eager,
+    new caches each step).  The reduced hybrid gets no graphs, counts
+    ``graph`` 0, and serves the tokens of its plain prefill and steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              dtype=dtype)
+    params = M.init_params(T.param_defs(cfg), prng.PRNGKey(0), cuda)
+    g = torch.Generator().manual_seed(7)
+    tok = lambda n: torch.randint(1, cfg.vocab, (n,), generator=g).numpy()
+    three = [tok(n) for n in (45, 36, 27)]
+    batches = [three, three, [tok(n) for n in (30, 41)]]
+    graphed = _served_steps(ServeEngine(cfg, params, 64), batches, 8, T)
+
+    step = T.decode_step
+    without = lambda *a, graphs=None, **kw: step(*a, **kw)
+    T.decode_step = without
+    try:
+        eager = _served_steps(ServeEngine(cfg, params, 64), batches, 8, T)
+    finally:
+        T.decode_step = step
+    first = ["eager", "eager", "capture", "capture", "replay", "replay",
+             "replay"]
+    assert [[how for how, _ in c[1]] for c in graphed] == [
+        first, ["replay"] * 7, first]
+    assert [c[2] for c in graphed] == [[0, 0, 1, 1, 1, 1, 1], [1] * 7,
+                                       [0, 0, 1, 1, 1, 1, 1]]
+    for (gt, gl, _), (et, el, ecounts) in zip(graphed, eager):
+        assert gt == et
+        assert all(how is None for how, _ in el) and ecounts == [0] * 7
+        assert len(gl) == len(el) == 7
+        for (_, a), (_, b) in zip(gl, el):
+            assert a.dtype == torch.float32 and _same(a, b)
+
+    hcfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                               dtype=dtype)
+    hp = M.init_params(T.param_defs(hcfg), prng.PRNGKey(0), cuda)
+    engine = ServeEngine(hcfg, hp, 64)
+    prompts = [tok(40) for _ in range(3)]
+    ((tokens, log, counts),) = _served_steps(engine, [prompts], 6, T)
+    assert engine._layout["graphs"] is None
+    assert [how for how, _ in log] == [None] * 5 and counts == [0] * 5
+    pick = lambda lg: torch.argmax(lg[:, -1:, :hcfg.vocab], -1).to(
+        torch.int32)
+    with torch.inference_mode():
+        lg, caches, pos = T.prefill(
+            hp, torch.stack([torch.from_numpy(p) for p in prompts]).to(cuda),
+            hcfg, 64, last_logits_only=True)
+        cur = pick(lg)
+        want = [cur]
+        for t in range(5):
+            lg, caches = T.decode_step(hp, cur, caches, pos + t, hcfg)
+            cur = pick(lg)
+            want.append(cur)
+    assert tokens == torch.cat(want, 1).cpu().tolist()
+
+
 def _heads_engines(h=60, w=100, duration=0.05):
     from repro_torch.serve import heads
 

@@ -265,6 +265,149 @@ def test_serve_engine_matches_reference(weights):
         assert float(gap) > 1e-3
 
 
+def _bytes(t):
+    return t.numel() * t.element_size()
+
+
+def test_prefill_fills_given_caches_bitwise(weights):
+    """``prefill(caches=)`` fills ``init_decode_caches``' tensors in place
+    with bitwise the caches it builds without them, and returns them;
+    every ring's storage is its own (B, K-1, C): the layer's whole conv
+    input (B, K-1+S, C) is not kept alive by a view of it."""
+    _, tp, _ = weights
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (2, 200)).astype(np.int32))
+    with torch.inference_mode():
+        want_l, want, want_pos = tT.prefill(tp, tokens, TCFG, 256,
+                                            last_logits_only=True)
+        given = tT.init_decode_caches(TCFG, 2, 256, device="cpu")
+        ptrs = [v.data_ptr() for c in given
+                for v in tmodule.flatten(c).values()]
+        got_l, got, pos = tT.prefill(tp, tokens, TCFG, 256,
+                                     last_logits_only=True, caches=given)
+    assert got is given and pos == want_pos
+    assert torch.equal(got_l, want_l)
+    assert [v.data_ptr() for c in got
+            for v in tmodule.flatten(c).values()] == ptrs
+    for g, w in zip(got, want):
+        gf, wf = tmodule.flatten(g), tmodule.flatten(w)
+        assert set(gf) == set(wf)
+        for k, v in gf.items():
+            assert v.dtype == wf[k].dtype and torch.equal(v, wf[k]), k
+            assert v.untyped_storage().nbytes() == _bytes(v), k
+    ring = got[0]["ssm"]["conv"]["x"]
+    assert tuple(ring.shape) == (2, TCFG.conv_kernel - 1, 128)
+    with pytest.raises(ValueError, match="rows"):
+        tT.prefill(tp, tokens[:1], TCFG, 256, caches=given)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_decode_step_into_out_is_bitwise(weights, dtype):
+    """``ssm_decode_step(..., out=)`` writes bitwise the functional step's
+    conv rings and state into ``out``'s tensors, returns those, gives the
+    same output, and leaves its inputs as they were."""
+    _, tlp = _layer0(weights)
+    rng = np.random.default_rng(10)
+    r = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    x = r(3, 1, 64).to(dtype)
+    conv = {"x": r(3, 3, 128).to(dtype), "b": r(3, 3, 16).to(dtype),
+            "c": r(3, 3, 16).to(dtype)}
+    st = r(3, 8, 16, 16)
+    before = ({k: v.clone() for k, v in conv.items()}, st.clone())
+    y, (nconv, nst) = tssm.ssm_decode_step(tlp, x, TCFG, conv, st)
+    out = ({k: torch.full_like(v, float("nan")) for k, v in conv.items()},
+           torch.full_like(st, float("nan")))
+    oy, (oconv, ost) = tssm.ssm_decode_step(tlp, x, TCFG, conv, st, out=out)
+    assert ost is out[1] and all(oconv[k] is out[0][k] for k in conv)
+    assert torch.equal(oy, y) and torch.equal(ost, nst)
+    for k in conv:
+        assert torch.equal(oconv[k], nconv[k])
+        assert torch.equal(conv[k], before[0][k])
+    assert torch.equal(st, before[1])
+
+
+def test_ssm_decode_step_reads_no_position(weights):
+    """An all-SSM ``decode_step`` gives bitwise the same logits and caches
+    at any ``position``: one captured graph serves every step."""
+    _, tp, _ = weights
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (2, 30)).astype(np.int32))
+    with torch.inference_mode():
+        _, caches, pos = tT.prefill(tp, tokens[:, :-1], TCFG, 64)
+        a, ca = tT.decode_step(tp, tokens[:, -1:], caches, pos, TCFG)
+        b, cb = tT.decode_step(tp, tokens[:, -1:], caches, pos + 17, TCFG)
+    assert torch.equal(a, b)
+    for x, y in zip(ca, cb):
+        fx, fy = tmodule.flatten(x), tmodule.flatten(y)
+        assert all(torch.equal(fx[k], fy[k]) for k in fx)
+
+
+def test_serve_engine_keeps_its_decode_caches(weights, monkeypatch):
+    """The engine's decode caches stay at their addresses from call to
+    call of one batch size: prefill fills set A, the steps go A -> B ->
+    A ...; another size replaces both sets, and the first size again
+    still gives the JAX engine's tokens.  On the CPU no step replays a
+    graph: every decode-step span counts ``graph`` 0."""
+    from repro_torch import tracing
+
+    jp, tp, _ = weights
+    rng = np.random.default_rng(12)
+    three = [rng.integers(1, 256, n).astype(np.int32) for n in (40, 23, 57)]
+    two = [rng.integers(1, 256, n).astype(np.int32) for n in (31, 18)]
+    je = jengine.ServeEngine(JCFG, jp, max_len=128)
+    te = tengine.ServeEngine(TCFG, tp, max_len=128, device="cpu")
+    want = {len(ps): [r.tokens for r in je.serve(
+        [jengine.Request(p, max_new_tokens=6) for p in ps])]
+        for ps in (three, two)}
+    read = []            # (caches each step read, its graphs)
+    step = tT.decode_step
+
+    def recording(params, tokens, caches, *a, **kw):
+        read.append((caches, kw.get("graphs")))
+        return step(params, tokens, caches, *a, **kw)
+    monkeypatch.setattr(tT, "decode_step", recording)
+
+    def ptrs(g):
+        return [v.data_ptr() for s in g.sets for c in s
+                for v in tmodule.flatten(c).values()]
+
+    tracing.clear()
+    seen = []
+    with tracing.on():
+        for ps in (three, three, two, three):
+            got = te.serve([tengine.Request(p, max_new_tokens=6)
+                            for p in ps])
+            for t, w in zip(got, want[len(ps)]):
+                np.testing.assert_array_equal(t.tokens, w)
+            g = te._layout["graphs"]
+            assert g.batch == len(ps) and g.last == "eager"
+            # five steps, from A, B, A, B, A: each reads one of the sets
+            calls, read[:] = list(read), []
+            assert [g.direction(c) for c, _ in calls] == [0, 1, 0, 1, 0]
+            assert all(h is g for _, h in calls)
+            seen.append((g, ptrs(g)))
+    steps = [r for r in tracing.spans()
+             if r.name == "repro_torch.serve.decode_step"]
+    tracing.clear()
+    assert seen[1][0] is seen[0][0] and seen[1][1] == seen[0][1]
+    assert seen[2][0] is not seen[1][0] and seen[3][0] is not seen[2][0]
+    assert len(steps) == 4 * 5
+    assert all(r.counts["graph"] == 0 for r in steps)
+    # no reference cycle: a dropped engine frees its caches at once
+    import gc
+    import weakref
+
+    gone = [weakref.ref(te), weakref.ref(te._layout["graphs"])]
+    del g, calls, seen
+    gc.disable()
+    try:
+        del te
+        assert all(r() is None for r in gone)
+    finally:
+        gc.enable()
+
+
 # ----------------------------------------------------- configs and plumbing
 
 def test_config_registry_matches_reference():
