@@ -1,7 +1,8 @@
 """Finding the benchmark's pieces by name: ``BENCHMARK.json`` at the root
 of the checkout, ``configs/<config>.json``, ``workloads/<cell>.json``,
-``reference/<config>.py``, ``metrics/<metric>.py`` and
-``loops/<loop>.py`` under this directory."""
+``reference/<config>.py``, ``work/<config>.py`` (where a configuration
+brings one), ``metrics/<metric>.py`` and ``loops/<loop>.py`` under this
+directory."""
 from __future__ import annotations
 
 import importlib.util
@@ -59,6 +60,19 @@ def workload(name: str) -> dict:
 
 def reference(config_name: str):
     return module(HERE / "reference" / f"{config_name}.py")
+
+
+def work(config_name: str):
+    """``request_flops(m, prompt, new)`` of configuration ``config_name``:
+    that of ``work/<config>.py`` where the configuration brings one (a
+    block the yardstick does not count), ``yardstick.request_flops``
+    otherwise."""
+    path = HERE / "work" / f"{config_name}.py"
+    if path.is_file():
+        return module(path).request_flops
+    from perfbench import yardstick
+
+    return yardstick.request_flops
 
 
 def metric(name: str):

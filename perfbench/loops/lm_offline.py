@@ -306,9 +306,9 @@ def _rel(x: torch.Tensor, ref: torch.Tensor) -> float:
 
 def window_numbers(ctx: dict) -> dict:
     """Requests, real tokens, per-request latencies and useful FLOPs of
-    the window's batches (all completed)."""
-    from perfbench import yardstick
-
+    the window's batches (all completed); the FLOPs by the work count
+    of the workload's configuration (``load.work``)."""
+    request_flops = load.work(ctx["workload"]["config"])
     lat, tokens, flops, attempted, failed = [], 0, 0.0, 0, 0
     for rec in ctx["records"]:
         b = rec["batch"]
@@ -319,6 +319,6 @@ def window_numbers(ctx: dict) -> dict:
                 continue
             lat.append(rec["t1"] - rec["t0"])
             tokens += len(p) + n
-            flops += yardstick.request_flops(ctx["model"], len(p), n)
+            flops += request_flops(ctx["model"], len(p), n)
     return dict(latencies_s=lat, tokens=tokens, flops=flops,
                 attempted=attempted, failed=failed)

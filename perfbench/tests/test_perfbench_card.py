@@ -5,7 +5,7 @@ import pytest
 import torch
 
 from perfbench import load, run
-from perfbench.tests.conftest import SMALL_TRAFFIC, TINY
+from perfbench.tests.conftest import SMALL_TRAFFIC, tiny
 
 CELLS = [w["name"] for w in load.benchmark()["workloads"]]
 
@@ -19,7 +19,7 @@ def test_tiny_run_on_the_card(tmp_path, cell, trace):
     cfg = load.workload(cell)["config"]
     r = run.main(["--workload", cell, "--seed", "2147483659", "--seconds",
                   "0.5", "--trace", str(trace), "--out", str(tmp_path)],
-                 device="cuda", shrink=dict(TINY[cfg], dtype="float32"),
+                 device="cuda", shrink=dict(tiny(cfg), dtype="float32"),
                  wl_patch=SMALL_TRAFFIC)
     assert r["correct"] and r["device"]["platform"] == "cuda"
     names = {m["name"] for m in load.metrics_of(load.benchmark(), cell,

@@ -46,10 +46,10 @@ def test_rehearsal_leaves_no_forbidden_module(tmp_path):
 import json, sys
 sys.path[:0] = [{str(load.ROOT)!r}, {str(load.ROOT / 'src')!r}]
 from perfbench import run
-from perfbench.tests.conftest import SMALL_TRAFFIC, TINY
+from perfbench.tests.conftest import SMALL_TRAFFIC, tiny
 run.main(["--workload", "mamba2-2.7b.docs", "--seed", "7", "--seconds",
           "0.2", "--out", {str(tmp_path)!r}], device="cpu",
-         shrink=dict(TINY["mamba2-2.7b"], dtype="float32"),
+         shrink=dict(tiny("mamba2-2.7b"), dtype="float32"),
          wl_patch=SMALL_TRAFFIC)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """

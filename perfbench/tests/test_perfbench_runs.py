@@ -5,7 +5,7 @@ import pytest
 import torch
 
 from perfbench import load, run
-from perfbench.tests.conftest import SMALL_TRAFFIC, TINY
+from perfbench.tests.conftest import SMALL_TRAFFIC, tiny
 
 CELLS = [w["name"] for w in load.benchmark()["workloads"]]
 
@@ -19,7 +19,7 @@ def _run(tmp_path, cell, dtype="float32", fault=None, limits=None,
     return run.main(["--workload", cell, "--seed", "2147483659",
                      "--seconds", "0.3", "--trace", str(trace),
                      "--out", str(tmp_path)],
-                    device="cpu", shrink=dict(TINY[cfg], dtype=dtype),
+                    device="cpu", shrink=dict(tiny(cfg), dtype=dtype),
                     fault=fault, wl_patch=patch)
 
 

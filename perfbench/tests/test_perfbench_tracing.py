@@ -9,16 +9,32 @@ nothing."""
 import pytest
 
 from perfbench import load, traffic
-from perfbench.tests.conftest import TINY
+from perfbench.tests.conftest import tiny
 
 CELLS = [w["name"] for w in load.benchmark()["workloads"]]
 READERS = ("prefill.pad_pct", "decode.dead_row_pct",
            "decode.kernels_per_step", "decode.idle_pct", "prefill.idle_pct",
            "engine.first_token_ms")
-#: 100 x padded slots / slots of each cell's batch: docs prefills 32,768
-#: slots for 24,576 real tokens, short 32,768 for 18,432
-PAD_PCT = {"mamba2-2.7b.docs": 25.0, "mamba2-2.7b.short": 43.75}
 SEED = 2147483659
+
+
+def pad_pct(cell):
+    """100 x the left padding of batch 0 of ``cell`` over its prompt
+    slots (the batch times its longest prompt), from the cell's own
+    traffic."""
+    wl = load.workload(cell)
+    vocab = tiny(wl["config"])["vocab"]
+    lens = [len(p) for p in traffic.make_batch(wl, vocab, SEED, 0).prompts]
+    slots = len(lens) * max(lens)
+    return 100 * (slots - sum(lens)) / slots
+
+
+@pytest.mark.parametrize("cell, pct", [("mamba2-2.7b.docs", 25.0),
+                                       ("mamba2-2.7b.short", 43.75)])
+def test_pad_share_of_the_mamba2_cells(cell, pct):
+    """docs prefills 32,768 slots for 24,576 real tokens, short 32,768
+    for 18,432."""
+    assert pad_pct(cell) == pct
 
 
 def _served_call(cell):
@@ -28,7 +44,7 @@ def _served_call(cell):
 
     wl = load.workload(cell)
     cfg = load.config(wl["config"])
-    shrink = dict(TINY[cfg["name"]], dtype="float32")
+    shrink = dict(tiny(cfg["name"]), dtype="float32")
     model = dict(cfg["model"], **shrink)
     loop = load.loop(wl["loop"])
     pcfg = loop.program_config(cfg, model, shrink)
@@ -86,12 +102,12 @@ def _placed(call):
 def test_readers_read_the_call_and_the_placed_activities(cell):
     call = _served_call(cell)
     dev, want = _placed(call)
-    want["prefill.pad_pct"] = PAD_PCT[cell]
+    want["prefill.pad_pct"] = pad_pct(cell)
     ctx = dict(trace={"device": dev})
     got = {n: load.metric(n).read(ctx) for n in READERS}
     assert got == pytest.approx(want, rel=1e-12, abs=0)
     # the traffic's own numbers, exactly
-    assert got["prefill.pad_pct"] == PAD_PCT[cell]
+    assert got["prefill.pad_pct"] == want["prefill.pad_pct"]
     assert got["decode.dead_row_pct"] == 50.0
     assert got["decode.kernels_per_step"] == 4.0
 
